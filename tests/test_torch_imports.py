@@ -1,0 +1,104 @@
+"""Hygiene of the port: it imports neither JAX nor the reference package, its
+entry points run on the card unless the CPU is asked for, and its kernel
+wrappers never fall back from the card to the CPU."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as dec_mod
+from repro_torch.kernels import lags_select as lags_mod
+from repro_torch.launch import serve
+from repro_torch.models import model
+from repro_torch.models.params import init_params
+from repro_torch.sched import cuda_backend
+from repro_torch.serving.engine import Engine, EngineConfig
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_no_reference(path):
+    bad = {"jax", "jaxlib", "repro"} & set(_imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_engine_raises_without_card_unless_cpu(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(EngineConfig(), {})
+    assert Engine(EngineConfig(), {}, device="cpu").device.type == "cpu"
+
+
+def test_model_entry_points_raise_without_card_unless_cpu(no_card):
+    cfg = reduced(get_config("qwen3-8b"), n_layers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(cfg, 2, 8)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    cache = model.init_cache(cfg, 2, 8, device="cpu")
+    batch = {"tokens": np.zeros((2, 1), np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.decode_step(params, cfg, batch, cache, 0)
+    logits, _ = model.decode_step(params, cfg, batch, cache, 0, device="cpu")
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+
+
+def test_serve_raises_without_card_unless_cpu(no_card, capsys):
+    argv = ["--tenants", "8", "--duration", "0.5"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(argv)
+    assert len(serve.main(argv + ["--device", "cpu"]).completed) >= 0
+    assert "policy=lags" in capsys.readouterr().out
+
+
+def test_tick_and_pick_on_cuda_request_raises(no_card):
+    z = np.zeros(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_backend.tick_and_pick(z, z, z, np.ones(4, bool), 2)
+
+
+def test_wrappers_do_not_fall_back_to_the_plain_version(monkeypatch):
+    """A tensor that is not on the CPU never reaches the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(lags_mod, "lags_select_plain", boom)
+    monkeypatch.setattr(dec_mod, "decode_attention_plain", boom)
+    m = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lags_mod.lags_select(m(8), m(8), m(8), m(8, dt=torch.bool), 2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dec_mod.decode_attention(m(1, 2, 16), m(1, 2, 32, 16),
+                                 m(1, 2, 32, 16), m(1, dt=torch.int32))
+    with pytest.raises(ValueError, match="several devices"):
+        lags_mod.lags_select(m(8), torch.zeros(8), m(8), m(8, dt=torch.bool), 2)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc()
