@@ -6,7 +6,7 @@
 Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``, in
+2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, in
    parallel, with the compiler's register and spill report;
 3. ``lags_select`` against its plain PyTorch version: T in {256, 1024,
    4096, 65536} with k=16, few runnable tenants, all credits equal, and credits
@@ -15,10 +15,16 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 4. ``decode_attention`` against its plain version: the reference's test
    shapes at G=1, and the engine's shape B=16, H=32, Hkv=8, D=128 at
    L in {512, 4096} with kv_len including L-7, read through the model's
-   (B, L, Hkv, D) cache view; f32 and bf16 at the reference's tolerances;
-5. times at the main path's shapes: kernel, plain version, and for decode
-   attention ``scaled_dot_product_attention`` as a yardstick (the port never
-   calls it), with the least time the card could take (``bound_ms``);
+   (B, L, Hkv, D) cache view; ``flash_attention`` at the reference's test
+   shapes for (causal, 0), (causal, 128) and (non-causal, 0), a GQA case and
+   ragged S read through the (B, S, H, D) projection view, and the Qwen3-8B
+   prefill shape; ``ssm_scan`` at the reference's shapes, with a nonzero h0,
+   and the falcon-mamba chunk shape; f32 and bf16 at the reference's
+   tolerances (1e-4 for the scan);
+5. times at the main paths' shapes: kernel, plain version, and where one
+   PyTorch call computes the same function (``scaled_dot_product_attention``)
+   that call as a yardstick (the port never calls it), with the least time
+   the card could take (``bound_ms``);
 6. serving on the cost model: ``repro_torch.launch.serve.main`` at 4096
    tenants; its credit kernel launches once per busy engine step; a 300-tenant
    run on the card prints the same summary as on the CPU;
@@ -28,7 +34,19 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    same scheduling as the CPU engine (first, the reduced decoder in f32 on
    the card equals the CPU's); then the ms of one decode step at the full
    cache, and a profile of it by kernel;
-8. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` last.
+8. prefill of the reduced Qwen3-8B (G=2) and falcon-mamba in f32: the card
+   (kernels) equals the CPU (plain versions) in logits and every cache leaf;
+9. Qwen3-8B prefill at full width and depth with phase 7's weights: B=4,
+   S=2048 into a cache of 2112, 36 ``flash_attention`` launches, then 64
+   decode steps from that cache; ms, tokens/s, a profile by kernel, finite
+   logits, and prefill(S) against prefill(S-1) + one decode step (cosine
+   similarity >= 0.99);
+10. falcon-mamba-7b prefill at full width and depth (64 layers, bf16, random
+    weights from seed 0): B=4, S=1024 in chunks of 256, 64 x 4
+    ``ssm_scan`` launches, then 32 decode steps, with the same numbers and
+    checks as phase 9;
+11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
+    last.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It exits nonzero at once where no card is present.
@@ -49,6 +67,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no sparsity
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),  # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSM_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py, the scan
 
 
 def require(cond, msg):
@@ -199,6 +218,98 @@ def check_decode(torch, dec):
     return errs
 
 
+FLASH_MASKS = [(True, 0), (True, 128), (False, 0)]
+QWEN_PREFILL = dict(B=4, H=32, Hkv=8, S=2048, D=128)  # the phase 9 shape
+MAMBA_CHUNK = dict(B=4, S=256, I=8192, N=16)  # one scan of phase 10
+
+
+def within(got, want, tol):
+    """(ok, max abs error, values outside atol + rtol * |want|)."""
+    diff = (got.float() - want.float()).abs()
+    bad = int((diff > tol["atol"] + tol["rtol"] * want.float().abs()).sum())
+    err = float(diff.max())
+    return bad == 0 and math.isfinite(err), err, bad
+
+
+def flash_inputs(torch, gen, B, H, Hkv, S, D, dtype, pad=0):
+    """q, k, v as the model hands them in: its (B, S, heads, D)
+    projections seen as (B, heads, S, D), each row padded by ``pad``."""
+    dt = getattr(torch, dtype)
+    n = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)  # noqa: E731
+    return tuple(n(B, S, h, D + pad)[..., :D].permute(0, 2, 1, 3)
+                 for h in (H, Hkv, Hkv))
+
+
+def flash_cases():
+    # (B, H, Hkv, S, D, pad, masks): tests/test_kernels.py at G=1; GQA and
+    # an S that is no multiple of the 64-row tile; rows padded by one
+    # element (odd strides: bf16 then takes the CUDA-core kernel); then the
+    # Qwen3-8B prefill
+    out = [(1, 1, 1, 128, 64, 0), (2, 2, 2, 256, 128, 0),
+           (1, 4, 4, 512, 128, 0), (2, 8, 2, 300, 64, 0),
+           (1, 4, 2, 77, 16, 0), (2, 4, 4, 200, 80, 0), (2, 4, 2, 130, 64, 1)]
+    out = [c + (FLASH_MASKS,) for c in out]
+    return out + [tuple(QWEN_PREFILL.values()) + (0, [(True, 0)])]
+
+
+def check_flash(torch, fa):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        for B, H, Hkv, S, D, pad, masks in flash_cases():
+            q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype, pad)
+            route = "tensor cores" if fa.on_tensor_cores(q, k, v) \
+                else "CUDA cores"
+            for causal, window in masks:
+                got = fa.flash_attention(q, k, v, causal=causal, window=window)
+                want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window)
+                torch.cuda.synchronize()
+                ok, err, bad = within(got, want, TOL[dtype])
+                name = (f"flash_attention {dtype} B={B} H={H} Hkv={Hkv} S={S} "
+                        f"D={D} causal={causal} window={window} ({route})")
+                require(ok, f"{name}: {bad} values outside {TOL[dtype]}, "
+                        f"max err {err}")
+                errs[(dtype, B, H, Hkv, S, D, causal, window)] = err
+                print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}")
+    return errs
+
+
+def ssm_inputs(torch, gen, B, S, I, N, dtype="float32", h0_scale=1.0):
+    """The reference test's distributions: dA = exp(-dt * a) in (0, 1),
+    dBx = dt * noise * 0.1; h0 nonzero unless h0_scale is 0."""
+    n = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    dt = torch.nn.functional.softplus(n(B, S, I, 1) - 1.0)
+    dA = torch.exp(-dt * torch.exp(n(1, 1, I, N) * 0.2))
+    dBx = dt * n(B, S, I, N) * 0.1
+    cast = getattr(torch, dtype)
+    return dA.to(cast), dBx.to(cast), n(B, S, N).to(cast), n(B, I, N) * h0_scale
+
+
+def check_ssm(torch, ssm):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {}
+    cases = [(1, 128, 256, 8, 0.0), (2, 256, 512, 16, 0.0),
+             (1, 128, 128, 8, 1.0), (2, 37, 64, 16, 1.0),
+             tuple(MAMBA_CHUNK.values()) + (1.0,)]
+    for dtype in ("float32", "bfloat16"):
+        tol = SSM_TOL if dtype == "float32" else TOL[dtype]
+        for B, S, I, N, h0_scale in cases:
+            dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N, dtype, h0_scale)
+            y, h = ssm.ssm_scan(dA, dBx, C, h0)
+            y_p, h_p = ssm.ssm_scan_plain(dA, dBx, C, h0)
+            torch.cuda.synchronize()
+            ok_y, err_y, bad_y = within(y, y_p, tol)
+            ok_h, err_h, bad_h = within(h, h_p, SSM_TOL)
+            name = f"ssm_scan {dtype} B={B} S={S} I={I} N={N} h0x{h0_scale}"
+            require(ok_y and ok_h, f"{name}: {bad_y} y and {bad_h} h values "
+                    f"outside tolerance, max err {err_y}, {err_h}")
+            errs[(dtype, B, S, I, N)] = max(err_y, err_h)
+            print(f"{name}: max_abs_err y={err_y:.3e} h={err_h:.3e} "
+                  f"within {tol}")
+    return errs
+
+
 # -- phase 5 --------------------------------------------------------------
 
 
@@ -241,6 +352,51 @@ def time_decode(torch, dec, timer, B=16, H=32, Hkv=8, L=512, D=128,
                 bound_by=by)
 
 
+def time_flash(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
+    require(fa.on_tensor_cores(q, k, v), "the prefill shape must take the "
+            "tensor-core kernel")
+    ms = timer.ms(lambda: fa.flash_attention(q, k, v), iters=10)
+    plain_ms = timer.ms(lambda: fa.flash_attention_plain(q, k, v), iters=10)
+    # yardstick only: one PyTorch call for the same function
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, enable_gqa=True)
+    library_ms = timer.ms(sdpa, iters=10)
+    profile(torch, "SDPA at the prefill shape (which backend runs)", sdpa,
+            n_steps=1)
+    # the f32 CUDA-core kernel on the same values, rows padded by one
+    qp, kp, vp = (torch.nn.functional.pad(x, (0, 1))[..., :D] for x in (q, k, v))
+    require(not fa.on_tensor_cores(qp, kp, vp), "padded rows take the "
+            "CUDA-core kernel")
+    cuda_core_ms = timer.ms(lambda: fa.flash_attention(qp, kp, vp), iters=5)
+    print(f"time flash_attention on the CUDA cores (odd strides), same "
+          f"shape: ms={cuda_core_ms:.4f}")
+    esize = 2 if dtype == "bfloat16" else 4
+    n_bytes = B * S * (2 * H + 2 * Hkv) * D * esize  # q, k, v in; out
+    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
+    n_ops = 4 * pairs * D * B * H  # q.k and p.v, 2 flops a multiply-add
+    b, by = bound_ms(n_bytes, n_ops, dtype)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
+                bound_by=by)
+
+
+def time_ssm(torch, ssm, timer, B, S, I, N):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N)
+    ms = timer.ms(lambda: ssm.ssm_scan(dA, dBx, C, h0))
+    plain_ms = timer.ms(lambda: ssm.ssm_scan_plain(dA, dBx, C, h0), iters=5)
+    # f32: dA, dBx, C, h0 in; y, h_last out
+    n_bytes = 4 * (2 * B * S * I * N + B * S * N + 2 * B * I * N + B * S * I)
+    n_ops = 4 * B * S * I * N  # h = a*h + b, y += h*c
+    b, by = bound_ms(n_bytes, n_ops, "float32")
+    # no one PyTorch call computes a selective scan
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
+                bound_by=by)
+
+
 # -- phases 6 and 7 -------------------------------------------------------
 
 
@@ -269,6 +425,15 @@ def serve_cost_model(torch, ops, serve):
           f"lags_select launches={n['lags_select']}")
 
 
+def to(tree, dev):
+    """A copy of a parameter or cache tree on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def check_model_small(torch):
     """The reduced decoder on the card (kernels) against the CPU (plain
     versions), in f32: the same logits and greedy tokens."""
@@ -278,13 +443,6 @@ def check_model_small(torch):
 
     cfg = reduced(get_config("qwen3-8b"), n_layers=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
 
     on = {"cpu": params, "cuda": to(params, "cuda")}
     caches = {dev: model.init_cache(cfg, 4, 16, device=dev)
@@ -382,15 +540,15 @@ def serve_qwen3_8b(torch, ops, serve):
           f"median {step_ms[len(step_ms) // 2]:.3f} ms, min {step_ms[0]:.3f} ms "
           f"over {len(step_ms)} steps; bound {weight_bytes / 1e9:.2f} GB of "
           f"weights / 3.35 TB/s = {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms")
-    profile_decode(torch, lambda: model.decode_step(
+    profile(torch, "decode step", lambda: model.decode_step(
         params, cfg, {"tokens": tokens}, eng._cache, max_len - 1,
         device="cuda"))
-    return n
+    return n, params
 
 
-def profile_decode(torch, step, n_steps=3):
-    """Where a decode step's time goes: device time by kernel, and the
-    share of the step's wall time the card is busy."""
+def profile(torch, label, step, n_steps=3):
+    """Where a step's time goes: device time by kernel, and the share of
+    the step's wall time the card is busy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -407,10 +565,179 @@ def profile_decode(torch, step, n_steps=3):
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"profile decode step (profiler on): wall {wall_ms:.3f} ms, "
+    print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms, "
           f"kernels {busy:.3f} ms, device busy {100 * busy / wall_ms:.1f}%")
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.3f} ms {count:5d}x  {key[:110]}")
+
+
+# -- phases 8 to 10 -------------------------------------------------------
+
+
+def check_prefill_small(torch):
+    """The reduced prefill in f32 on the card (kernels) against the CPU
+    (plain versions): logits and every cache leaf, then one decode step."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import model
+    from repro_torch.models.params import init_params
+
+    # S = 100 leaves a ragged 64-row tile; S = 300 a ragged 256-token chunk
+    for name, overrides, S in (("qwen3-8b", {"n_kv_heads": 2}, 100),
+                               ("falcon-mamba-7b", {}, 300)):
+        cfg = reduced(get_config(name), n_layers=2, **overrides)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        toks = torch.randint(0, cfg.vocab_size, (3, S + 1), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(1))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p, t = to(params, dev), toks.to(dev)
+            logits, cache = model.prefill(p, cfg, {"tokens": t[:, :S]},
+                                          max_len=S + 1, device=dev)
+            step, cache = model.decode_step(p, cfg, {"tokens": t[:, S:]},
+                                            cache, S, device=dev)
+            out[dev] = [logits, step] + [v for c in cache for v in c.values()]
+        worst = 0.0
+        for got, want in zip(out["cuda"], out["cpu"]):
+            want = want.float()
+            err = float((got.float().cpu() - want).abs().max())
+            require(err <= 1e-4 + 1e-4 * float(want.abs().max()),
+                    f"reduced {name} prefill: card vs CPU max err {err}")
+            worst = max(worst, err / max(1.0, float(want.abs().max())))
+        print(f"reduced {name} f32 prefill S={S} + 1 decode step: card "
+              f"(kernels) = CPU (plain versions) in logits and "
+              f"{len(out['cpu']) - 2} cache leaves, worst error / scale "
+              f"{worst:.3e}")
+
+
+def prefill_full(torch, ops, cfg, params, B, S, n_decode, kernel, launches):
+    """Prefill of B prompts of S random tokens, then ``n_decode`` greedy
+    decode steps from its cache.  The prefill must launch ``kernel``
+    ``launches`` times.  Returns those launches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models import model
+
+    max_len = S + n_decode
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(8))
+    run = lambda t, n=max_len: model.prefill(  # noqa: E731
+        params, cfg, {"tokens": t}, max_len=n, device="cuda")
+    run(toks[:, :64])  # warm-up: cuBLAS and the kernels' first launches
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = run(toks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    n = ops.launch_counts()
+    require(n[kernel] == launches,
+            f"{kernel} launches {n[kernel]} in the {cfg.name} prefill, "
+            f"want {launches}")
+    require(logits.shape == (B, cfg.vocab_size), f"logits {logits.shape}")
+    require(bool(torch.isfinite(logits).all()),
+            f"{cfg.name} prefill: non-finite logits")
+    secs = [first_s]
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(toks)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = sorted(secs)[1]
+    print(f"prefill {cfg.name} B={B} S={S}: median {med * 1e3:.3f} ms "
+          f"(runs {', '.join(f'{x * 1e3:.3f}' for x in secs)} ms), "
+          f"{B * S / med:.0f} tokens/s; launches {json.dumps(n)}")
+
+    # decode from the prefill's cache
+    n_attn = sum(spec.kind == "attn" for spec in layer_specs(cfg))
+    ops.reset_launch_counts()
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    ev = []
+    for i in range(n_decode):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        step, cache = model.decode_step(params, cfg, {"tokens": tok}, cache,
+                                        S + i, device="cuda")
+        e.record()
+        ev.append((s, e))
+        tok = torch.argmax(step, -1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    nd = ops.launch_counts()
+    require(nd["decode_attention"] == n_attn * n_decode,
+            f"decode_attention launches {nd['decode_attention']} after the "
+            f"prefill, want {n_attn} x {n_decode}")
+    require(bool(torch.isfinite(step).all()),
+            f"{cfg.name} decode after prefill: non-finite logits")
+    step_ms = sorted(a.elapsed_time(b) for a, b in ev[3:])
+    print(f"decode {cfg.name} B={B} from the prefill's cache, positions "
+          f"{S}..{S + n_decode - 1}: median {step_ms[len(step_ms) // 2]:.3f} "
+          f"ms a step; launches {json.dumps(nd)}")
+    del cache
+
+    # prefill(S) against prefill(S - 1) and one decode step
+    _, short = run(toks[:, :S - 1], S)
+    last, short = model.decode_step(params, cfg, {"tokens": toks[:, S - 1:]},
+                                    short, S - 1, device="cuda")
+    del short
+    cos = F.cosine_similarity(logits.float(), last.float(), dim=-1)
+    require(bool(torch.isfinite(last).all()) and float(cos.min()) >= 0.99,
+            f"{cfg.name}: prefill vs prefill + decode cosine "
+            f"{cos.tolist()} < 0.99")
+    print(f"consistency {cfg.name}: last logits of prefill(S={S}) vs "
+          f"prefill(S-1) + decode, cosine similarity min {float(cos.min()):.6f} "
+          f"(per prompt {', '.join(f'{c:.6f}' for c in cos.tolist())}); "
+          f"max abs diff {float((logits.float() - last.float()).abs().max()):.4f}")
+    profile(torch, f"prefill {cfg.name} B={B} S={S}", lambda: run(toks),
+            n_steps=1)
+    return n[kernel]
+
+
+def mamba_full(torch, ops):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.mamba import CHUNK
+    from repro_torch.models.params import count_params, init_params
+
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    print(f"falcon-mamba-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, {count_params(params) / 1e9:.3f} B params "
+          f"in {cfg.param_dtype}, {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB on the card, init {time.perf_counter() - t0:.1f} s")
+    residual_growth(torch, cfg, params)
+    B, S = 4, 1024
+    return prefill_full(torch, ops, cfg, params, B, S, 32, "ssm_scan",
+                        cfg.n_layers * -(-S // CHUNK))
+
+
+def residual_growth(torch, cfg, params, B=1, S=256):
+    """max |x| of the residual stream after each layer, for a short prompt:
+    the reference's fan_in rule gives every stacked weight std 1/8 here."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models import blocks, model
+
+    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                         device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(9))
+    cache = model.init_cache(cfg, B, S, device="cuda")
+    with torch.no_grad():
+        x = params["embed"][toks].to(getattr(torch, cfg.dtype))
+        peaks = []
+        for spec, p, c in zip(layer_specs(cfg), params["layers"], cache):
+            x = blocks.apply_layer(cfg, spec, p, x, None, c)
+            peaks.append(float(x.float().abs().max()))
+    bad = [i for i, v in enumerate(peaks) if not math.isfinite(v)]
+    require(not bad, f"{cfg.name}: the residual overflows at layer "
+            f"{bad[:1]}")
+    shown = [i for i in (1, 2, 4, 8, 16, 32, 64) if i <= len(peaks)]
+    print(f"residual {cfg.name} B={B} S={S} max |x| after layers "
+          + ", ".join(f"{i}: {peaks[i - 1]:.3e}" for i in shown))
 
 
 def main():
@@ -422,8 +749,11 @@ def main():
         sys.exit(1)
 
     from repro_torch.kernels import _build, ops
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lags_select as lags
+    from repro_torch.kernels import ssm_scan as ssm
     from repro_torch.launch import serve
 
     # phase 1: the card
@@ -435,7 +765,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # phase 2: build both kernels, one nvcc each, in parallel
+    # phase 2: build every kernel, one nvcc each, in parallel
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
@@ -449,12 +779,16 @@ def main():
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
     dec_err = check_decode(torch, dec)
+    fa_err = check_flash(torch, fa)
+    ssm_err = check_ssm(torch, ssm)
     timer = Timer(torch)
     times = {"lags_select": time_lags(torch, lags, timer, T=1024)}
     t4096 = time_lags(torch, lags, timer, T=4096)
     t65536 = time_lags(torch, lags, timer, T=65536)
     times["decode_attention"] = time_decode(torch, dec, timer)
     d4096 = time_decode(torch, dec, timer, L=4096)
+    times["flash_attention"] = time_flash(torch, fa, timer, **QWEN_PREFILL)
+    times["ssm_scan"] = time_ssm(torch, ssm, timer, **MAMBA_CHUNK)
     del timer
     for name, t in (("lags_select T=1024 k=16", times["lags_select"]),
                     ("lags_select T=4096 k=16", t4096),
@@ -462,7 +796,11 @@ def main():
                     ("decode_attention bf16 B=16 H=32 Hkv=8 L=512 kv=505",
                      times["decode_attention"]),
                     ("decode_attention bf16 B=16 H=32 Hkv=8 L=4096 kv=4089",
-                     d4096)):
+                     d4096),
+                    ("flash_attention bf16 causal B=4 H=32 Hkv=8 S=2048 D=128",
+                     times["flash_attention"]),
+                    ("ssm_scan f32 B=4 S=256 I=8192 N=16",
+                     times["ssm_scan"])):
         print(f"time {name}: " + " ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()) + f" [{card}]")
@@ -472,7 +810,16 @@ def main():
 
     # phase 7: the main path at full width
     check_model_small(torch)
-    counts = serve_qwen3_8b(torch, ops, serve)
+    counts, qwen = serve_qwen3_8b(torch, ops, serve)
+
+    # phases 8-10: prefill, reduced on card and CPU, then at full size
+    check_prefill_small(torch)
+    counts["flash_attention"] = prefill_full(
+        torch, ops, get_config("qwen3-8b"), qwen, B=4, S=2048, n_decode=64,
+        kernel="flash_attention", launches=36)
+    del qwen  # 16 GB: falcon-mamba's weights take its place
+    torch.cuda.empty_cache()
+    counts["ssm_scan"] = mamba_full(torch, ops)
 
     kernels = [
         dict(name="lags_select", route="cuda",
@@ -486,6 +833,18 @@ def main():
              launches=counts["decode_attention"],
              max_abs_err=dec_err[("bfloat16", 16, 32, 8, 512, 128)],
              **times["decode_attention"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:77",
+             launches=counts["flash_attention"],
+             max_abs_err=fa_err[("bfloat16", *QWEN_PREFILL.values(), True, 0)],
+             **times["flash_attention"]),
+        dict(name="ssm_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/ssm_scan.py:51",
+             launches=counts["ssm_scan"],
+             max_abs_err=ssm_err[("float32", *MAMBA_CHUNK.values())],
+             **times["ssm_scan"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -197,6 +197,9 @@ def list_configs():
 # registers ten
 _CONFIG_MODULES = [
     "qwen3_8b",
+    "stablelm_1_6b",
+    "mistral_nemo_12b",
+    "falcon_mamba_7b",
 ]
 
 

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("lags_select", "decode_attention")
+SOURCES = ("lags_select", "decode_attention", "flash_attention", "ssm_scan")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
          "-v")

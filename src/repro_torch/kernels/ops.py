@@ -9,12 +9,17 @@ module counts its own launches; ``launch_counts`` reads them all.
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lags_select as _lags
+from repro_torch.kernels import ssm_scan as _ssm
 
 decode_attention = _dec.decode_attention
+flash_attention = _fa.flash_attention
 lags_select = _lags.lags_select
+ssm_scan = _ssm.ssm_scan
 
-_MODULES = {"lags_select": _lags, "decode_attention": _dec}
+_MODULES = {"lags_select": _lags, "decode_attention": _dec,
+            "flash_attention": _fa, "ssm_scan": _ssm}
 
 
 def launch_counts() -> dict:

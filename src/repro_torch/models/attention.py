@@ -1,16 +1,24 @@
-"""GQA attention, decode path: one new token against the KV cache.
+"""GQA attention: prefill over a prompt, and decode against the KV cache.
 
-Port of ``repro.models.attention.multihead_attention`` for the case the
-engine runs: a cache is given and S = 1.  q/k/v projections, qk-norm, NeoX
-rope, the cache write at ``cache_len``, then the CUDA ``decode_attention``
-kernel (its plain version on the CPU) over the cache with GQA.  The
-reference computes this attention in XLA (``_attend_chunk``); the kernel
-computes the same function with p kept in f32 where the reference casts it
-to the cache dtype before P.V.
+Port of ``repro.models.attention.multihead_attention``.  Both paths compute
+the q/k/v projections, qk-norm and NeoX rope, and write k, v into the cache
+in the reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
 
-The cache is the reference's layout, {"k", "v"} of (B, L, Hkv, D), and is
-updated in place; the kernel reads it through a permuted (B, Hkv, L, D) view.
-Prefill, sliding windows and M-RoPE come with later slices.
+* Prefill (``prefill_attention``) starts at cache_len 0: it writes the S new
+  keys and values at ``[:, :S]`` and attends with the CUDA
+  ``flash_attention`` kernel (its plain version on the CPU) over those fresh
+  keys, causal as ``cfg.causal`` says and windowed where the layer has a
+  window.  The reference attends over the whole zeroed cache masked at
+  kv_len = S with keys repeated G times; that is the same function.  The
+  kernel reads the (B, S, Hkv, D) projections through strides, query head h
+  reading KV head h // G: no repeat, no copy.
+* Decode (``decode_attention``, S = 1) writes at ``cache_len`` and runs the
+  CUDA ``decode_attention`` kernel over the cache, read through a permuted
+  (B, Hkv, L, D) view.
+
+The reference casts p to the value dtype before P.V; the flash kernel does
+the same, the decode kernel keeps p in f32.  Decode with a window raises:
+the TPU decode kernel has none.  M-RoPE comes with a later slice.
 """
 from __future__ import annotations
 
@@ -19,16 +27,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rms_norm
 
 
-def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
-                     cache_len: int, kv_len, window=None):
-    """x: (B, 1, M); rope: (cos, sin) of (B, 1, D/2) or None; kv_len: (B,)
-    int32 = cache_len + 1.  Writes the new k, v into ``cache`` at
-    ``cache_len`` and returns y (B, 1, M)."""
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+def _qkv(params: dict, x, cfg: ModelConfig, rope):
+    """q (B, S, H, D), k and v (B, S, Hkv, D), after qk-norm and rope."""
     B, S, M = x.shape
-    if S != 1:
-        raise NotImplementedError("the port has the decode path only (S = 1)")
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"].to(x.dtype).reshape(M, H * D)).view(B, S, H, D)
     k = (x @ params["wk"].to(x.dtype).reshape(M, Hkv * D)).view(B, S, Hkv, D)
@@ -39,10 +40,46 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
+    return q, k, v
+
+
+def _out(params: dict, out, x):
+    """out: (B, S, H, D) -> y (B, S, M)."""
+    B, S, H, D = out.shape
+    return out.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(
+        H * D, x.shape[-1])
+
+
+def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
+                      window=None):
+    """x: (B, S, M); rope: (cos, sin) of (B, S, D/2) or None.  Writes k, v
+    into ``cache`` at [:, :S] and returns y (B, S, M)."""
+    S = x.shape[1]
+    q, k, v = _qkv(params, x, cfg, rope)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    out = ops.flash_attention(
+        q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+        causal=cfg.causal, window=window or 0)  # (B, H, S, D)
+    return _out(params, out.permute(0, 2, 1, 3), x)
+
+
+def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
+                     cache_len: int, kv_len, window=None):
+    """x: (B, 1, M); rope: (cos, sin) of (B, 1, D/2) or None; kv_len: (B,)
+    int32 = cache_len + 1.  Writes the new k, v into ``cache`` at
+    ``cache_len`` and returns y (B, 1, M)."""
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window decode is not ported: the TPU decode kernel has "
+            "no window")
+    if x.shape[1] != 1:
+        raise NotImplementedError("decode takes one token a step (S = 1)")
+    q, k, v = _qkv(params, x, cfg, rope)
     ck, cv = cache["k"], cache["v"]
     ck[:, cache_len] = k[:, 0].to(ck.dtype)
     cv[:, cache_len] = v[:, 0].to(cv.dtype)
     out = ops.decode_attention(
         q[:, 0], ck.to(x.dtype).permute(0, 2, 1, 3),
         cv.to(x.dtype).permute(0, 2, 1, 3), kv_len)  # (B, H, D)
-    return out.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(H * D, M)
+    return _out(params, out[:, None], x)

@@ -1,23 +1,30 @@
 """Decoder parameters: random init on a device, and import of the reference's.
 
-Port of ``repro.models.params`` for dense attention models.  The port keeps
-one dict per layer instead of the reference's stacked ``stack/body`` arrays:
+Port of ``repro.models.params`` for attention and Mamba layers with a dense
+MLP or none.  The port keeps one dict per layer instead of the reference's
+stacked ``stack/body`` arrays:
 
   {"embed": (V, M), "layers": [layer, ...], "final_norm": (M,),
    "unembed": (M, V)}                      # no "unembed" when embeddings tie
-  layer = {"ln1": (M,), "attn": {"wq": (M, H, D), "wk": (M, Hkv, D),
+  attention layer = {"ln1": (M,), "attn": {"wq": (M, H, D), "wk": (M, Hkv, D),
            "wv": (M, Hkv, D), "wo": (H, D, M), "q_norm": (D,), "k_norm": (D,)},
            "ln2": (M,), "mlp": {"w_gate": (M, F), "w_up": (M, F),
            "w_down": (F, M)}}
+  Mamba layer = {"ln1": (M,), "mamba": {leaves of ``mamba.mamba_specs``}}
+                                            # plus ln2/mlp where d_ff > 0
 
-Dense weights and the embedding are in ``cfg.param_dtype``, norms in f32.
+Dense weights and the embedding are in ``cfg.param_dtype``, norms in f32;
+the Mamba leaves keep the reference's types (``dt_bias``, ``A_log`` and
+``D`` in f32).
 
 ``init_params`` draws from the reference's distributions: embeddings
-N(0, 0.02²), norms one, dense weights N(0, 1/fan_in) with the reference's
+N(0, 0.02²), norms and ``D`` one, biases zero, ``A_log`` = log(1..N) over
+every channel, dense weights N(0, 1/fan_in) with the reference's
 ``fan_in`` rule (params.py:93), which takes ``shape[0]`` of the *stacked*
 array.  For a layer inside the scanned stack that is the number of stacked
-layers, not the input width: Qwen3-8B's wq has std 1/6 (36 layers), and the
-reduced two-layer config's has std 1/sqrt(2).  The port copies the rule so
+layers, not the input width: Qwen3-8B's wq has std 1/6 (36 layers),
+falcon-mamba-7b's in_proj 1/8 (64 layers), and the reduced two-layer
+config's wq 1/sqrt(2).  The port copies the rule so
 that its magnitudes match the reference's.  PyTorch cannot replay JAX's
 path-keyed random stream, so the values themselves differ; parity tests
 carry the reference's arrays over with ``from_jax_params``.
@@ -29,35 +36,40 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, layer_specs, scan_period
+from repro_torch.configs.base import (LayerSpec, ModelConfig, layer_specs,
+                                      scan_period)
 from repro_torch.device import resolve
 from repro_torch.models.common import param_dtype_of
+from repro_torch.models.mamba import mamba_specs
 
 
 def _check_supported(cfg: ModelConfig):
     for i, spec in enumerate(layer_specs(cfg)):
-        if spec.kind != "attn" or spec.mlp not in ("dense", "none"):
+        if spec.kind not in ("attn", "mamba") \
+                or spec.mlp not in ("dense", "none"):
             raise NotImplementedError(
                 f"{cfg.name} layer {i} is {spec.kind}/{spec.mlp}: the port "
-                "runs attention layers with dense MLPs only")
+                "runs attention and Mamba layers with dense MLPs or none")
 
 
-def _layer_shapes(cfg: ModelConfig, mlp_kind: str) -> dict:
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
     """{path: (shape, init, dtype)} of one layer, in a fixed order."""
     M, H, Hkv, D, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     pd = param_dtype_of(cfg)
-    shapes = {
-        ("ln1",): ((M,), "ones", torch.float32),
-        ("attn", "wq"): ((M, H, D), "dense", pd),
-        ("attn", "wk"): ((M, Hkv, D), "dense", pd),
-        ("attn", "wv"): ((M, Hkv, D), "dense", pd),
-        ("attn", "wo"): ((H, D, M), "dense", pd),
-    }
-    if cfg.qk_norm:
-        shapes[("attn", "q_norm")] = ((D,), "ones", torch.float32)
-        shapes[("attn", "k_norm")] = ((D,), "ones", torch.float32)
-    if mlp_kind == "dense":
+    shapes = {("ln1",): ((M,), "ones", torch.float32)}
+    if spec.kind == "mamba":
+        for name, (shape, init, dt) in mamba_specs(cfg).items():
+            shapes[("mamba", name)] = (shape, init, getattr(torch, dt))
+    else:
+        shapes[("attn", "wq")] = ((M, H, D), "dense", pd)
+        shapes[("attn", "wk")] = ((M, Hkv, D), "dense", pd)
+        shapes[("attn", "wv")] = ((M, Hkv, D), "dense", pd)
+        shapes[("attn", "wo")] = ((H, D, M), "dense", pd)
+        if cfg.qk_norm:
+            shapes[("attn", "q_norm")] = ((D,), "ones", torch.float32)
+            shapes[("attn", "k_norm")] = ((D,), "ones", torch.float32)
+    if spec.mlp == "dense":
         shapes[("ln2",)] = ((M,), "ones", torch.float32)
         shapes[("mlp", "w_gate")] = ((M, F), "dense", pd)
         shapes[("mlp", "w_up")] = ((M, F), "dense", pd)
@@ -74,6 +86,12 @@ def _set(tree: dict, path, value):
 def _draw(shape, init, dtype, fan_in, gen, dev):
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=dev)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if init == "ssm_a":  # Mamba's A_log: log(1..N) over every channel
+        a = torch.log(torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                                   device=dev))
+        return a.expand(shape).to(dtype).contiguous()
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
     std = 0.02 if init == "embed" else 1.0 / math.sqrt(max(fan_in, 1))
     return (x * std).to(dtype)
@@ -95,7 +113,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "layers": []}
     for i, spec in enumerate(layer_specs(cfg)):
         layer: dict = {}
-        for path, (shape, init, dt) in _layer_shapes(cfg, spec.mlp).items():
+        for path, (shape, init, dt) in _layer_shapes(cfg, spec).items():
             fan_in = n_rep if i < n_stacked else shape[0]
             _set(layer, path, _draw(shape, init, dt, fan_in, generator, dev))
         params["layers"].append(layer)
@@ -137,7 +155,7 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device=None) -> dict:
     layers = []
     for i, spec in enumerate(specs):
         layer: dict = {}
-        for path in _layer_shapes(cfg, spec.mlp):
+        for path in _layer_shapes(cfg, spec):
             if i < n_rep * P:
                 a = np.asarray(leaf(body[i % P], path))[i // P]
             else:

@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lags_select as lags
+from repro_torch.kernels import ssm_scan as ssm
 
 pytestmark = pytest.mark.cuda
 
@@ -65,3 +67,42 @@ def test_decode_attention_kernel_matches_plain(card, dtype, B, H, Hkv, L, D):
     want = dec.decode_attention_plain(q, k, v, kv_len)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128), (False, 0)])
+@pytest.mark.parametrize("B,H,Hkv,S,D", [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128),
+                                         (2, 8, 2, 300, 64), (1, 4, 2, 77, 16),
+                                         (2, 4, 4, 200, 80)])
+@pytest.mark.parametrize("pad", [0, 1])
+def test_flash_attention_kernel_matches_plain(card, dtype, causal, window, B,
+                                              H, Hkv, S, D, pad):
+    n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
+    # the model's (B, S, H, D) projections, seen as (B, H, S, D); rows
+    # padded by one element make odd strides, which bf16 takes on the
+    # CUDA-core kernel instead of the tensor cores
+    q, k, v = (n(B, S, h, D + pad)[..., :D].permute(0, 2, 1, 3)
+               for h in (H, Hkv, Hkv))
+    assert fa.on_tensor_cores(q, k, v) == (dtype == torch.bfloat16 and not pad)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == (B, H, S, D)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,I,N", [(1, 128, 256, 8), (2, 256, 512, 16),
+                                     (2, 37, 64, 16), (1, 5, 32, 4)])
+def test_ssm_scan_kernel_matches_plain(card, dtype, B, S, I, N):
+    u = lambda *s: torch.rand(*s, generator=card, device="cuda")  # noqa: E731
+    dA = (0.5 + 0.49 * u(B, S, I, N)).to(dtype)
+    dBx = ((u(B, S, I, N) - 0.5) * 0.1).to(dtype)
+    C = (u(B, S, N) * 2 - 1).to(dtype)
+    h0 = u(B, I, N) * 2 - 1  # nonzero
+    y, h = ssm.ssm_scan(dA, dBx, C, h0)
+    y_p, h_p = ssm.ssm_scan_plain(dA, dBx, C, h0)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    # the state is f32 in both; y is rounded to dtype once
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-4)

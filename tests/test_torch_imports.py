@@ -11,7 +11,9 @@ import torch
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as dec_mod
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import lags_select as lags_mod
+from repro_torch.kernels import ssm_scan as ssm_mod
 from repro_torch.launch import serve
 from repro_torch.models import model
 from repro_torch.models.params import init_params
@@ -66,6 +68,22 @@ def test_model_entry_points_raise_without_card_unless_cpu(no_card):
     assert torch.isfinite(logits).all()
 
 
+@pytest.mark.parametrize("name", ["qwen3-8b", "falcon-mamba-7b"])
+def test_prefill_raises_without_card_unless_cpu(no_card, name):
+    cfg = reduced(get_config(name), n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": np.zeros((2, 5), np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.prefill(params, cfg, batch)
+    logits, cache = model.prefill(params, cfg, batch, max_len=8, device="cpu")
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert len(cache) == cfg.n_layers
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.decode_step(params, cfg, {"tokens": np.zeros((2, 1), np.int32)},
+                          cache, 5)
+
+
 def test_serve_raises_without_card_unless_cpu(no_card, capsys):
     argv = ["--tenants", "8", "--duration", "0.5"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -87,14 +105,28 @@ def test_wrappers_do_not_fall_back_to_the_plain_version(monkeypatch):
 
     monkeypatch.setattr(lags_mod, "lags_select_plain", boom)
     monkeypatch.setattr(dec_mod, "decode_attention_plain", boom)
+    monkeypatch.setattr(fa_mod, "flash_attention_plain", boom)
+    monkeypatch.setattr(ssm_mod, "ssm_scan_plain", boom)
     m = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="cuda or cpu"):
         lags_mod.lags_select(m(8), m(8), m(8), m(8, dt=torch.bool), 2)
     with pytest.raises(ValueError, match="cuda or cpu"):
         dec_mod.decode_attention(m(1, 2, 16), m(1, 2, 32, 16),
                                  m(1, 2, 32, 16), m(1, dt=torch.int32))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa_mod.flash_attention(m(1, 4, 32, 16), m(1, 2, 32, 16),
+                               m(1, 2, 32, 16))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssm_mod.ssm_scan(m(1, 8, 32, 16), m(1, 8, 32, 16), m(1, 8, 16),
+                         m(1, 32, 16))
     with pytest.raises(ValueError, match="several devices"):
         lags_mod.lags_select(m(8), torch.zeros(8), m(8), m(8, dt=torch.bool), 2)
+    with pytest.raises(ValueError, match="several devices"):
+        fa_mod.flash_attention(m(1, 4, 32, 16), torch.zeros(1, 2, 32, 16),
+                               m(1, 2, 32, 16))
+    with pytest.raises(ValueError, match="several devices"):
+        ssm_mod.ssm_scan(m(1, 8, 32, 16), m(1, 8, 32, 16), m(1, 8, 16),
+                         torch.zeros(1, 32, 16))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
