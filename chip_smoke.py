@@ -13,14 +13,17 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    below 1e-4 where the key's lane term decides the order.  Picks must be
    equal and the state bit-equal;
 4. ``decode_attention`` against its plain version: the reference's test
-   shapes at G=1, and the engine's shape B=16, H=32, Hkv=8, D=128 at
-   L in {512, 4096} with kv_len including L-7, read through the model's
+   shapes at G=1, the engine's shape B=16, H=32, Hkv=8, D=128 at
+   L in {512, 4096} with kv_len including L-7, and phase 9's decode shape
+   B=4, L=2112 with kv_len in 2049..2112, read through the model's
    (B, L, Hkv, D) cache view; ``flash_attention`` at the reference's test
    shapes for (causal, 0), (causal, 128) and (non-causal, 0), a GQA case and
    ragged S read through the (B, S, H, D) projection view, and the Qwen3-8B
-   prefill shape; ``ssm_scan`` at the reference's shapes, with a nonzero h0,
-   and the falcon-mamba chunk shape; f32 and bf16 at the reference's
-   tolerances (1e-4 for the scan);
+   prefill shape, where each 64-row query tile of each (b, h) is also held
+   to a relative error ||got - want|| / ||want||; f32 and bf16 at the
+   reference's tolerances; ``ssm_scan`` in f32 (the type the mixer hands
+   it) at the reference's shapes, with a nonzero h0, and the falcon-mamba
+   chunk shape, at 1e-4;
 5. times at the main paths' shapes: kernel, plain version, and where one
    PyTorch call computes the same function (``scaled_dot_product_attention``)
    that call as a yardstick (the port never calls it), with the least time
@@ -188,11 +191,14 @@ def dec_inputs(torch, gen, B, H, Hkv, L, D, dtype, kv_len):
 
 def dec_shapes():
     # (B, H, Hkv, L, D, kv_len): tests/test_kernels.py at G=1, then the
-    # engine's shape for Qwen3-8B (G=4) with kv_len from 1 to L, L-7 among them
+    # engine's shape for Qwen3-8B (G=4) with kv_len from 1 to L, L-7 among
+    # them, then the decode after phase 9's prefill (B*Hkv = 32 rows: the
+    # kernel splits L 66 ways)
     out = [(1, 2, 2, 512, 64, [512 // 3]), (2, 4, 4, 1024, 128, [512, 1024 - 7])]
     for L in (512, 4096):
         kv = [L - 7, L, 1, L // 2] + [(97 * i) % L + 1 for i in range(12)]
         out.append((16, 32, 8, L, 128, kv))
+    out.append((4, 32, 8, 2112, 128, [2049, 2080, 2111, 2112]))
     return out
 
 
@@ -220,6 +226,10 @@ def check_decode(torch, dec):
 
 FLASH_MASKS = [(True, 0), (True, 128), (False, 0)]
 QWEN_PREFILL = dict(B=4, H=32, Hkv=8, S=2048, D=128)  # the phase 9 shape
+# at the prefill shape, ||got - want|| / ||want|| over each 64-row query tile
+# of each (b, h): late rows have |out| ~ 0.04, below TOL's atol, and a
+# dropped or misweighted KV tile moves a tile's norm by ~0.1 or more
+FLASH_REL = {"float32": 1e-4, "bfloat16": 1e-2}
 MAMBA_CHUNK = dict(B=4, S=256, I=8192, N=16)  # one scan of phase 10
 
 
@@ -231,35 +241,41 @@ def within(got, want, tol):
     return bad == 0 and math.isfinite(err), err, bad
 
 
-def flash_inputs(torch, gen, B, H, Hkv, S, D, dtype, pad=0):
+def flash_inputs(torch, gen, B, H, Hkv, S, D, dtype):
     """q, k, v as the model hands them in: its (B, S, heads, D)
-    projections seen as (B, heads, S, D), each row padded by ``pad``."""
+    projections seen as (B, heads, S, D)."""
     dt = getattr(torch, dtype)
     n = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)  # noqa: E731
-    return tuple(n(B, S, h, D + pad)[..., :D].permute(0, 2, 1, 3)
-                 for h in (H, Hkv, Hkv))
+    return tuple(n(B, S, h, D).permute(0, 2, 1, 3) for h in (H, Hkv, Hkv))
 
 
 def flash_cases():
-    # (B, H, Hkv, S, D, pad, masks): tests/test_kernels.py at G=1; GQA and
-    # an S that is no multiple of the 64-row tile; rows padded by one
-    # element (odd strides: bf16 then takes the CUDA-core kernel); then the
-    # Qwen3-8B prefill
-    out = [(1, 1, 1, 128, 64, 0), (2, 2, 2, 256, 128, 0),
-           (1, 4, 4, 512, 128, 0), (2, 8, 2, 300, 64, 0),
-           (1, 4, 2, 77, 16, 0), (2, 4, 4, 200, 80, 0), (2, 4, 2, 130, 64, 1)]
+    # (B, H, Hkv, S, D, masks): tests/test_kernels.py at G=1; GQA and S
+    # that are no multiple of the 64-row tile; then the Qwen3-8B prefill
+    out = [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128), (1, 4, 4, 512, 128),
+           (2, 8, 2, 300, 64), (1, 4, 2, 77, 16), (2, 4, 4, 200, 80),
+           (2, 4, 2, 130, 64)]
     out = [c + (FLASH_MASKS,) for c in out]
-    return out + [tuple(QWEN_PREFILL.values()) + (0, [(True, 0)])]
+    return out + [tuple(QWEN_PREFILL.values()) + ([(True, 0)],)]
+
+
+def tile_rel_err(got, want, tile=64):
+    """max over (b, h, query tile) of ||got - want|| / ||want||, and where."""
+    B, H, S, D = want.shape
+    require(S % tile == 0, f"S={S} is no multiple of {tile}")
+    diff = (got.float() - want.float()).reshape(B, H, S // tile, tile * D)
+    rel = diff.norm(dim=-1) / want.float().reshape(diff.shape).norm(dim=-1)
+    worst = int(rel.argmax())
+    return float(rel.max()), (worst // (H * (S // tile)),
+                              worst // (S // tile) % H, worst % (S // tile))
 
 
 def check_flash(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(4)
     errs = {}
     for dtype in ("float32", "bfloat16"):
-        for B, H, Hkv, S, D, pad, masks in flash_cases():
-            q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype, pad)
-            route = "tensor cores" if fa.on_tensor_cores(q, k, v) \
-                else "CUDA cores"
+        for B, H, Hkv, S, D, masks in flash_cases():
+            q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
             for causal, window in masks:
                 got = fa.flash_attention(q, k, v, causal=causal, window=window)
                 want = fa.flash_attention_plain(q, k, v, causal=causal,
@@ -267,23 +283,30 @@ def check_flash(torch, fa):
                 torch.cuda.synchronize()
                 ok, err, bad = within(got, want, TOL[dtype])
                 name = (f"flash_attention {dtype} B={B} H={H} Hkv={Hkv} S={S} "
-                        f"D={D} causal={causal} window={window} ({route})")
+                        f"D={D} causal={causal} window={window}")
                 require(ok, f"{name}: {bad} values outside {TOL[dtype]}, "
                         f"max err {err}")
                 errs[(dtype, B, H, Hkv, S, D, causal, window)] = err
                 print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}")
+                if (B, H, Hkv, S, D) == tuple(QWEN_PREFILL.values()):
+                    r, at = tile_rel_err(got, want)
+                    require(r < FLASH_REL[dtype], f"{name}: query tile (b, h, "
+                            f"tile) {at} has relative error {r:.3e} >= "
+                            f"{FLASH_REL[dtype]}")
+                    print(f"{name}: max over (b, h, 64-row query tile) of "
+                          f"||got - want|| / ||want|| = {r:.3e} at {at}, "
+                          f"below {FLASH_REL[dtype]}")
     return errs
 
 
-def ssm_inputs(torch, gen, B, S, I, N, dtype="float32", h0_scale=1.0):
-    """The reference test's distributions: dA = exp(-dt * a) in (0, 1),
-    dBx = dt * noise * 0.1; h0 nonzero unless h0_scale is 0."""
+def ssm_inputs(torch, gen, B, S, I, N, h0_scale=1.0):
+    """The reference test's distributions in f32: dA = exp(-dt * a) in
+    (0, 1), dBx = dt * noise * 0.1; h0 nonzero unless h0_scale is 0."""
     n = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
     dt = torch.nn.functional.softplus(n(B, S, I, 1) - 1.0)
     dA = torch.exp(-dt * torch.exp(n(1, 1, I, N) * 0.2))
     dBx = dt * n(B, S, I, N) * 0.1
-    cast = getattr(torch, dtype)
-    return dA.to(cast), dBx.to(cast), n(B, S, N).to(cast), n(B, I, N) * h0_scale
+    return dA, dBx, n(B, S, N), n(B, I, N) * h0_scale
 
 
 def check_ssm(torch, ssm):
@@ -292,21 +315,19 @@ def check_ssm(torch, ssm):
     cases = [(1, 128, 256, 8, 0.0), (2, 256, 512, 16, 0.0),
              (1, 128, 128, 8, 1.0), (2, 37, 64, 16, 1.0),
              tuple(MAMBA_CHUNK.values()) + (1.0,)]
-    for dtype in ("float32", "bfloat16"):
-        tol = SSM_TOL if dtype == "float32" else TOL[dtype]
-        for B, S, I, N, h0_scale in cases:
-            dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N, dtype, h0_scale)
-            y, h = ssm.ssm_scan(dA, dBx, C, h0)
-            y_p, h_p = ssm.ssm_scan_plain(dA, dBx, C, h0)
-            torch.cuda.synchronize()
-            ok_y, err_y, bad_y = within(y, y_p, tol)
-            ok_h, err_h, bad_h = within(h, h_p, SSM_TOL)
-            name = f"ssm_scan {dtype} B={B} S={S} I={I} N={N} h0x{h0_scale}"
-            require(ok_y and ok_h, f"{name}: {bad_y} y and {bad_h} h values "
-                    f"outside tolerance, max err {err_y}, {err_h}")
-            errs[(dtype, B, S, I, N)] = max(err_y, err_h)
-            print(f"{name}: max_abs_err y={err_y:.3e} h={err_h:.3e} "
-                  f"within {tol}")
+    for B, S, I, N, h0_scale in cases:
+        dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N, h0_scale=h0_scale)
+        y, h = ssm.ssm_scan(dA, dBx, C, h0)
+        y_p, h_p = ssm.ssm_scan_plain(dA, dBx, C, h0)
+        torch.cuda.synchronize()
+        ok_y, err_y, bad_y = within(y, y_p, SSM_TOL)
+        ok_h, err_h, bad_h = within(h, h_p, SSM_TOL)
+        name = f"ssm_scan float32 B={B} S={S} I={I} N={N} h0x{h0_scale}"
+        require(ok_y and ok_h, f"{name}: {bad_y} y and {bad_h} h values "
+                f"outside tolerance, max err {err_y}, {err_h}")
+        errs[(B, S, I, N)] = max(err_y, err_h)
+        print(f"{name}: max_abs_err y={err_y:.3e} h={err_h:.3e} "
+              f"within {SSM_TOL}")
     return errs
 
 
@@ -357,8 +378,6 @@ def time_flash(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
-    require(fa.on_tensor_cores(q, k, v), "the prefill shape must take the "
-            "tensor-core kernel")
     ms = timer.ms(lambda: fa.flash_attention(q, k, v), iters=10)
     plain_ms = timer.ms(lambda: fa.flash_attention_plain(q, k, v), iters=10)
     # yardstick only: one PyTorch call for the same function
@@ -367,13 +386,6 @@ def time_flash(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
     library_ms = timer.ms(sdpa, iters=10)
     profile(torch, "SDPA at the prefill shape (which backend runs)", sdpa,
             n_steps=1)
-    # the f32 CUDA-core kernel on the same values, rows padded by one
-    qp, kp, vp = (torch.nn.functional.pad(x, (0, 1))[..., :D] for x in (q, k, v))
-    require(not fa.on_tensor_cores(qp, kp, vp), "padded rows take the "
-            "CUDA-core kernel")
-    cuda_core_ms = timer.ms(lambda: fa.flash_attention(qp, kp, vp), iters=5)
-    print(f"time flash_attention on the CUDA cores (odd strides), same "
-          f"shape: ms={cuda_core_ms:.4f}")
     esize = 2 if dtype == "bfloat16" else 4
     n_bytes = B * S * (2 * H + 2 * Hkv) * D * esize  # q, k, v in; out
     pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
@@ -843,7 +855,7 @@ def main():
              source="src/repro_torch/kernels/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:51",
              launches=counts["ssm_scan"],
-             max_abs_err=ssm_err[("float32", *MAMBA_CHUNK.values())],
+             max_abs_err=ssm_err[tuple(MAMBA_CHUNK.values())],
              **times["ssm_scan"]),
     ]
     print(json.dumps({"kernels": kernels}))

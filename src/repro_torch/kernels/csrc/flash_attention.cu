@@ -15,10 +15,9 @@
 // 4 * 64 * 64 * D flops on 2 * 64 * D loaded values; at S = 2048 the whole
 // call does ~S/2 flops per byte read, far above the ~295 flops a byte where
 // the tensor cores, not memory, set the limit.  Two kernels share the grid
-// below: fa_mma runs bf16 on the tensor cores (mma.sync; the card's dense
-// bf16 peak is 989 TFLOP/s) and is what the bf16 models run; fa_fwd
-// computes in f32 on the CUDA cores (67 TFLOP/s peak) and takes f32 inputs,
-// and bf16 inputs whose strides or alignment fa_mma cannot take.
+// below, one for each input type: fa_mma runs bf16 on the tensor cores
+// (mma.sync; the card's dense bf16 peak is 989 TFLOP/s); fa_fwd runs f32 on
+// the CUDA cores (67 TFLOP/s peak).
 //
 // Design.  The TPU kernel's grid (B*H, n_q, n_kv) makes the KV axis a
 // sequential grid dimension with (m, l, acc) in VMEM scratch.  Here the grid
@@ -49,17 +48,6 @@ constexpr int RPT = 4;    // rows per thread
 constexpr int TX = 16;    // threads across a row
 constexpr float NEG_INF = -1e30f;
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // max and sum over the 16 lanes that share a row (an aligned half-warp)
 __device__ __forceinline__ float row_max(float x) {
 #pragma unroll
@@ -80,23 +68,22 @@ template <int D> struct Smem {
   static constexpr size_t bytes = sizeof(float) * (BQ * QS + KP + BK * D);
 };
 
-// rows [row0, row0 + 64) of a (S, D) matrix with row stride rs, as f32,
-// zero past S
-template <typename T, int D>
+// rows [row0, row0 + 64) of a (S, D) matrix with row stride rs, zero past S
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
-                                          const T* src, long long rs, int row0,
-                                          int S) {
+                                          const float* src, long long rs,
+                                          int row0, int S) {
   for (int i = threadIdx.x; i < BK * D; i += NT) {
     const int r = i / D, d = i - r * D;
     const int s = row0 + r;
-    dst[r * dst_stride + d] = s < S ? to_f(src[(long long)s * rs + d]) : 0.f;
+    dst[r * dst_stride + d] = s < S ? src[(long long)s * rs + d] : 0.f;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT, 2)
-fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, T* __restrict__ out, int H, int G, int S,
+fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
+       const float* __restrict__ v, float* __restrict__ out, int H, int G, int S,
        int n_q, long long qsb, long long qsh, long long qss, long long ksb,
        long long ksh, long long kss, long long vsb, long long vsh,
        long long vss, long long osb, long long osh, long long oss,
@@ -115,11 +102,11 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
   const int q0 = qt * BQ;
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + hk * ksh;
-  const T* vb = v + b * vsb + hk * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + hk * ksh;
+  const float* vb = v + b * vsb + hk * vsh;
 
-  load_tile<T, D>(Qs, L::QS, qb, qss, q0, S);
+  load_tile<D>(Qs, L::QS, qb, qss, q0, S);
 
   // the KV tiles this query tile can see
   const int q_last = min(q0 + BQ, S) - 1;
@@ -142,8 +129,8 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's P and V are no longer read
-    load_tile<T, D>(Ks, L::QS, kb, kss, k0, S);
-    load_tile<T, D>(Vs, D, vb, vss, k0, S);
+    load_tile<D>(Ks, L::QS, kb, kss, k0, S);
+    load_tile<D>(Vs, D, vb, vss, k0, S);
     __syncthreads();
 
     // scores s[i][j] = q[4ty+i] . k[tx+16j]
@@ -229,7 +216,7 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + b * osb + h * osh;
+  float* ob = out + b * osb + h * osh;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int qp = q0 + ty * RPT + i;
@@ -237,7 +224,7 @@ fa_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(long long)qp * oss + tx + TX * c] = from_f<T>(acc[i][c] * inv);
+      ob[(long long)qp * oss + tx + TX * c] = acc[i][c] * inv;
   }
 }
 
@@ -447,53 +434,57 @@ fa_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int G, int S, long long qsb, long long qsh, long long qss,
-           long long ksb, long long ksh, long long kss, long long vsb,
-           long long vsh, long long vss, long long osb, long long osh,
-           long long oss, float scale, int causal, int window, int mma,
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* out,
+           int B, int H, int G, int S, long long qsb, long long qsh,
+           long long qss, long long ksb, long long ksh, long long kss,
+           long long vsb, long long vsh, long long vss, long long osb,
+           long long osh, long long oss, float scale, int causal, int window,
            cudaStream_t st) {
   const int n_q = (S + BQ - 1) / BQ;
   const dim3 grid(n_q, B * H);
-  if (mma) {
-    if constexpr (sizeof(T) == 2 && D % 16 == 0) {
-      fa_mma<D><<<grid, MW * 32, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v),
-          static_cast<__nv_bfloat16*>(out), H, G, S, n_q, qsb, qsh, qss, ksb,
-          ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window);
-      return static_cast<int>(cudaGetLastError());
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    fa_mma<D><<<grid, MW * 32, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(out), H, G, S, n_q, qsb, qsh, qss, ksb,
+        ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Smem<D>::bytes;
   // above 48 KB a block's dynamic shared memory must be asked for, or the
   // launch is refused
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fa_fwd<T, D><<<grid, NT, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, G, S, n_q, qsb, qsh,
-      qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window);
+  fa_fwd<D><<<grid, NT, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, G, S, n_q,
+      qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale,
+      causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int H, int G, int S, long long qsb, long long qsh,
-             long long qss, long long ksb, long long ksh, long long kss,
-             long long vsb, long long vsh, long long vss, long long osb,
-             long long osh, long long oss, float scale, int causal,
-             int window, int mma, cudaStream_t st) {
+}  // namespace
+
+// dtype: 0 = float32 (fa_fwd), 1 = bfloat16 (fa_mma: every stride a multiple
+// of 8 elements and every pointer 16-byte aligned, which the caller checks).
+// A head dim not built here returns cudaErrorInvalidValue.
+extern "C" int flash_attention_launch(
+    int dtype, const void* q, const void* k, const void* v, void* out, int B,
+    int H, int G, int S, int D, long long qsb, long long qsh, long long qss,
+    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss, long long osb, long long osh, long long oss, float scale,
+    int causal, int window, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_CASE(DD)                                                          \
   case DD:                                                                   \
-    return launch<T, DD>(q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb, ksh,  \
-                         kss, vsb, vsh, vss, osb, osh, oss, scale, causal,   \
-                         window, mma, st);
-  switch (D) {
+    return launch<DD>(dtype, q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb,   \
+                      ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, \
+                      window, st);
+  switch (D) {  // the head dims of flash_attention.HEAD_DIMS
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(64)
@@ -504,32 +495,4 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_CASE
-}
-
-}  // namespace
-
-// the head dims this library was built for, as a bit set of D / 16
-extern "C" int flash_attention_dims() {
-  return (1 << 1) | (1 << 2) | (1 << 4) | (1 << 5) | (1 << 6) | (1 << 8);
-}
-
-// dtype: 0 = float32, 1 = bfloat16.  mma = 1 takes the tensor-core kernel:
-// bf16 only, every stride a multiple of 8 elements and every pointer
-// 16-byte aligned, which the caller checks.
-extern "C" int flash_attention_launch(
-    int dtype, const void* q, const void* k, const void* v, void* out, int B,
-    int H, int G, int S, int D, long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, long long osb, long long osh, long long oss, float scale,
-    int causal, int window, int mma, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && !mma)
-    return launch_d<float>(D, q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb,
-                           ksh, kss, vsb, vsh, vss, osb, osh, oss, scale,
-                           causal, window, 0, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, H, G, S, qsb, qsh, qss,
-                                   ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-                                   scale, causal, window, mma, st);
-  return static_cast<int>(cudaErrorInvalidValue);
 }

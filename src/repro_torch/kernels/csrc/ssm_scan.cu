@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssm_scan.py::ssm_scan
 // (body _ssm_kernel).  Shapes: dA, dBx (B, S, I, N) and C (B, S, N),
-// contiguous, f32 or bf16 (one type for the three); h0 (B, I, N) f32;
-// y (B, S, I) in dA's type; h_last (B, I, N) f32.  The state is f32.
+// contiguous f32 (the Mamba mixer builds dA and dBx in f32); h0 (B, I, N);
+// y (B, S, I); h_last (B, I, N).  The state is f32.
 //
 // What bounds it on this card: bytes.  Every step reads dA and dBx once
 // (2 * B * S * I * N elements) and does 4 flops an element, so it moves
@@ -21,30 +21,17 @@
 // into registers before the recurrence consumes them.  N must divide 32.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 
 namespace {
 
 constexpr int NT = 256;  // threads per block: 8 warps
 constexpr int U = 8;     // steps loaded ahead
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(NT)
-ssm_fwd(const T* __restrict__ dA, const T* __restrict__ dBx,
-        const T* __restrict__ C, const float* __restrict__ h0,
-        T* __restrict__ y, float* __restrict__ h_last, int B, int S, int I,
-        int N) {
+ssm_fwd(const float* __restrict__ dA, const float* __restrict__ dBx,
+        const float* __restrict__ C, const float* __restrict__ h0,
+        float* __restrict__ y, float* __restrict__ h_last, int B, int S,
+        int I, int N) {
   const int lane = threadIdx.x & 31;
   const long long warp = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   const int cpw = 32 / N;                  // channels per warp
@@ -67,9 +54,9 @@ ssm_fwd(const T* __restrict__ dA, const T* __restrict__ dBx,
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u;
       if (t < S) {
-        a[u] = to_f(dA[base + t * IN]);
-        bx[u] = to_f(dBx[base + t * IN]);
-        c[u] = to_f(C[cbase + (long long)t * N]);
+        a[u] = dA[base + t * IN];
+        bx[u] = dBx[base + t * IN];
+        c[u] = C[cbase + (long long)t * N];
       }
     }
 #pragma unroll
@@ -80,37 +67,24 @@ ssm_fwd(const T* __restrict__ dA, const T* __restrict__ dBx,
       float yv = h * c[u];
       for (int off = N / 2; off > 0; off >>= 1)
         yv += __shfl_xor_sync(0xffffffffu, yv, off);
-      if (n == 0) y[ybase + (long long)t * I] = from_f<T>(yv);
+      if (n == 0) y[ybase + (long long)t * I] = yv;
     }
   }
   h_last[(long long)b * IN + (long long)i * N + n] = h;
 }
 
-template <typename T>
-int launch(const void* dA, const void* dBx, const void* C, const float* h0,
-           void* y, float* h_last, int B, int S, int I, int N,
-           cudaStream_t st) {
-  const long long n_warps = (long long)B * I / (32 / N);
-  const long long blocks = (n_warps + NT / 32 - 1) / (NT / 32);
-  ssm_fwd<T><<<(unsigned)blocks, NT, 0, st>>>(
-      static_cast<const T*>(dA), static_cast<const T*>(dBx),
-      static_cast<const T*>(C), h0, static_cast<T*>(y), h_last, B, S, I, N);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  N must divide 32 and 32 / N divide I.
-extern "C" int ssm_scan_launch(int dtype, const void* dA, const void* dBx,
-                               const void* C, const float* h0, void* y,
+// N must divide 32 and 32 / N divide I.
+extern "C" int ssm_scan_launch(const float* dA, const float* dBx,
+                               const float* C, const float* h0, float* y,
                                float* h_last, int B, int S, int I, int N,
                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N < 1 || 32 % N != 0 || I % (32 / N) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(dA, dBx, C, h0, y, h_last, B, S, I, N, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(dA, dBx, C, h0, y, h_last, B, S, I, N, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_warps = (long long)B * I / (32 / N);
+  const long long blocks = (n_warps + NT / 32 - 1) / (NT / 32);
+  ssm_fwd<<<(unsigned)blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      dA, dBx, C, h0, y, h_last, B, S, I, N);
+  return static_cast<int>(cudaGetLastError());
 }

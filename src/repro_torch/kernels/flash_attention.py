@@ -16,8 +16,9 @@ kernel's output is written in that (B, S, H, D) layout and returned as a
 k > q - window; scores, softmax and the P.V sums are f32, p is rounded to
 v's dtype before P.V as the reference rounds it, and the output is cast to
 q's dtype.  Any S is taken: the TPU kernel's S % block == 0 is a TPU tiling
-rule.  On a card bf16 inputs run on the tensor cores (``mma.sync``), f32
-inputs on the CUDA cores (``on_tensor_cores`` says which).
+rule.  On a card bf16 inputs run on the tensor cores (``mma.sync``), which
+read 16 bytes a load: their strides must be multiples of 8 elements, as the
+model's projections are.  f32 inputs run on the CUDA cores, at any strides.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+#: the head dims the CUDA library is built for (its switch in ``launch``)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
@@ -67,20 +70,8 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "flash_attention_launch": (
-        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _I, _P],
-        _I),
-    "flash_attention_dims": ([], _I),
+        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I),
 }
-
-
-def on_tensor_cores(q, k, v) -> bool:
-    """Whether the card runs these inputs on the tensor-core kernel: bf16,
-    every stride a multiple of 8 elements and every pointer 16-byte aligned
-    (its tiles are read 16 bytes a load).  Otherwise the f32 CUDA-core
-    kernel runs."""
-    return (q.dtype == torch.bfloat16
-            and all(st % 8 == 0 for t in (q, k, v) for st in t.stride()[:3])
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
@@ -108,9 +99,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         raise ValueError("the last dimension of q, k and v must be contiguous")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} is not built into the kernel "
+                         f"({HEAD_DIMS})")
+    if q.dtype == torch.bfloat16 and not (
+            all(st % 8 == 0 for t in (q, k, v) for st in t.stride()[:3])
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
+                         "elements and 16-byte aligned data")
     lib = _build.library("flash_attention", _SIGNATURES)
-    if D % 16 or not (lib.flash_attention_dims() >> (D // 16)) & 1:
-        raise ValueError(f"head_dim {D} is not built into the kernel")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     status = lib.flash_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -120,7 +117,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(2), out.stride(1),
         _scale(D, scale), int(bool(causal)), int(window),
-        int(on_tensor_cores(q, k, v)), _build.stream_ptr(dev))
+        _build.stream_ptr(dev))
     _build.check_status("flash_attention", status)
     launches += 1
     return out.permute(0, 2, 1, 3)

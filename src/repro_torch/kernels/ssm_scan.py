@@ -9,7 +9,8 @@ the other.
 The signature is the TPU kernel's: dA, dBx (B, S, I, N); C (B, S, N);
 h0 (B, I, N) -> (y (B, S, I) in dA's dtype, h_last (B, I, N) f32).  The state
 is carried in f32 across all of S; the TPU kernel's time chunks and channel
-blocks are VMEM tiling and are not carried over.
+blocks are VMEM tiling and are not carried over.  On a card the kernel takes
+f32 inputs only: the Mamba mixer builds dA and dBx in f32.
 """
 from __future__ import annotations
 
@@ -21,8 +22,6 @@ from repro_torch.kernels import _build
 
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def ssm_scan_plain(dA, dBx, C, h0):
@@ -39,13 +38,14 @@ def ssm_scan_plain(dA, dBx, C, h0):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ssm_scan_launch": ([_I, _P, _P, _P, _P, _P, _P] + [_I] * 4 + [_P], _I),
+    "ssm_scan_launch": ([_P] * 6 + [_I] * 4 + [_P], _I),
 }
 
 
 def ssm_scan(dA, dBx, C, h0):
     """dA, dBx: (B, S, I, N); C: (B, S, N); h0: (B, I, N).  Returns
-    (y (B, S, I) in dA's dtype, h_last (B, I, N) f32)."""
+    (y (B, S, I) in dA's dtype, h_last (B, I, N) f32); on a card, f32
+    inputs only."""
     global launches
     dev = _build.device_of(dA, dBx, C, h0)
     if dev.type == "cpu":
@@ -59,9 +59,8 @@ def ssm_scan(dA, dBx, C, h0):
     if C.shape != (B, S, N) or h0.shape != (B, I, N):
         raise ValueError(f"C {tuple(C.shape)} or h0 {tuple(h0.shape)} does "
                          f"not fit dA {tuple(dA.shape)}")
-    if dA.dtype not in _DTYPE_CODE or dBx.dtype != dA.dtype \
-            or C.dtype != dA.dtype:
-        raise ValueError(f"dA, dBx, C must share float32 or bfloat16, got "
+    if not dA.dtype == dBx.dtype == C.dtype == torch.float32:
+        raise ValueError(f"the kernel takes float32 dA, dBx, C, got "
                          f"{dA.dtype}, {dBx.dtype}, {C.dtype}")
     if N < 1 or 32 % N or I % (32 // N):
         raise ValueError(f"the kernel takes N dividing 32 and I a multiple "
@@ -69,10 +68,10 @@ def ssm_scan(dA, dBx, C, h0):
     lib = _build.library("ssm_scan", _SIGNATURES)
     dA, dBx, C = dA.contiguous(), dBx.contiguous(), C.contiguous()
     h0 = h0.float().contiguous()
-    y = torch.empty((B, S, I), dtype=dA.dtype, device=dev)
+    y = torch.empty((B, S, I), dtype=torch.float32, device=dev)
     h_last = torch.empty((B, I, N), dtype=torch.float32, device=dev)
     status = lib.ssm_scan_launch(
-        _DTYPE_CODE[dA.dtype], dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
+        dA.data_ptr(), dBx.data_ptr(), C.data_ptr(),
         h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, I, N,
         _build.stream_ptr(dev))
     _build.check_status("ssm_scan", status)

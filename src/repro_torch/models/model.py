@@ -6,8 +6,10 @@ Port of ``repro.models.model`` for ``init_cache``, ``prefill`` and
 Both entry points run on ``device`` (default cuda), where ``params`` must
 lie, and keep f32 products in full f32 (no TF32).  The cache is a list with
 one dict per layer and is updated in place (the reference returns a new
-one).  M-RoPE, the vision and audio frontends, the encoder-only forward,
-``train_loss`` and the chunked loss come with later slices.
+one).  Positions are start..start+S-1 for every row; M-RoPE, positions
+given in ``batch["positions"]``, the vision and audio frontends, the
+encoder-only forward, ``train_loss`` and the chunked loss come with later
+slices and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -55,7 +57,8 @@ def _start(params, cfg: ModelConfig, batch: dict, device):
         raise ValueError(f"params lie on {params['embed'].device}, not {dev}")
     for name, what in (("frontend", cfg.frontend != "none"),
                        ("encoder-only", cfg.encoder_only),
-                       ("mrope", cfg.rope_kind == "mrope")):
+                       ("mrope", cfg.rope_kind == "mrope"),
+                       ("batch['positions']", "positions" in batch)):
         if what:
             raise NotImplementedError(
                 f"{cfg.name}: the {name} path is not ported yet")

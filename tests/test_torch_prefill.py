@@ -28,7 +28,7 @@ from repro.configs.base import scan_period
 from repro.models import model as jax_model
 from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.models import model
-from repro_torch.models.params import from_jax_params
+from repro_torch.models.params import from_jax_params, init_params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TOL_DECODE_VS_PREFILL = dict(rtol=2e-3, atol=2e-3)
@@ -181,3 +181,20 @@ def test_window_and_non_causal_prefill_match_reference():
                                   device="cpu")
         np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL,
                                    err_msg=str(overrides))
+
+
+def test_given_positions_raise():
+    """The reference reads batch["positions"] when it is given; the port does
+    not take it yet and says so rather than ignore it."""
+    cfg = reduced(get_config("qwen3-8b"), n_layers=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    pos = torch.arange(4, dtype=torch.int32)[None] + 3
+    with pytest.raises(NotImplementedError, match="positions"):
+        model.prefill(params, cfg, {"tokens": toks, "positions": pos},
+                      device="cpu")
+    cache = model.init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="positions"):
+        model.decode_step(params, cfg, {"tokens": toks[:, :1],
+                                        "positions": pos[:, :1]}, cache, 0,
+                          device="cpu")
