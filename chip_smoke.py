@@ -6,8 +6,9 @@
 Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: the four CUDA kernels from ``src/repro_torch/kernels/csrc``, in
-   parallel, with the compiler's register and spill report;
+2. build: the five CUDA sources from ``src/repro_torch/kernels/csrc``, in
+   parallel, with the compiler's register, shared memory and spill report
+   for each kernel;
 3. ``lags_select`` against its plain PyTorch version: T in {256, 1024,
    4096, 65536} with k=16, few runnable tenants, all credits equal, and credits
    below 1e-4 where the key's lane term decides the order.  Picks must be
@@ -15,19 +16,20 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 4. ``decode_attention`` against its plain version: the reference's test
    shapes at G=1, the engine's shape B=16, H=32, Hkv=8, D=128 at
    L in {512, 4096} with kv_len including L-7, and phase 9's decode shape
-   B=4, L=2112 with kv_len in 2049..2112, read through the model's
-   (B, L, Hkv, D) cache view; ``flash_attention`` at the reference's test
-   shapes for (causal, 0), (causal, 128) and (non-causal, 0), a GQA case and
-   ragged S read through the (B, S, H, D) projection view, and the Qwen3-8B
-   prefill shape, where each 64-row query tile of each (b, h) is also held
-   to a relative error ||got - want|| / ||want||; f32 and bf16 at the
-   reference's tolerances; ``ssm_scan`` in f32 (the type the mixer hands
-   it) at the reference's shapes, with a nonzero h0, and the falcon-mamba
-   chunk shape, at 1e-4;
+   B=4, L=2112 with kv_len on and beside a split's edge, read through the
+   model's (B, L, Hkv, D) cache view; ``flash_attention`` at the
+   reference's test shapes for (causal, 0), (causal, 128), (causal, 64) and
+   (non-causal, 0), GQA cases, S=1 and ragged S read through the
+   (B, S, H, D) projection view, and the Qwen3-8B prefill shape, where each
+   64-row query tile of each (b, h) is also held to a relative error
+   ||got - want|| / ||want||; f32 and bf16 at the reference's tolerances;
+   ``ssm_scan`` in f32 (the type the mixer hands it) at the reference's
+   shapes, with a nonzero h0, and the falcon-mamba chunk shape, at 1e-4;
 5. times at the main paths' shapes: kernel, plain version, and where one
    PyTorch call computes the same function (``scaled_dot_product_attention``)
    that call as a yardstick (the port never calls it), with the least time
-   the card could take (``bound_ms``);
+   the card could take (``bound_ms``), the kernel's time over the library's,
+   and the kernels the library ran in its timed launches;
 6. serving on the cost model: ``repro_torch.launch.serve.main`` at 4096
    tenants; its credit kernel launches once per busy engine step; a 300-tenant
    run on the card prints the same summary as on the CPU;
@@ -48,14 +50,15 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     weights from seed 0): B=4, S=1024 in chunks of 256, 64 x 4
     ``ssm_scan`` launches, then 32 decode steps, with the same numbers and
     checks as phase 9;
-11. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}``
-    last.
+11. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
+    path under ``kernel``), then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It exits nonzero at once where no card is present.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -71,6 +74,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no sparsity
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),  # tests/test_kernels.py
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 SSM_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_kernels.py, the scan
+SLEEP_CYCLES = 400_000  # ~0.2 ms of device time, more than a call's host side
 
 
 def require(cond, msg):
@@ -87,7 +91,9 @@ def bound_ms(n_bytes, n_ops, dtype):
 class Timer:
     """Device time of one call, averaged over ``iters``, each launch after
     a 256 MB write that evicts the 50 MB L2, as the engine's step (16 GB of
-    weights) leaves it cold."""
+    weights) leaves it cold.  A device-side wait after the write keeps the
+    card busy until the host has queued the call, so the time between the
+    two events is the call's work on the card, not the host's Python."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -101,6 +107,7 @@ class Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -109,6 +116,30 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def ptxas_report(log):
+    """(kernel, registers and barriers, spills) for each entry function that
+    ``nvcc -Xptxas -v`` reports in ``log``; names demangled where c++filt
+    is found."""
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = line.split("'")[1], ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            rows.append([fn, line.split(":", 1)[1].strip(), spill])
+            fn = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        for r, name in zip(rows, names):
+            r[0] = name.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return rows
 
 
 # -- phase 3 --------------------------------------------------------------
@@ -192,13 +223,13 @@ def dec_inputs(torch, gen, B, H, Hkv, L, D, dtype, kv_len):
 def dec_shapes():
     # (B, H, Hkv, L, D, kv_len): tests/test_kernels.py at G=1, then the
     # engine's shape for Qwen3-8B (G=4) with kv_len from 1 to L, L-7 among
-    # them, then the decode after phase 9's prefill (B*Hkv = 32 rows: the
-    # kernel splits L 66 ways)
+    # them, then the decode after phase 9's prefill (B*Hkv = 32 heads: the
+    # kernel splits L 4 ways, kv_len on and beside a split's edge)
     out = [(1, 2, 2, 512, 64, [512 // 3]), (2, 4, 4, 1024, 128, [512, 1024 - 7])]
     for L in (512, 4096):
         kv = [L - 7, L, 1, L // 2] + [(97 * i) % L + 1 for i in range(12)]
         out.append((16, 32, 8, L, 128, kv))
-    out.append((4, 32, 8, 2112, 128, [2049, 2080, 2111, 2112]))
+    out.append((4, 32, 8, 2112, 128, [2049, 1728, 1729, 2112]))
     return out
 
 
@@ -224,7 +255,7 @@ def check_decode(torch, dec):
     return errs
 
 
-FLASH_MASKS = [(True, 0), (True, 128), (False, 0)]
+FLASH_MASKS = [(True, 0), (True, 128), (True, 64), (False, 0)]
 QWEN_PREFILL = dict(B=4, H=32, Hkv=8, S=2048, D=128)  # the phase 9 shape
 # at the prefill shape, ||got - want|| / ||want|| over each 64-row query tile
 # of each (b, h): late rows have |out| ~ 0.04, below TOL's atol, and a
@@ -254,7 +285,7 @@ def flash_cases():
     # that are no multiple of the 64-row tile; then the Qwen3-8B prefill
     out = [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128), (1, 4, 4, 512, 128),
            (2, 8, 2, 300, 64), (1, 4, 2, 77, 16), (2, 4, 4, 200, 80),
-           (2, 4, 2, 130, 64)]
+           (2, 4, 2, 130, 64), (1, 8, 1, 1, 128)]
     out = [c + (FLASH_MASKS,) for c in out]
     return out + [tuple(QWEN_PREFILL.values()) + ([(True, 0)],)]
 
@@ -334,6 +365,25 @@ def check_ssm(torch, ssm):
 # -- phase 5 --------------------------------------------------------------
 
 
+def library_ms(torch, timer, label, fn, iters=20):
+    """``timer.ms(fn)`` for a library call, with the profiler recording which
+    kernels ran in those very launches (for SDPA: the backend it chose)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms = timer.ms(fn, iters=iters)
+    rows = sorted(((e.self_device_time_total / 1e3 / e.count, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   # the timer's L2 flush and its wait are not the library's
+                   and "FillFunctor" not in e.key and "spin_kernel" not in e.key),
+                  reverse=True)
+    for each_ms, count, key in rows[:4]:
+        print(f"  {label} ran {count}x {each_ms:.4f} ms  {key[:110]}")
+    return ms
+
+
 def time_lags(torch, lags, timer, T, k=16):
     gen = torch.Generator(device="cuda").manual_seed(2)
     u = lambda: torch.rand(T, generator=gen, device="cuda")  # noqa: E731
@@ -360,8 +410,9 @@ def time_decode(torch, dec, timer, B=16, H=32, Hkv=8, L=512, D=128,
     # yardstick only: one PyTorch call for the same function
     q4, k4, v4 = q[:, :, None, :], k.contiguous(), v.contiguous()
     mask = (torch.arange(L, device="cuda")[None, :] < kv[:, None])[:, None, None]
-    library_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    lib_ms = library_ms(torch, timer, f"SDPA decode L={L}",
+                        lambda: F.scaled_dot_product_attention(
+                            q4, k4, v4, attn_mask=mask, enable_gqa=True))
     esize = 2 if dtype == "bfloat16" else 4
     n_rows = sum(kv_len)  # cache rows this kv_len needs, per KV head
     n_bytes = (2 * B * H * D * esize  # q in, out
@@ -369,7 +420,7 @@ def time_decode(torch, dec, timer, B=16, H=32, Hkv=8, L=512, D=128,
                + B * 4)
     n_ops = 4 * n_rows * H * D  # q.k and p.v, 2 flops a multiply-add
     b, by = bound_ms(n_bytes, n_ops, dtype)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
                 bound_by=by)
 
 
@@ -383,15 +434,13 @@ def time_flash(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
     # yardstick only: one PyTorch call for the same function
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
-    library_ms = timer.ms(sdpa, iters=10)
-    profile(torch, "SDPA at the prefill shape (which backend runs)", sdpa,
-            n_steps=1)
+    lib_ms = library_ms(torch, timer, "SDPA prefill", sdpa, iters=10)
     esize = 2 if dtype == "bfloat16" else 4
     n_bytes = B * S * (2 * H + 2 * Hkv) * D * esize  # q, k, v in; out
     pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
     n_ops = 4 * pairs * D * B * H  # q.k and p.v, 2 flops a multiply-add
     b, by = bound_ms(n_bytes, n_ops, dtype)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b,
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
                 bound_by=by)
 
 
@@ -784,9 +833,27 @@ def main():
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name in _build.SOURCES:
         log = (_build.BUILD_DIR / f"{name}.log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        rows = ptxas_report(log.read_text() if log.exists() else "")
+        for fn, used, spill in rows:
+            # the f32 decode kernel is built for six head dims: shown only
+            # where it spills
+            if "dec_split" not in fn or " 0 bytes spill stores" not in spill:
+                print(f"  {name}: {fn}: {used}; {spill}")
+        quiet = [r for r in rows if "dec_split" in r[0]
+                 and " 0 bytes spill stores" in r[2]]
+        if quiet:
+            print(f"  {name}: {len(quiet)} dec_split builds, no spills, "
+                  f"{min(int(r[1].split()[1]) for r in quiet)} to "
+                  f"{max(int(r[1].split()[1]) for r in quiet)} registers")
+    fa_lib = _build.library("flash_attention_wgmma", {
+        "flash_attention_wgmma_smem": ([ctypes.c_int], ctypes.c_int)})
+    dec_lib = _build.library("decode_attention", {
+        "decode_attention_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
+    print("  dynamic shared memory a block: fa_wgmma D=64 "
+          f"{fa_lib.flash_attention_wgmma_smem(64)} B, D=128 "
+          f"{fa_lib.flash_attention_wgmma_smem(128)} B; dec_mma (bf16) D=128 "
+          f"{dec_lib.decode_attention_smem(1, 128)} B, dec_split (f32) D=128 "
+          f"{dec_lib.decode_attention_smem(0, 128)} B")
 
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
@@ -813,9 +880,12 @@ def main():
                      times["flash_attention"]),
                     ("ssm_scan f32 B=4 S=256 I=8192 N=16",
                      times["ssm_scan"])):
+        ratio = (f" x_library={t['ms'] / t['library_ms']:.3f}"
+                 if t["library_ms"] else "")
         print(f"time {name}: " + " ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in t.items()) + f" [{card}]")
+            for k, v in t.items()) + f" x_bound={t['ms'] / t['bound_ms']:.3f}"
+            + ratio + f" [{card}]")
 
     # phase 6: the serving entry point on the cost model
     serve_cost_model(torch, ops, serve)
@@ -840,13 +910,15 @@ def main():
              launches=counts["lags_select"],
              max_abs_err=lags_err["T1024_k16"], **times["lags_select"]),
         dict(name="decode_attention", route="cuda",
+             kernel=dec.route(torch.bfloat16),
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:61",
              launches=counts["decode_attention"],
              max_abs_err=dec_err[("bfloat16", 16, 32, 8, 512, 128)],
              **times["decode_attention"]),
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             kernel=fa.route(torch.bfloat16, QWEN_PREFILL["D"]),
+             source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:77",
              launches=counts["flash_attention"],
              max_abs_err=fa_err[("bfloat16", *QWEN_PREFILL.values(), True, 0)],

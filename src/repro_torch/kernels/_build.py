@@ -27,7 +27,8 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("lags_select", "decode_attention", "flash_attention", "ssm_scan")
+SOURCES = ("lags_select", "decode_attention", "flash_attention",
+           "flash_attention_wgmma", "ssm_scan")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
          "-v")
@@ -36,6 +37,7 @@ FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
 EXTRA_FLAGS = {"lags_select": ("-fmad=false",)}
 
 _LIBS: dict = {}
+_TYPED: set = set()
 _LOCK = threading.Lock()
 
 
@@ -93,16 +95,18 @@ def build(names=SOURCES) -> dict:
 def library(name: str, signatures: dict) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
     ``signatures`` maps each C function to (argtypes, restype); pointers are
-    ``c_void_p`` so that ctypes does not cut them to 32 bits."""
+    ``c_void_p`` so that ctypes does not cut them to 32 bits.  Callers may
+    name different functions of one library."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            for fn, (argtypes, restype) in signatures.items():
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in signatures.items():
+            if (name, fn) not in _TYPED:  # a function is typed once
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype
-            _LIBS[name] = lib
+                _TYPED.add((name, fn))
         return lib
 
 
@@ -115,7 +119,12 @@ def device_of(*tensors) -> torch.device:
 
 
 def check_status(name: str, status: int) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a launch function."""
+    """Raise on a nonzero status returned by a launch function: a
+    ``cudaError_t``, or 1000 + the ``CUresult`` of a TMA tensor map that the
+    CUDA driver refused."""
+    if status >= 1000:
+        raise RuntimeError(f"{name}: the CUDA driver refused a TMA tensor map, "
+                           f"CUresult {status - 1000}")
     if status != 0:
         raise RuntimeError(
             f"{name}: CUDA launch failed with cudaError_t {status}")

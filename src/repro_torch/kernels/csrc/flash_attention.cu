@@ -15,9 +15,10 @@
 // 4 * 64 * 64 * D flops on 2 * 64 * D loaded values; at S = 2048 the whole
 // call does ~S/2 flops per byte read, far above the ~295 flops a byte where
 // the tensor cores, not memory, set the limit.  Two kernels share the grid
-// below, one for each input type: fa_mma runs bf16 on the tensor cores
-// (mma.sync; the card's dense bf16 peak is 989 TFLOP/s); fa_fwd runs f32 on
-// the CUDA cores (67 TFLOP/s peak).
+// below: fa_mma runs bf16 on the tensor cores (mma.sync) at the head dims
+// that fa_wgmma (flash_attention_wgmma.cu: wgmma and TMA, the model's path
+// at D = 64 and 128) does not take; fa_fwd runs f32 on the CUDA cores
+// (67 TFLOP/s peak).  flash_attention.route picks the kernel.
 //
 // Design.  The TPU kernel's grid (B*H, n_q, n_kv) makes the KV axis a
 // sequential grid dimension with (m, l, acc) in VMEM scratch.  Here the grid
@@ -31,8 +32,7 @@
 // score columns tx + 16*j and output columns tx + 16*j.  Q, K and V tiles
 // are staged in shared memory as f32 (rows padded by 4 floats, so the
 // float4 reads of 8 neighbouring rows fall in distinct banks); P reuses K's
-// space.  fa_mma is described where it is defined.  Simple and right first:
-// no wgmma, no TMA, no cp.async pipelining.
+// space.  fa_mma is described where it is defined.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -13,6 +13,14 @@ be strided views, so the model hands in its (B, L, Hkv, D) cache permuted
 and copies nothing.  Scores, softmax and the P.V sum are f32; the output is
 cast to q's dtype.  The TPU kernel's 8-row query padding is TPU layout and is
 not carried over.
+
+On a card the kernel reads K and V 16 bytes a load: k and v need 16-byte
+aligned data, strides in multiples of 16 bytes, and a head dim in
+``HEAD_DIMS`` (powers of two up to 256), as the model's cache has.  The
+cache rows are split across blocks by ``split_plan``; each split writes f32
+partials and the last block of each (b, KV head) merges them, counting on a
+per-device buffer of counters that the kernel leaves zero.  Calls on one
+device run on one stream at a time, as the model issues them.
 """
 from __future__ import annotations
 
@@ -28,8 +36,14 @@ NEG_INF = -1e30
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
 
-SMS = 132  # streaming multiprocessors of an H100 SXM
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the CUDA kernel is built for (the switch of its launch)
+HEAD_DIMS = {torch.float32: (8, 16, 32, 64, 128, 256),
+             torch.bfloat16: (16, 32, 64, 128, 256)}
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+MIN_BLOCK_BYTES = 256 << 10  # K and V bytes a block moves, at least
+ROW_GRAIN = 64  # a split's rows are a multiple of this
 
 
 def _scale(D: int, scale):
@@ -38,16 +52,42 @@ def _scale(D: int, scale):
         if scale is None else float(scale)
 
 
-def chunk_rows(B: int, Hkv: int, L: int) -> int:
-    """Cache rows per block: the smallest power of two from 32 to 256 whose
-    split of L gives at most about 16 blocks per SM.  With one query row a
-    block has little work, so a small grid (B * Hkv blocks) leaves SMs idle;
-    on an H100 at B=16, Hkv=8, L=512, 32 rows a block beat 128 and 256."""
-    want_splits = -(-16 * SMS // (B * Hkv))
-    chunk = 32
-    while chunk < 256 and -(-L // chunk) > want_splits:
-        chunk *= 2
-    return chunk
+def route(dtype: torch.dtype) -> str:
+    """The kernel that runs a call on the card: bf16 on the tensor cores,
+    f32 on the CUDA cores."""
+    if dtype == torch.bfloat16:
+        return "dec_mma"
+    if dtype == torch.float32:
+        return "dec_split"
+    raise ValueError(f"decode_attention takes float32 or bfloat16, not {dtype}")
+
+
+def split_plan(B: int, Hkv: int, L: int, D: int, esize: int):
+    """(rows a split, splits) for a cache of L rows: as many splits as give
+    each SM one block of the B * Hkv heads, but no full split that moves
+    less than 256 KB of K and V, in multiples of 64 rows.  One block an SM
+    keeps two tiles a warp in flight, enough to stream from HBM; more
+    blocks only add partials to merge and blocks that wait for a second
+    wave.  The splits cover [0, L); with one split the kernel writes the
+    output and no partials."""
+    row = 2 * D * esize  # K and V bytes a cache row
+    n_split = max(1, min(SMS // (B * Hkv), L * row // MIN_BLOCK_BYTES))
+    chunk = -(-L // n_split)
+    chunk = -(-chunk // ROW_GRAIN) * ROW_GRAIN
+    n_split = -(-L // chunk)
+    return (L, 1) if n_split == 1 else (chunk, n_split)
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(dev: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 counters on dev, kept across calls."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def decode_attention_plain(q, k, v, kv_len, *, scale=None):
@@ -68,10 +108,8 @@ def decode_attention_plain(q, k, v, kv_len, *, scale=None):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "decode_attention_launch": (
-        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_L] * 8 + [_F, _P],
-        _I),
+        [_I] + [_P] * 9 + [_I] * 7 + [_L] * 8 + [_F, _P], _I),
     "decode_attention_max_group": ([], _I),
-    "decode_attention_max_dim": ([], _I),
 }
 
 
@@ -98,23 +136,36 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         raise ValueError("the last dimension of q, k and v must be contiguous")
     if kv_len.shape != (B,):
         raise ValueError(f"kv_len must be ({B},), got {tuple(kv_len.shape)}")
+    if D not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head_dim {D} is not built into the kernel "
+                         f"({HEAD_DIMS[q.dtype]} for {q.dtype})")
+    esize = q.element_size()
+    if not (all(t.stride(i) * esize % 16 == 0 for t in (k, v) for i in range(3)
+                if t.shape[i] > 1)
+            and all(t.data_ptr() % 16 == 0 for t in (k, v))):
+        raise ValueError("k and v need strides that are multiples of 16 bytes "
+                         "and 16-byte aligned data")
     lib = _build.library("decode_attention", _SIGNATURES)
     G = H // Hkv
-    if G > lib.decode_attention_max_group() or D > lib.decode_attention_max_dim():
-        raise ValueError(f"G={G}, D={D} exceed the kernel's "
-                         f"{lib.decode_attention_max_group()}, "
-                         f"{lib.decode_attention_max_dim()}")
+    if G > lib.decode_attention_max_group():
+        raise ValueError(f"G={G} exceeds the kernel's "
+                         f"{lib.decode_attention_max_group()}")
     kv_len = kv_len.to(torch.int32).contiguous()
-    chunk = chunk_rows(B, Hkv, L)
-    n_split = -(-L // chunk)
+    chunk, n_split = split_plan(B, Hkv, L, D, esize)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
-    m_part = torch.empty((B, H, n_split), dtype=torch.float32, device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((B, H, n_split, D), dtype=torch.float32, device=dev)
+    m_part = l_part = acc_part = counters = None
+    if n_split > 1:
+        # one f32 scratch: m and l (B, H, n_split) each, acc (B, H, n_split, D)
+        part = B * H * n_split
+        scratch = torch.empty(part * (D + 2), dtype=torch.float32, device=dev)
+        m_part = scratch.data_ptr()
+        l_part = m_part + 4 * part
+        acc_part = l_part + 4 * part
+        counters = _counters(dev, B * Hkv).data_ptr()
     status = lib.decode_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), B, H, G, L, D, chunk, n_split,
+        kv_len.data_ptr(), out.data_ptr(), m_part, l_part, acc_part,
+        counters, B, H, G, L, D, chunk, n_split,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), _scale(D, scale),
         _build.stream_ptr(dev))

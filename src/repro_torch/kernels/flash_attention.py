@@ -16,9 +16,21 @@ kernel's output is written in that (B, S, H, D) layout and returned as a
 k > q - window; scores, softmax and the P.V sums are f32, p is rounded to
 v's dtype before P.V as the reference rounds it, and the output is cast to
 q's dtype.  Any S is taken: the TPU kernel's S % block == 0 is a TPU tiling
-rule.  On a card bf16 inputs run on the tensor cores (``mma.sync``), which
-read 16 bytes a load: their strides must be multiples of 8 elements, as the
-model's projections are.  f32 inputs run on the CUDA cores, at any strides.
+rule.
+
+On a card the kernel is a pure function of (dtype, D), ``route``:
+
+* ``fa_wgmma`` (``csrc/flash_attention_wgmma.cu``) for bf16 at D in
+  ``WGMMA_DIMS`` (64 and 128, every attention config of the port):
+  warp-specialised, TMA loads and ``wgmma`` products;
+* ``fa_mma`` (``csrc/flash_attention.cu``) for bf16 at the other head dims
+  of ``HEAD_DIMS``: ``mma.sync`` with 16-byte loads;
+* ``fa_fwd`` (``csrc/flash_attention.cu``) for f32, on the CUDA cores, at any
+  strides.
+
+Both bf16 kernels read 16 bytes at a time (TMA needs 16-byte aligned data and
+strides): their inputs' strides must be multiples of 8 elements, as the
+model's projections are, and anything else is refused.
 """
 from __future__ import annotations
 
@@ -30,8 +42,11 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-#: the head dims the CUDA library is built for (its switch in ``launch``)
+#: the head dims the CUDA libraries are built for (the switches of their
+#: launch functions)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+#: the bf16 head dims ``fa_wgmma`` takes
+WGMMA_DIMS = (64, 128)
 
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
@@ -67,10 +82,29 @@ def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
+def route(dtype: torch.dtype, D: int) -> str:
+    """The kernel that runs a call on the card, from its dtype and head dim."""
+    if dtype == torch.float32:
+        return "fa_fwd"
+    if dtype == torch.bfloat16:
+        return "fa_wgmma" if D in WGMMA_DIMS else "fa_mma"
+    raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+
+
+def _strides(t):
+    """t's strides of (B, heads, S); a dimension of length 1 has no stride
+    of its own, so it gets the tensor's span, which the kernels never use."""
+    span = max([t.stride(i) * t.shape[i] for i in range(3) if t.shape[i] > 1],
+               default=8)
+    return [t.stride(i) if t.shape[i] > 1 else span for i in range(3)]
+
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    "flash_attention_launch": (
-        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I),
+    "flash_attention": {"flash_attention_launch": (
+        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I)},
+    "flash_attention_wgmma": {"flash_attention_wgmma_launch": (
+        [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I)},
 }
 
 
@@ -102,22 +136,25 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} is not built into the kernel "
                          f"({HEAD_DIMS})")
+    strides = [_strides(t) for t in (q, k, v)]
     if q.dtype == torch.bfloat16 and not (
-            all(st % 8 == 0 for t in (q, k, v) for st in t.stride()[:3])
+            all(st % 8 == 0 for sts in strides for st in sts)
             and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
         raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
                          "elements and 16-byte aligned data")
-    lib = _build.library("flash_attention", _SIGNATURES)
+    (qsb, qsh, qss), (ksb, ksh, kss), (vsb, vsh, vss) = strides
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
-    status = lib.flash_attention_launch(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, H, H // Hkv, S, D,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(2), out.stride(1),
-        _scale(D, scale), int(bool(causal)), int(window),
-        _build.stream_ptr(dev))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
+            H // Hkv, S, D, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
+            out.stride(0), out.stride(2), out.stride(1), _scale(D, scale),
+            int(bool(causal)), int(window), _build.stream_ptr(dev))
+    if route(q.dtype, D) == "fa_wgmma":
+        lib = _build.library("flash_attention_wgmma",
+                             _SIGNATURES["flash_attention_wgmma"])
+        status = lib.flash_attention_wgmma_launch(*args)
+    else:
+        lib = _build.library("flash_attention", _SIGNATURES["flash_attention"])
+        status = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], *args)
     _build.check_status("flash_attention", status)
     launches += 1
     return out.permute(0, 2, 1, 3)

@@ -52,35 +52,60 @@ def test_lags_select_sub_1e4_order(card):
     assert idx.tolist() == [0, 1000, 1]
 
 
+# (B, H, Hkv, L, D): the reference's shapes, then B * Hkv = 32 (the decode
+# after the Qwen3-8B prefill) and 128 (the engine) at L = 512, 2112, 4096
+DEC_SHAPES = [(1, 2, 2, 512, 64), (2, 4, 4, 1024, 128), (2, 8, 2, 300, 64)] + [
+    (B, 32, 8, L, 128) for B in (4, 16) for L in (512, 2112, 4096)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,Hkv,L,D", [(1, 2, 2, 512, 64), (2, 4, 4, 1024, 128),
-                                         (2, 8, 2, 300, 64),
-                                         (16, 32, 8, 512, 128)])
+@pytest.mark.parametrize("B,H,Hkv,L,D", DEC_SHAPES)
 def test_decode_attention_kernel_matches_plain(card, dtype, B, H, Hkv, L, D):
     n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
     q = n(B, H, D)
     k = n(B, L, Hkv, D).permute(0, 2, 1, 3)  # the model's cache view
     v = n(B, L, Hkv, D).permute(0, 2, 1, 3)
-    kv_len = torch.tensor(([L - 7, L, 1, L // 3] * B)[:B], dtype=torch.int32,
-                          device="cuda")
+    # kv_len from 1 to L, L - 7 and the edges of the kernel's splits among them
+    chunk, _ = dec.split_plan(B, Hkv, L, D, q.element_size())
+    edges = [L - 7, L, 1, chunk, chunk - 1, chunk + 1, L // 3]
+    kv_len = torch.tensor([min(max(x, 1), L) for x in (edges * B)[:B]],
+                          dtype=torch.int32, device="cuda")
     got = dec.decode_attention(q, k, v, kv_len)
     want = dec.decode_attention_plain(q, k, v, kv_len)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def test_decode_attention_kernel_refuses_unaligned_cache(card):
+    """16-byte loads: a cache row stride that is no multiple of 16 bytes is
+    refused, not read another way."""
+    q = torch.zeros(1, 4, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 32, 2, 65, device="cuda", dtype=torch.bfloat16)
+    kv = kv[..., :64].permute(0, 2, 1, 3)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        dec.decode_attention(q, kv, kv, torch.tensor([7], device="cuda"))
+
+
+# (B, H, Hkv, S, D, pad): the reference's shapes and ragged S, with rows
+# padded by one element (odd strides) or not; then fa_wgmma's grid, D in
+# {64, 128} x G in {1, 4, 8} x S in {1, 77, 128, 130, 300, 2048}
+FLASH_SHAPES = [(B, H, Hkv, S, D, pad) for B, H, Hkv, S, D in (
+    (1, 1, 1, 128, 64), (2, 2, 2, 256, 128), (2, 8, 2, 300, 64),
+    (1, 4, 2, 77, 16), (2, 4, 4, 200, 80)) for pad in (0, 1)] + [
+    (1, 2 * G, 2, S, D, 0) for D in (64, 128) for G in (1, 4, 8)
+    for S in (1, 77, 128, 130, 300, 2048)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128), (False, 0)])
-@pytest.mark.parametrize("B,H,Hkv,S,D", [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128),
-                                         (2, 8, 2, 300, 64), (1, 4, 2, 77, 16),
-                                         (2, 4, 4, 200, 80)])
-@pytest.mark.parametrize("pad", [0, 1])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 128), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("B,H,Hkv,S,D,pad", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(card, dtype, causal, window, B,
                                               H, Hkv, S, D, pad):
     n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
     # the model's (B, S, H, D) projections, seen as (B, H, S, D); rows
     # padded by one element make odd strides, which the f32 kernel reads and
-    # the bf16 kernel (16 bytes a load) refuses
+    # the bf16 kernels (16 bytes a load, TMA) refuse
     q, k, v = (n(B, S, h, D + pad)[..., :D].permute(0, 2, 1, 3)
                for h in (H, Hkv, Hkv))
     if dtype == torch.bfloat16 and pad:

@@ -10,6 +10,7 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.decode_attention import decode_attention as pallas_decode
+from repro_torch.kernels import decode_attention as dec_mod
 from repro_torch.kernels.decode_attention import decode_attention
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -76,3 +77,46 @@ def test_cache_view_equals_contiguous():
     dense = decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                              torch.from_numpy(v), kv_len)
     torch.testing.assert_close(view, dense, rtol=0, atol=0)
+
+
+# (B, Hkv, L, D, esize): the engine's Qwen3-8B step, the decode after the
+# Qwen3-8B prefill, L = 4096, the reference's shapes, f32, ragged L
+PLAN_SHAPES = [(16, 8, 512, 128, 2), (4, 8, 2112, 128, 2),
+               (16, 8, 4096, 128, 2), (1, 2, 512, 64, 2), (2, 4, 1024, 128, 2),
+               (2, 4, 1024, 128, 4), (1, 8, 32768, 128, 2), (3, 2, 1, 64, 2),
+               (2, 2, 4097, 256, 4), (8, 1, 300, 16, 2)]
+
+
+@pytest.mark.parametrize("B,Hkv,L,D,esize", PLAN_SHAPES)
+def test_split_plan_covers_the_cache_once(B, Hkv, L, D, esize):
+    chunk, n_split = dec_mod.split_plan(B, Hkv, L, D, esize)
+    assert n_split >= 1 and chunk >= 1
+    assert chunk * (n_split - 1) < L <= chunk * n_split  # [0, L), no empty tail
+    if n_split == 1:
+        assert chunk == L
+    else:
+        assert chunk % dec_mod.ROW_GRAIN == 0
+        # each split moves at least MIN_BLOCK_BYTES of K and V, and the
+        # blocks of all heads give each SM at most one
+        assert chunk * 2 * D * esize >= dec_mod.MIN_BLOCK_BYTES
+        assert n_split * B * Hkv <= dec_mod.SMS
+
+
+@pytest.mark.parametrize("B,Hkv,L,want", [
+    (16, 8, 512, (512, 1)),     # the engine: one split, no partials
+    (4, 8, 2112, (576, 4)),     # after the Qwen3-8B prefill
+    (16, 8, 4096, (4096, 1))])  # the long cache of the timing phase
+def test_split_plan_at_the_main_paths_shapes(B, Hkv, L, want):
+    chunk, n_split = dec_mod.split_plan(B, Hkv, L, 128, 2)
+    assert (chunk, n_split) == want
+    # f32 scratch the wrapper allocates for the partials: m, l and acc
+    H = 4 * Hkv
+    scratch = 0 if n_split == 1 else B * H * n_split * (128 + 2)
+    assert scratch == {1: 0, 4: 4 * 32 * 4 * 130}[n_split]
+
+
+def test_route_by_dtype():
+    assert dec_mod.route(torch.bfloat16) == "dec_mma"
+    assert dec_mod.route(torch.float32) == "dec_split"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dec_mod.route(torch.float16)

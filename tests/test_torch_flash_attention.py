@@ -10,6 +10,8 @@ import torch
 
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.configs.base import get_config, layer_specs, list_configs
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import flash_attention
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
@@ -91,3 +93,28 @@ def test_projection_view_equals_contiguous():
     got = flash_attention(view(q), view(k), view(v))
     dense = flash_attention(*map(torch.from_numpy, (q, k, v)))
     torch.testing.assert_close(got, dense, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, "fa_wgmma"), (torch.bfloat16, 128, "fa_wgmma"),
+    (torch.bfloat16, 16, "fa_mma"), (torch.bfloat16, 32, "fa_mma"),
+    (torch.bfloat16, 80, "fa_mma"), (torch.bfloat16, 96, "fa_mma"),
+    (torch.float32, 64, "fa_fwd"), (torch.float32, 128, "fa_fwd"),
+    (torch.float32, 80, "fa_fwd")])
+def test_route_is_a_function_of_dtype_and_head_dim(dtype, D, want):
+    assert fa_mod.route(dtype, D) == want
+    assert D in fa_mod.HEAD_DIMS
+
+
+def test_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_mod.route(torch.float16, 128)
+
+
+@pytest.mark.parametrize("name", [n for n in list_configs() if any(
+    s.kind == "attn" for s in layer_specs(get_config(n)))])
+def test_every_attention_config_prefills_on_fa_wgmma(name):
+    """The prefill of every attention config of the port runs in bf16 at a
+    head dim that fa_wgmma takes."""
+    cfg = get_config(name)
+    assert fa_mod.route(getattr(torch, cfg.dtype), cfg.head_dim) == "fa_wgmma"
