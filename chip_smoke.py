@@ -9,10 +9,13 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 2. build: the five CUDA sources from ``src/repro_torch/kernels/csrc``, in
    parallel, with the compiler's register, shared memory and spill report
    for each kernel;
-3. ``lags_select`` against its plain PyTorch version: T in {256, 1024,
-   4096, 65536} with k=16, few runnable tenants, all credits equal, and credits
+3. ``lags_select`` against its plain PyTorch version: random cases at T
+   from 1 to 65536 (CTA edges 1023, 1025, 8193 among them) with k=16, k > T,
+   (2048, 2048) and (65536, 1024); few runnable tenants, none runnable, all
+   credits equal (ties across the cluster's CTAs at T=65536), and credits
    below 1e-4 where the key's lane term decides the order.  Picks must be
-   equal and the state bit-equal;
+   equal and the state bit-equal.  One call is one kernel under the
+   profiler, and its only allocations are its three outputs;
 4. ``decode_attention`` against its plain version: the reference's test
    shapes at G=1, the engine's shape B=16, H=32, Hkv=8, D=128 at
    L in {512, 4096} with kv_len including L-7, and phase 9's decode shape
@@ -29,16 +32,22 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    PyTorch call computes the same function (``scaled_dot_product_attention``)
    that call as a yardstick (the port never calls it), with the least time
    the card could take (``bound_ms``), the kernel's time over the library's,
-   and the kernels the library ran in its timed launches;
+   and the kernels the library ran in its timed launches.  ``lags_select``
+   at T in {1024, 4096, 65536} with k=16 and at (65536, 1024), beside an
+   empty kernel's time under the same timer (``floor_ms``) and
+   ``torch.topk`` on the precomputed key (selection only, tie order unset);
 6. serving on the cost model: ``repro_torch.launch.serve.main`` at 4096
    tenants; its credit kernel launches once per busy engine step; a 300-tenant
-   run on the card prints the same summary as on the CPU;
+   run on the card prints the same summary as on the CPU; the wall time per
+   busy step, the host time of the engine's credit tick, and of one
+   ``cuda_backend.tick_and_pick`` at T=4096 beside the kernel's device time;
 7. serving with Qwen3-8B at full width and depth (36 layers, bf16, random
    weights from seed 0) on 16 slots with 1024 tenants and max_len 512: 511
    decode steps, 36 decode-attention launches each, finite logits, and the
    same scheduling as the CPU engine (first, the reduced decoder in f32 on
-   the card equals the CPU's); then the ms of one decode step at the full
-   cache, and a profile of it by kernel;
+   the card equals the CPU's); the tick's split as in phase 6 at T=1024;
+   then the ms of one decode step at the full cache, and a profile of it by
+   kernel;
 8. prefill of the reduced Qwen3-8B (G=2) and falcon-mamba in f32: the card
    (kernels) equals the CPU (plain versions) in logits and every cache leaf;
 9. Qwen3-8B prefill at full width and depth with phase 7's weights: B=4,
@@ -58,6 +67,7 @@ It exits nonzero at once where no card is present.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import math
@@ -98,6 +108,9 @@ class Timer:
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+        # the first timed loop of a process reads several times high, the
+        # same call timed later does not: one untimed loop first
+        self.ms(lambda: None)
 
     def ms(self, fn, iters=20, warmup=3):
         torch = self.torch
@@ -173,16 +186,32 @@ def lags_cases(torch, gen):
         return z, credit, z, torch.ones(T, dtype=torch.bool, device="cuda"), \
             3, 10**9
 
-    return {"T256_k16": rand(256, 16), "T1024_k16": rand(1024, 16),
-            "T4096_k16": rand(4096, 16), "T65536_k16": rand(65536, 16),
-            "few_runnable": few(), "all_equal": equal(), "sub_1e-4": sub_1e4()}
+    def ties(T, k):
+        # one key for every lane: the picks are the lowest runnable lanes,
+        # across the cluster's CTA edges
+        f = lambda v: torch.full((T,), v, device="cuda")  # noqa: E731
+        runnable = torch.arange(T, device="cuda") % 3 != 1
+        return f(0.25), f(0.5), f(0.5), runnable, k, 256
+
+    def none(T):
+        load, credit, frac, runnable, k, window = rand(T, 16)
+        return load, credit, frac, torch.zeros_like(runnable), k, window
+
+    cases = {f"T{T}_k{k}": rand(T, k) for T, k in (
+        (1, 1), (256, 16), (1023, 16), (1024, 16), (1025, 16), (4096, 16),
+        (8193, 16), (2048, 2048), (100, 200), (65536, 16), (65536, 1024))}
+    cases.update({"few_runnable": few(), "all_equal": equal(),
+                  "sub_1e-4": sub_1e4(), "ties_across_ctas": ties(65536, 16),
+                  "ties_across_ctas_k1024": ties(65536, 1024),
+                  "none_runnable": none(65536)})
+    return cases
 
 
 def check_lags(torch, lags):
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    for name, (load, credit, frac, runnable, k, window) in lags_cases(
-            torch, gen).items():
+    cases = lags_cases(torch, gen)
+    for name, (load, credit, frac, runnable, k, window) in cases.items():
         got = lags.lags_select(load, credit, frac, runnable, k, window=window)
         want = lags.lags_select_plain(load, credit, frac, runnable, k,
                                       window=window)
@@ -199,11 +228,42 @@ def check_lags(torch, lags):
         if name == "few_runnable":
             require(got[2].tolist() == [5, 50, 3000] + [-1] * 13,
                     f"few-runnable picks {got[2].tolist()}")
+        if name.startswith("ties_across_ctas"):
+            want_ties = [i for i in range(load.shape[0]) if i % 3 != 1][:k]
+            require(got[2].tolist() == want_ties,
+                    f"{name} picks are not the lowest runnable lanes")
+        if name == "none_runnable":
+            require(got[2].tolist() == [-1] * k, f"none-runnable picks "
+                    f"{got[2].tolist()}")
         errs[name] = max(float((got[0] - want[0]).abs().max()),
                          float((got[1] - want[1]).abs().max()))
         print(f"lags_select {name}: T={load.shape[0]} k={k} picks equal, "
               f"state bit-equal, first picks {got[2][:4].tolist()}")
+    one_launch(torch, lags, *cases["T65536_k1024"][:5])
     return errs
+
+
+def one_launch(torch, lags, *args):
+    """One ``lags_select`` call is one kernel on the card, and the wrapper
+    allocates only its three outputs (no candidate buffer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lags.lags_select(*args)  # the library is loaded before the count
+    torch.cuda.synchronize()
+    n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lags.lags_select(*args)
+        torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = sorted({e.name for e in kernels})
+    require(len(kernels) == 1 and "lags_cluster_select" in names[0],
+            f"one lags_select call ran {len(kernels)} kernels: {names}")
+    require(allocs == 3, f"one lags_select call made {allocs} allocations, "
+            "want its 3 outputs")
+    print(f"lags_select T={args[0].shape[0]} k={args[4]}: one call is one "
+          f"kernel ({names[0][:60]}), {allocs} allocations (its outputs)")
 
 
 # -- phase 4 --------------------------------------------------------------
@@ -390,12 +450,22 @@ def time_lags(torch, lags, timer, T, k=16):
     args = (u() * 2, u() * 2, u(), u() < 0.5, k)
     ms = timer.ms(lambda: lags.lags_select(*args))
     plain_ms = timer.ms(lambda: lags.lags_select_plain(*args))
+    # the floor: an empty kernel under the same timer
+    floor_ms = timer.ms(lambda: lags.empty_launch("cuda"))
+    # yardstick only: selection alone on the precomputed key, its order
+    # among ties unset; its picks are not compared and the port never calls it
+    _, credit, _ = lags.lags_select_plain(*args)
+    key = torch.where(args[3], credit + torch.arange(
+        T, device="cuda", dtype=torch.float32) * 1e-12, float("inf"))
+    lib_ms = timer.ms(lambda: torch.topk(key, k, largest=False, sorted=True))
     # each input read once (3 f32 + 1 bool), each output written once
     n_bytes = T * (3 * 4 + 1) + T * 2 * 4 + k * 4
     n_ops = T * 9  # 4 mul + 2 add (tick), mul + add (key), 1 compare
     b, by = bound_ms(n_bytes, n_ops, "float32")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                bound_by=by)
+    return dict(ms=ms, plain_ms=plain_ms, floor_ms=floor_ms,
+                library_ms=lib_ms, bound_ms=b, bound_by=by,
+                library="torch.topk on the key: selection only, tie order "
+                "unset")
 
 
 def time_decode(torch, dec, timer, B=16, H=32, Hkv=8, L=512, D=128,
@@ -467,7 +537,58 @@ def summary(st):
             tuple(lat))
 
 
-def serve_cost_model(torch, ops, serve):
+@contextlib.contextmanager
+def engine_tick_clock(secs):
+    """Append the host-clock seconds of every ``Engine._kernel_tick`` (the
+    engine's credit tick: host lists, copies both ways, the kernel) to
+    ``secs`` while the block runs."""
+    from repro_torch.serving.engine import Engine
+
+    orig = Engine._kernel_tick
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            secs.append(time.perf_counter() - t0)
+
+    Engine._kernel_tick = timed
+    try:
+        yield secs
+    finally:
+        Engine._kernel_tick = orig
+
+
+def tick_split(torch, T, kernel_ms, k=16, window=256):
+    """The host-clock ms of one ``cuda_backend.tick_and_pick`` call at T
+    tenants (host arrays in, host arrays out, as the engine calls it), beside
+    the kernel's device ms from phase 5."""
+    import numpy as np
+
+    from repro_torch.sched import cuda_backend
+
+    rng = np.random.default_rng(T)
+    args = (rng.uniform(0, 2, T), rng.uniform(0, 2, T), rng.uniform(0, 1, T),
+            rng.uniform(size=T) < 0.5, k)
+    for _ in range(5):
+        cuda_backend.tick_and_pick(*args, window=window)
+    secs = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cuda_backend.tick_and_pick(*args, window=window)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    med = sorted(secs)[len(secs) // 2] * 1e3
+    print(f"tick T={T} k={k}: one cuda_backend.tick_and_pick takes {med:.6g} "
+          f"ms on the host clock (median of 50, min {min(secs) * 1e3:.6g}); "
+          f"the kernel {kernel_ms:.6g} ms on the device, "
+          f"{100 * kernel_ms / med:.2f}% of the call")
+    return med
+
+
+def serve_cost_model(torch, ops, serve, tick_kernel_ms):
     # the card and the CPU schedule alike: the kernel's state is bit-equal
     argv = ["--tenants", "300", "--duration", "2"]
     on_card = summary(serve.main(argv))
@@ -475,15 +596,23 @@ def serve_cost_model(torch, ops, serve):
     require(on_card == on_cpu, "300-tenant serve differs on the card and CPU")
 
     ops.reset_launch_counts()
-    st = serve.main(["--tenants", "4096", "--duration", "5"])
-    torch.cuda.synchronize()
+    ticks = []
+    with engine_tick_clock(ticks):
+        t0 = time.perf_counter()
+        st = serve.main(["--tenants", "4096", "--duration", "5"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     n = ops.launch_counts()
     busy = st.steps - st.idle_steps
     require(n["lags_select"] == busy > 0,
             f"lags_select launches {n['lags_select']} != busy steps {busy}")
     require(len(st.completed) > 0, "no request completed at 4096 tenants")
     print(f"serve 4096 tenants: steps={st.steps} busy_steps={busy} "
-          f"lags_select launches={n['lags_select']}")
+          f"lags_select launches={n['lags_select']}; serve.main wall "
+          f"{wall:.3f} s, {wall / busy * 1e3:.6g} ms a busy step, of which "
+          f"Engine._kernel_tick {sum(ticks) / len(ticks) * 1e3:.6g} ms "
+          f"(host clock, mean of {len(ticks)} ticks)")
+    tick_split(torch, 4096, tick_kernel_ms)
 
 
 def to(tree, dev):
@@ -526,7 +655,7 @@ def check_model_small(torch):
           f"(plain versions), last max_abs_err={err:.3e}")
 
 
-def serve_qwen3_8b(torch, ops, serve):
+def serve_qwen3_8b(torch, ops, serve, tick_kernel_ms):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
     from repro_torch.models.params import count_params, init_params
@@ -550,11 +679,13 @@ def serve_qwen3_8b(torch, ops, serve):
     cache_gb = sum(c["k"].numel() * 2 * c["k"].element_size()
                    for c in eng._cache) / 1e9
     ops.reset_launch_counts()
+    ticks = []
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = eng.run(duration, arrivals)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with engine_tick_clock(ticks):
+        t0 = time.perf_counter()
+        st = eng.run(duration, arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     n = ops.launch_counts()
     busy = st.steps - st.idle_steps
     decode_steps = eng._cache_len
@@ -580,6 +711,10 @@ def serve_qwen3_8b(torch, ops, serve):
           f"membership_changes={st.membership_changes} "
           f"kv_cache={cache_gb:.2f} GB wall={wall:.2f} s "
           f"launches={json.dumps(n)}")
+    print(f"engine qwen3-8b: {wall / busy * 1e3:.6g} ms a busy step, of which "
+          f"Engine._kernel_tick {sum(ticks) / len(ticks) * 1e3:.6g} ms "
+          f"(host clock, mean of {len(ticks)} ticks)")
+    tick_split(torch, n_tenants, tick_kernel_ms)
 
     # one more step at the full cache (kv_len 512), outside the counted run
     tokens = eng._tokens
@@ -864,6 +999,7 @@ def main():
     times = {"lags_select": time_lags(torch, lags, timer, T=1024)}
     t4096 = time_lags(torch, lags, timer, T=4096)
     t65536 = time_lags(torch, lags, timer, T=65536)
+    t65536_k1024 = time_lags(torch, lags, timer, T=65536, k=1024)
     times["decode_attention"] = time_decode(torch, dec, timer)
     d4096 = time_decode(torch, dec, timer, L=4096)
     times["flash_attention"] = time_flash(torch, fa, timer, **QWEN_PREFILL)
@@ -872,6 +1008,7 @@ def main():
     for name, t in (("lags_select T=1024 k=16", times["lags_select"]),
                     ("lags_select T=4096 k=16", t4096),
                     ("lags_select T=65536 k=16", t65536),
+                    ("lags_select T=65536 k=1024", t65536_k1024),
                     ("decode_attention bf16 B=16 H=32 Hkv=8 L=512 kv=505",
                      times["decode_attention"]),
                     ("decode_attention bf16 B=16 H=32 Hkv=8 L=4096 kv=4089",
@@ -882,17 +1019,20 @@ def main():
                      times["ssm_scan"])):
         ratio = (f" x_library={t['ms'] / t['library_ms']:.3f}"
                  if t["library_ms"] else "")
+        floor = (f" x_floor={t['ms'] / t['floor_ms']:.3f}"
+                 if "floor_ms" in t else "")
         print(f"time {name}: " + " ".join(
-            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
             for k, v in t.items()) + f" x_bound={t['ms'] / t['bound_ms']:.3f}"
-            + ratio + f" [{card}]")
+            + ratio + floor + f" [{card}]")
 
     # phase 6: the serving entry point on the cost model
-    serve_cost_model(torch, ops, serve)
+    serve_cost_model(torch, ops, serve, t4096["ms"])
 
     # phase 7: the main path at full width
     check_model_small(torch)
-    counts, qwen = serve_qwen3_8b(torch, ops, serve)
+    counts, qwen = serve_qwen3_8b(torch, ops, serve,
+                                  times["lags_select"]["ms"])
 
     # phases 8-10: prefill, reduced on card and CPU, then at full size
     check_prefill_small(torch)
@@ -904,7 +1044,7 @@ def main():
     counts["ssm_scan"] = mamba_full(torch, ops)
 
     kernels = [
-        dict(name="lags_select", route="cuda",
+        dict(name="lags_select", route="cuda", kernel="lags_cluster_select",
              source="src/repro_torch/kernels/csrc/lags_select.cu",
              replaces="src/repro/kernels/lags_select.py:56",
              launches=counts["lags_select"],

@@ -23,8 +23,35 @@ from repro_torch.kernels import _build
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
 
-# merge-pass candidates live in 48 KB of shared memory, with room to spare
-_MAX_CANDIDATES = 5120
+#: the reference's stated limit (src/repro/kernels/lags_select.py:8), and the
+#: most lanes one cluster of 8 CTAs x 1024 threads x 8 lanes holds
+MAX_T = 65536
+#: the most survivors, min(k, T), that CTA 0 sorts in shared memory
+MAX_PICKS = 2048
+
+_checked_occupancy = False
+
+
+def check_domain(T: int, k: int) -> None:
+    """Raise ``ValueError`` for a (T, k) the kernel does not take: T above
+    65536, or more than 2048 real picks, min(k, T) (k > T pads with -1)."""
+    if T < 1 or k < 1:
+        raise ValueError(f"lags_select needs T >= 1 and k >= 1 (T={T}, k={k})")
+    if T > MAX_T:
+        raise ValueError(f"lags_select takes T <= {MAX_T} tenants, the "
+                         f"reference kernel's stated limit (T={T})")
+    if min(k, T) > MAX_PICKS:
+        raise ValueError(f"lags_select sorts at most {MAX_PICKS} picks in "
+                         f"shared memory (T={T}, k={k})")
+
+
+def plan(T: int):
+    """(ctas, threads, lanes a thread) of the cluster launch for T lanes:
+    one CTA up to 8192 lanes (4 a thread up to 4096), else ceil(T/8192)
+    CTAs of up to 1024 threads, 8 lanes each."""
+    ceil = lambda a, b: -(-a // b)  # noqa: E731
+    ctas, per = (1, 4) if T <= 4096 else (ceil(T, 8192), 8)
+    return ctas, 32 * ceil(ceil(ceil(T, ctas), per), 32), per
 
 
 def coefficients(window: int, halflife: int):
@@ -60,9 +87,33 @@ def lags_select_plain(load_avg, credit, running_frac, runnable, k, *,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "lags_select_launch": ([_P] * 11 + [_I, _I, _F, _F, _F, _F, _P], _I),
-    "lags_select_scratch": ([_I, _I], _I),
+    "lags_select_launch": ([_P] * 7 + [_I] * 6 + [_F] * 4 + [_P], _I),
+    "lags_select_max_clusters": ([], _I),
+    "lags_select_empty_launch": ([_P], _I),
 }
+
+
+def _library():
+    """The kernel's library; at first load, raise if the card cannot hold
+    one cluster of the largest launch (8 CTAs of 1024 threads)."""
+    global _checked_occupancy
+    lib = _build.library("lags_select", _SIGNATURES)
+    if not _checked_occupancy:
+        n = lib.lags_select_max_clusters()
+        if n < 0:
+            _build.check_status("lags_select occupancy query", -n)
+        if n == 0:
+            raise RuntimeError("lags_select: the card cannot hold a cluster "
+                               "of 8 CTAs of 1024 threads")
+        _checked_occupancy = True
+    return lib
+
+
+def empty_launch(device) -> None:
+    """Launch an empty kernel: the floor of one launch, for timing only."""
+    _build.check_status("lags_select empty kernel",
+                        _library().lags_select_empty_launch(
+                            _build.stream_ptr(torch.device(device))))
 
 
 def lags_select(load_avg, credit, running_frac, runnable, k, *,
@@ -88,27 +139,21 @@ def lags_select(load_avg, credit, running_frac, runnable, k, *,
         if t.dtype != dt or t.shape != (T,) or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous ({T},) {dt} tensor, "
                              f"got {tuple(t.shape)} {t.dtype}")
-    if T == 0 or k <= 0:
-        raise ValueError(f"lags_select needs T >= 1 and k >= 1 (T={T}, k={k})")
-    lib = _build.library("lags_select", _SIGNATURES)
-    n_cand = lib.lags_select_scratch(T, k)
-    if n_cand > _MAX_CANDIDATES:
-        raise ValueError(f"T={T}, k={k} needs {n_cand} merge candidates "
-                         f"(at most {_MAX_CANDIDATES})")
+    check_domain(T, k)
+    lib = _library()
     new_load = torch.empty_like(load_avg)
     new_credit = torch.empty_like(credit)
     picked = torch.empty(k, dtype=torch.int32, device=dev)
-    cand_key = torch.empty(n_cand, dtype=torch.float32, device=dev)
-    cand_lane = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    out_key = torch.empty(k, dtype=torch.float32, device=dev)
-    out_lane = torch.empty(k, dtype=torch.int32, device=dev)
+    ctas, threads, per = plan(T)
+    vec = (all(t.data_ptr() % 16 == 0 for t in (load_avg, credit, running_frac,
+                                                new_load, new_credit))
+           and runnable.data_ptr() % per == 0)
     y, omy, alpha, oma = coefficients(window, halflife)
     status = lib.lags_select_launch(
         load_avg.data_ptr(), credit.data_ptr(), running_frac.data_ptr(),
         runnable.data_ptr(), new_load.data_ptr(), new_credit.data_ptr(),
-        picked.data_ptr(), cand_key.data_ptr(), cand_lane.data_ptr(),
-        out_key.data_ptr(), out_lane.data_ptr(), T, k, y, omy, alpha, oma,
-        _build.stream_ptr(dev))
+        picked.data_ptr(), T, k, ctas, threads, per, int(vec), y, omy, alpha,
+        oma, _build.stream_ptr(dev))
     _build.check_status("lags_select", status)
     launches += 1
     return new_load, new_credit, picked

@@ -27,17 +27,54 @@ def card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("T,k", [(1, 1), (256, 16), (1000, 16), (4096, 16),
-                                 (65536, 16), (65536, 64)])
-def test_lags_select_kernel_equals_plain(card, T, k):
-    u = lambda: torch.rand(T, generator=card, device="cuda")  # noqa: E731
+def _lags_args(gen, T, k, kind):
+    u = lambda: torch.rand(T, generator=gen, device="cuda")  # noqa: E731
+    if kind == "ties_across_ctas":
+        # one key for every lane: the picks are the lowest runnable lanes,
+        # across the cluster's CTA edges
+        f = lambda v: torch.full((T,), v, device="cuda")  # noqa: E731
+        return (f(0.25), f(0.5), f(0.5),
+                torch.arange(T, device="cuda") % 3 != 1, k)
+    if kind == "unaligned":
+        # views one lane into their storage: no 16-byte loads
+        return tuple(x[1:] for x in _lags_args(gen, T + 1, k, "random")[:4]) \
+            + (k,)
+    runnable = u() < 0.5
+    if kind == "none_runnable":
+        runnable = torch.zeros_like(runnable)
     # a coarse grid makes many equal credits: ties go to the lower lane
-    args = ((u() * 2).round(decimals=1), (u() * 2).round(decimals=1), u(),
-            u() < 0.5, k)
+    return ((u() * 2).round(decimals=1), (u() * 2).round(decimals=1), u(),
+            runnable, k)
+
+
+@pytest.mark.parametrize("T,k,kind", [
+    (1, 1, "random"), (256, 16, "random"), (1000, 16, "random"),
+    (1023, 16, "random"), (1025, 16, "random"), (4096, 16, "random"),
+    (8193, 16, "random"), (2048, 2048, "random"), (100, 200, "random"),
+    (65536, 16, "random"), (65536, 64, "random"), (65536, 1024, "random"),
+    (65536, 16, "ties_across_ctas"), (65536, 1024, "ties_across_ctas"),
+    (4096, 16, "none_runnable"), (65536, 16, "none_runnable"),
+    (4096, 16, "unaligned"), (65536, 1024, "unaligned")])
+def test_lags_select_kernel_equals_plain(card, T, k, kind):
+    args = _lags_args(card, T, k, kind)
     got = lags.lags_select(*args)
     want = lags.lags_select_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    if kind == "ties_across_ctas":
+        assert got[2].tolist() == [i for i in range(T) if i % 3 != 1][:k]
+    if kind == "none_runnable":
+        assert got[2].tolist() == [-1] * k
+
+
+def test_lags_select_refuses_before_launch(card):
+    """Beyond the reference's T <= 65536 and the 2048 picks CTA 0 sorts."""
+    before = lags.launches
+    for T, k in ((65537, 16), (8192, 2049)):
+        z = torch.zeros(T, device="cuda")
+        with pytest.raises(ValueError):
+            lags.lags_select(z, z, z, z > 0, k)
+    assert lags.launches == before
 
 
 def test_lags_select_sub_1e4_order(card):

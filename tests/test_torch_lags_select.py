@@ -15,6 +15,7 @@ from repro.core.load_credit import ema_update, pelt_update
 from repro.kernels import ref
 from repro.kernels.lags_select import lags_select as pallas_lags_select
 from repro_torch.core.load_credit import torch_tick
+from repro_torch.kernels import lags_select as lags_module
 from repro_torch.kernels.lags_select import lags_select
 from repro_torch.sched import cuda_backend
 
@@ -106,6 +107,34 @@ def test_k_above_t_pads_with_minus_one():
     idx = _port(z, np.arange(T, dtype=np.float32)[::-1].copy(), z,
                 np.ones(T, bool), 8, 1000)[2]
     assert idx.tolist() == [4, 3, 2, 1, 0, -1, -1, -1]
+
+
+@pytest.mark.parametrize("T,k", [(1, 1), (1, 5120), (1024, 5120),
+                                 (2048, 2048), (2048, 2560), (4096, 1280),
+                                 (3072, 1706), (65536, 16), (65536, 1024),
+                                 (65536, 2048), (100, 200)])
+def test_check_domain_accepts(T, k):
+    """Every (T, k) the merge-pass kernel took (ceil(T/1024)*k <= 5120),
+    and k up to 2048 at T = 65536, which it refused."""
+    lags_module.check_domain(T, k)
+
+
+@pytest.mark.parametrize("T,k", [(0, 1), (16, 0), (65537, 16),
+                                 (131072, 1), (4096, 2049), (65536, 2049)])
+def test_check_domain_refuses(T, k):
+    with pytest.raises(ValueError):
+        lags_module.check_domain(T, k)
+
+
+@pytest.mark.parametrize("T", [1, 31, 256, 1023, 1024, 1025, 4096, 4097,
+                               8192, 8193, 30000, 65535, 65536])
+def test_plan_covers_every_lane(T):
+    """One cluster of at most 8 CTAs of at most 1024 threads (a multiple of
+    32) holds all T lanes, and every CTA owns some."""
+    ctas, threads, per = lags_module.plan(T)
+    assert 1 <= ctas <= 8 and per in (4, 8)
+    assert 32 <= threads <= 1024 and threads % 32 == 0
+    assert ctas * threads * per >= T > (ctas - 1) * threads * per
 
 
 def test_tick_and_pick_matches_numpy_reference():
