@@ -59,7 +59,23 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     weights from seed 0): B=4, S=1024 in chunks of 256, 64 x 4
     ``ssm_scan`` launches, then 32 decode steps, with the same numbers and
     checks as phase 9;
-11. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
+11. the tick simulator (``repro_torch.core.simkernel_torch``) at Fig. 11's
+    size (120 functions x 4 threads, 12 cores, 30 s = 7500 ticks) on the
+    card for all seven policy codes: completions, percentiles, busy and
+    overhead equal to the JAX reference's at the same call (constants
+    below), and ``lags`` and ``cfs`` also on the CPU, with completion ticks
+    equal to the card's; ticks/s on the card and the CPU;
+12. the Fig. 7 consolidation sweep (``consolidation_sweep(total_fns=800,
+    node_counts=(14, 12, 10), backend="torch", duration_s=30.0)``), every
+    node of a configuration in one batched tick loop on the card: p50 and
+    p95 equal to the reference's, overhead share within rtol 1e-5,
+    ``min_nodes_meeting_slo`` 14 for both policies; the 10-node LAGS fleet
+    again on the CPU, with completion ticks equal to the card's; ticks/s
+    of each batched loop;
+13. the device's busy share over 200 ticks of one node and of the 10-node
+    fleet under ``torch.profiler``; phases 11 to 13 launch none of the
+    hand-written kernels (their counts stay 0);
+14. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
     path under ``kernel``), then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -744,7 +760,8 @@ def serve_qwen3_8b(torch, ops, serve, tick_kernel_ms):
 
 def profile(torch, label, step, n_steps=3):
     """Where a step's time goes: device time by kernel, and the share of
-    the step's wall time the card is busy."""
+    the step's wall time the card is busy.  Returns (wall ms, busy ms) of
+    one step."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -765,6 +782,7 @@ def profile(torch, label, step, n_steps=3):
           f"kernels {busy:.3f} ms, device busy {100 * busy / wall_ms:.1f}%")
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.3f} ms {count:5d}x  {key[:110]}")
+    return wall_ms, busy
 
 
 # -- phases 8 to 10 -------------------------------------------------------
@@ -936,6 +954,221 @@ def residual_growth(torch, cfg, params, B=1, S=256):
           + ", ".join(f"{i}: {peaks[i - 1]:.3e}" for i in shown))
 
 
+# -- phases 11 to 13 ------------------------------------------------------
+
+# The reference at the same calls (JAX 0.9.0 on the CPU; this script
+# imports nothing of it).  Fig. 11: ``benchmarks/common.py::run_sim_jax(
+# "azure2021", 120, policy)``, lags-static with ``static_rt=
+# lightest_band_fns(120, n_bands_low=3)``: completed requests, the sum of
+# their completion ticks, p50 and p95 (s), busy and overhead (s).
+REF_FIG11 = {
+    "cfs": (2354, 9551082, 0.112, 0.8761999999999989, 235.5103302001953,
+            19.870229721069336),
+    "lags": (2354, 9544722, 0.108, 0.908, 235.51206970214844,
+             16.76390838623047),
+    "eevdf": (2354, 9551162, 0.112, 0.8787999999999992, 235.5103302001953,
+              19.873079299926758),
+    "rr": (2354, 9594127, 0.184, 1.0493999999999997, 235.50978088378906,
+           23.828720092773438),
+    "lags-static": (2354, 9545476, 0.112, 0.7213999999999996,
+                    235.51210021972656, 17.640056610107422),
+    "cfs-tuned": (2354, 9554337, 0.116, 0.848, 235.50997924804688,
+                  20.369178771972656),
+    "eevdf-tuned": (2354, 9554339, 0.116, 0.848, 235.50999450683594,
+                    20.372493743896484),
+}
+# Fig. 7: ``repro.fleet.consolidate.consolidation_sweep(total_fns=800,
+# node_counts=(14, 12, 10), backend="jax", duration_s=30.0)``, the
+# cross-check of ``benchmarks/fig7_cluster.py``: p50 and p95 (s) and the
+# overhead share per (policy, nodes); ``min_nodes_meeting_slo`` is 14 for
+# both policies.
+REF_FIG7 = {
+    ("cfs", 14): (0.148, 0.232, 0.022415417716616676),
+    ("cfs", 12): (0.152, 0.496, 0.033407347290604204),
+    ("cfs", 10): (0.156, 1.072, 0.06029708120557997),
+    ("lags", 14): (0.148, 0.244, 0.017715106313190763),
+    ("lags", 12): (0.148, 0.876, 0.028697392675611708),
+    ("lags", 10): (0.152, 1.784, 0.050209426879882814),
+}
+SIM_RTOL = 1e-5  # busy, overhead: f32 sums whose order may differ
+
+
+@contextlib.contextmanager
+def simulate_clock(calls):
+    """Append (trace, params, output, wall seconds) of every
+    ``simkernel_torch.simulate`` call, the card synchronised before and
+    after, to ``calls`` while the block runs."""
+    import torch
+
+    from repro_torch.core import simkernel_torch as st
+
+    orig = st.simulate
+
+    def timed(trace, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(trace, p)
+        torch.cuda.synchronize()
+        calls.append((trace, p, out, time.perf_counter() - t0))
+        return out
+
+    st.simulate = timed
+    try:
+        yield calls
+    finally:
+        st.simulate = orig
+
+
+def sim_check(name, got, want, what):
+    require(math.isclose(got, want, rel_tol=SIM_RTOL),
+            f"{name}: {what} {got!r}, the reference {want!r}")
+
+
+def fig11(torch, card):
+    """All seven policy codes at Fig. 11's size on the card, held to the
+    reference; lags and cfs on the CPU too.  Returns the ticks/s and the
+    LAGS run's trace and params for the profile."""
+    import numpy as np
+
+    from repro_torch.core import simkernel_torch as st
+    from repro_torch.core.traces import lightest_band_fns, make_workload
+    from repro_torch.sched.torch_backend import CODE_OF, LAGS, LAGS_STATIC
+
+    wl = make_workload("azure2021", 120, duration_s=30.0, n_cores=12, seed=1,
+                       exec_s=0.1, threads_per_fn=4)
+    rt = tuple(int(f) for f in lightest_band_fns(120, n_bands_low=3))
+
+    def params(code, n_ticks=7500):
+        return st.SimParams(n_cores=12, n_fns=120, n_ticks=n_ticks,
+                            policy=code, burst_us=120.0, depth=2.0,
+                            rt_fns=rt if code == LAGS_STATIC else ())
+
+    trace = {dev: st.build_slot_trace(wl, 120, 4, device=dev)
+             for dev in ("cuda", "cpu")}
+    st.simulate(trace["cuda"], params(LAGS, 50))  # warm-up: first launches
+    done, rate = {}, {}
+    for name, code in sorted(CODE_OF.items(), key=lambda kv: kv[1]):
+        for dev in ("cuda", "cpu") if name in ("lags", "cfs") else ("cuda",):
+            calls = []
+            with simulate_clock(calls):
+                out = st.simulate(trace[dev], params(code))
+            secs = calls[0][3]
+            rate[name, dev] = 7500 / secs
+            d = out["done_tick"].cpu().numpy()
+            lat = st.latencies_from(trace[dev], d)
+            got = (len(lat), int(d[d >= 0].sum()),
+                   float(np.percentile(lat, 50)), float(np.percentile(lat, 95)))
+            ref = REF_FIG11[name]
+            require(got == ref[:4], f"fig11 {name} on {dev}: (completed, sum "
+                    f"of completion ticks, p50, p95) {got}, the reference "
+                    f"{ref[:4]}")
+            sim_check(f"fig11 {name} on {dev}", float(out["busy_s"]), ref[4],
+                      "busy_s")
+            sim_check(f"fig11 {name} on {dev}", float(out["overhead_s"]),
+                      ref[5], "overhead_s")
+            if dev == "cpu":
+                require(np.array_equal(d, done[name]),
+                        f"fig11 {name}: completion ticks differ on the card "
+                        f"and the CPU")
+            done[name] = d
+            print(f"fig11 {name} T=480 R={trace[dev].arrival_tick.shape[1]} "
+                  f"7500 ticks on the {dev}: {got[0]} completed, p50 "
+                  f"{got[2]:.4f} s, p95 {got[3]:.4f} s, overhead "
+                  f"{float(out['overhead_s']) / (12 * 30.0):.6f}; "
+                  f"{secs:.3f} s wall, {rate[name, dev]:.1f} ticks/s [{card}]")
+    print("fig11: all seven codes equal the reference on the card "
+          "(completions, sum of completion ticks, p50, p95; busy and "
+          "overhead within rtol 1e-5); lags and cfs complete on the same "
+          "ticks on the CPU")
+    return rate, trace["cuda"], params(LAGS)
+
+
+def fig7(torch, card):
+    """The consolidation sweep on the card against the reference, and its
+    10-node LAGS fleet on the CPU.  Returns the ticks/s of the 10-node LAGS
+    loop on the card and the CPU, and its trace and params."""
+    import numpy as np
+
+    from repro_torch.fleet import (CLUSTER_EXEC_S, consolidation_sweep,
+                                   make_policy, min_nodes_meeting_slo, place,
+                                   simulate_fleet)
+
+    calls = []
+    with simulate_clock(calls):
+        t0 = time.perf_counter()
+        res = consolidation_sweep(total_fns=800, node_counts=(14, 12, 10),
+                                  backend="torch", duration_s=30.0)
+        wall = time.perf_counter() - t0
+    require(len(res) == len(calls) == 6, f"{len(calls)} simulate calls")
+    rate = {}
+    for r, (trace, p, out, secs) in zip(res, calls):
+        p50, p95, ovh = REF_FIG7[r.policy, r.n_nodes]
+        require((r.p50, r.p95) == (p50, p95),
+                f"fig7 {r.policy} n={r.n_nodes}: p50, p95 {(r.p50, r.p95)}, "
+                f"the reference {(p50, p95)}")
+        sim_check(f"fig7 {r.policy} n={r.n_nodes}", r.overhead_frac, ovh,
+                  "overhead share")
+        N, T, R = trace.arrival_tick.shape
+        rate[r.policy, r.n_nodes] = p.n_ticks / secs
+        print(f"fig7 {r.policy} n={r.n_nodes}: p50 {r.p50:.4f} s, p95 "
+              f"{r.p95:.4f} s, overhead share {r.overhead_frac:.6f}, "
+              f"util {r.util_effective:.4f}, done {r.done_ratio:.4f}; one "
+              f"loop over N={N} nodes (T={T}, R={R}) on the card: {secs:.3f} "
+              f"s, {p.n_ticks / secs:.1f} ticks/s, "
+              f"{N * p.n_ticks / secs:.0f} node-ticks/s [{card}]")
+    mins = {pol: min_nodes_meeting_slo(res, pol) for pol in ("cfs", "lags")}
+    require(mins == {"cfs": 14, "lags": 14},
+            f"min_nodes_meeting_slo {mins}, the reference 14 for both")
+    print(f"fig7: sweep {wall:.3f} s wall on the card; p50 and p95 equal the "
+          f"reference's, overhead within rtol 1e-5; min_nodes_meeting_slo "
+          f"{mins}")
+
+    card_call = calls[res.index(next(r for r in res if r.policy == "lags"
+                                     and r.n_nodes == 10))]
+    asg = place("round-robin", 800, 10, policy=make_policy("lags"),
+                exec_s=CLUSTER_EXEC_S, seed=7)
+    cpu_calls = []
+    with simulate_clock(cpu_calls):
+        simulate_fleet("lags", asg, duration_s=30.0, exec_s=CLUSTER_EXEC_S,
+                       backend="torch", device="cpu")
+    _, p, out, secs = cpu_calls[0]
+    require(np.array_equal(out["done_tick"].numpy(),
+                           card_call[2]["done_tick"].cpu().numpy()),
+            "fig7 lags n=10: completion ticks differ on the card and the CPU")
+    rate["lags", 10, "cpu"] = p.n_ticks / secs
+    print(f"fig7 lags n=10 on the CPU: the card's completion ticks; "
+          f"{secs:.3f} s, {p.n_ticks / secs:.1f} ticks/s, "
+          f"{10 * p.n_ticks / secs:.0f} node-ticks/s [{card}]")
+    return rate, card_call[0], card_call[1]
+
+
+def simulators(torch, ops, card):
+    """Phases 11 to 13: the tick simulator and the batched fleet."""
+    from repro_torch.core import simkernel_torch as st
+
+    ops.reset_launch_counts()
+    rate11, trace1, p1 = fig11(torch, card)
+    rate7, trace10, p10 = fig7(torch, card)
+    n = ops.launch_counts()
+    require(not any(n.values()), f"the simulators launched {n}")
+    busy = {}
+    for label, trace, p in (("one node, Fig. 11 lags", trace1, p1),
+                            ("10-node fleet, Fig. 7 lags", trace10, p10)):
+        p200 = p._replace(n_ticks=200)
+        st.simulate(trace, p200)
+        wall_ms, busy_ms = profile(torch, f"simulate {label}, 200 ticks",
+                                   lambda: st.simulate(trace, p200),
+                                   n_steps=1)
+        busy[label] = 100 * busy_ms / wall_ms
+    print(f"simulators: Fig. 11 one node {rate11['lags', 'cuda']:.1f} ticks/s "
+          f"on the card, {rate11['lags', 'cpu']:.1f} on the CPU (lags); "
+          f"Fig. 7 10-node fleet {rate7['lags', 10]:.1f} ticks/s on the card, "
+          f"{rate7['lags', 10, 'cpu']:.1f} on the CPU; device busy "
+          + ", ".join(f"{k} {v:.1f}%" for k, v in busy.items())
+          + f" (profiler on); hand-written kernel launches {json.dumps(n)} "
+          f"[{card}]")
+
+
 def main():
     import torch
 
@@ -1042,6 +1275,9 @@ def main():
     del qwen  # 16 GB: falcon-mamba's weights take its place
     torch.cuda.empty_cache()
     counts["ssm_scan"] = mamba_full(torch, ops)
+
+    # phases 11-13: the tick simulator and the batched fleet
+    simulators(torch, ops, card)
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",

@@ -1,0 +1,171 @@
+"""Cluster consolidation study over the fleet layer (paper §5.1, Fig 7).
+
+A cluster of identical 12-HT worker nodes hosts ~800 function containers
+(Azure-2019 downscaled).  Baseline static reservation needs ``base_nodes``
+nodes to meet peak demand; we consolidate the same workload onto fewer
+nodes — under a chosen placement strategy — and find the smallest count
+per policy that preserves the SLO.
+
+The paper's headline: CFS needs 14 nodes; CFS-LAGS holds the same latency
+distribution on 10 (-28 %), raising safe utilisation from ~45 % to ~55 %.
+
+Calibration (``CLUSTER_EXEC_S``): the band rates in ``core.traces`` are
+normalised for ~100 ms executions; the legacy cluster mode doubled the
+execution time to 0.2 s *without* compensating, which doubled the offered
+load — the 14-node static-reservation baseline ran at ~57 % utilisation
+(the paper anchors it at ~45 %) and the cluster saturated on raw demand
+below 12 nodes, so no scheduling policy could reach the paper's 10-node
+point.  Cluster-mode requests are therefore 140 ms here, which lands the
+measured utilisation curve on the paper's anchors: ~52 % at 14 nodes
+rising to ~67 % at 10.  The sweep horizon is 60 s (``CLUSTER_DURATION_S``)
+so burst backlogs drain inside the window — at 30 s up to a third of
+arrivals were still queued at sim end and the percentiles were censored.
+
+The SLO (:func:`min_nodes_meeting_slo`) is a burst-recovery budget against
+the over-provisioned reference at max node count: the consolidated cluster
+must complete ≥99 % of invocations, hold the median, and keep the p95
+within ``tail_factor`` (1.4x) of the reference tail.
+
+This module hosts the search itself (``benchmarks/fig7_cluster.py`` is a
+thin driver over it) plus the per-node imbalance report; the simulation
+and placement mechanics live in :mod:`repro_torch.fleet.simulate` and
+:mod:`repro_torch.fleet.placement`.
+
+Copy of ``repro.fleet.consolidate``, with ``backend="torch"`` in place of
+``backend="jax"``: the port imports nothing of ``repro``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Sequence
+
+import numpy as np
+
+from repro_torch.fleet.placement import place
+from repro_torch.fleet.simulate import FleetResult, simulate_fleet
+from repro_torch.sched.numpy_backend import make_policy
+
+CLUSTER_EXEC_S = 0.14  # paper-anchored calibration, see module docstring
+CLUSTER_DURATION_S = 60.0  # burst backlogs must drain inside the window
+
+
+@dataclass
+class ClusterResult:
+    policy: str
+    n_nodes: int
+    p50: float
+    p95: float
+    thr_slo: float
+    util_effective: float
+    util_perceived: float
+    overhead_frac: float
+    placement: str = "round-robin"
+    p95_spread: float = 0.0  # per-node p95 max - min (imbalance)
+    ovh_max_over_mean: float = 1.0  # overhead-fraction imbalance
+    done_ratio: float = 1.0  # completions / arrivals within the horizon
+
+
+def cluster_result(fleet: FleetResult, slo_s: float = 1.0) -> ClusterResult:
+    imb = fleet.imbalance()
+    return ClusterResult(
+        policy=fleet.policy,
+        n_nodes=fleet.n_nodes,
+        p50=fleet.pct(50),
+        p95=fleet.pct(95),
+        thr_slo=fleet.throughput_slo(slo_s),
+        util_effective=fleet.util_effective,
+        util_perceived=fleet.util_perceived,
+        overhead_frac=fleet.overhead_frac,
+        placement=fleet.placement,
+        p95_spread=imb["p95_spread"],
+        ovh_max_over_mean=imb["ovh_max_over_mean"],
+        done_ratio=fleet.n_completed / max(fleet.n_arrived, 1),
+    )
+
+
+def consolidation_sweep(
+    total_fns: int = 800,
+    node_counts: Sequence[int] = (15, 14, 12, 11, 10, 9, 8),
+    policies: Sequence[str] = ("cfs", "lags"),
+    duration_s: float = CLUSTER_DURATION_S,
+    slo_s: float = 1.0,
+    backend: str = "numpy",
+    placement: str = "round-robin",
+    n_cores: int = 12,
+    seed: int = 7,
+    distinct_seeds: bool = False,
+    exec_s: float = CLUSTER_EXEC_S,
+    device=None,
+) -> List[ClusterResult]:
+    """One fleet simulation per (policy, n_nodes) configuration.
+
+    ``device`` is where ``backend="torch"`` runs (``None``: the card)."""
+    out = []
+    for pol in policies:
+        for n in node_counts:
+            asg = place(placement, total_fns, n, n_cores=n_cores,
+                        policy=make_policy(pol), exec_s=exec_s, seed=seed)
+            fleet = simulate_fleet(
+                pol, asg, duration_s=duration_s, n_cores=n_cores, seed=seed,
+                exec_s=exec_s, backend=backend,
+                distinct_seeds=distinct_seeds, device=device,
+            )
+            out.append(cluster_result(fleet, slo_s))
+    return out
+
+
+def min_nodes_meeting_slo(
+    results: List[ClusterResult], policy: str, slo_s: float = 1.0,
+    tail_factor: float = 1.4, median_factor: float = 2.5,
+    min_done: float = 0.99,
+) -> int:
+    """Smallest node count preserving the over-provisioned baseline's latency
+    distribution (paper §5.1: consolidation must not degrade performance;
+    the reference is the static-reservation cluster at max node count).
+    The consolidated cluster must complete ``min_done`` of its arrivals
+    within the horizon (backlog it cannot drain is an SLO breach even
+    before latency is measured), hold the median, and keep the p95 within
+    ``tail_factor`` of the reference tail — CFS shows 'up to 6x'
+    median/tail inflation when pushed past its limit."""
+    base = [r for r in results if r.policy == policy]
+    n_max = max(r.n_nodes for r in base)
+    ref = min((r for r in results if r.n_nodes == n_max),
+              key=lambda r: r.p95)  # over-provisioned reference
+    p95_budget = max(tail_factor * ref.p95, slo_s)
+    p50_budget = max(median_factor * ref.p50, 0.6)
+    ok = [
+        r.n_nodes for r in base
+        if r.p95 <= p95_budget and r.p50 <= p50_budget
+        and r.done_ratio >= min_done
+    ]
+    return min(ok) if ok else n_max
+
+
+def placement_comparison(
+    total_fns: int,
+    n_nodes: int,
+    policy: str = "lags",
+    placements: Sequence[str] = ("round-robin", "pack", "spread",
+                                 "switch-aware"),
+    duration_s: float = 30.0,
+    slo_s: float = 1.0,
+    backend: str = "numpy",
+    n_cores: int = 12,
+    seed: int = 7,
+    exec_s: float = CLUSTER_EXEC_S,
+    device=None,
+) -> List[ClusterResult]:
+    """Same (policy, n_nodes) configuration under each placement strategy —
+    the per-node imbalance columns are the interesting output.  The
+    reference's ``record_dir`` waits for the port of ``obs/recorder.py``."""
+    out = []
+    for name in placements:
+        asg = place(name, total_fns, n_nodes, n_cores=n_cores,
+                    policy=make_policy(policy), exec_s=exec_s, seed=seed)
+        fleet = simulate_fleet(
+            policy, asg, duration_s=duration_s, n_cores=n_cores, seed=seed,
+            exec_s=exec_s, backend=backend, distinct_seeds=True,
+            device=device,
+        )
+        out.append(cluster_result(fleet, slo_s))
+    return out

@@ -19,13 +19,15 @@ A *policy* is described by a :class:`PolicySpec` and consists of:
 
 Backends in this package:
 
+  * ``repro_torch.sched.numpy_backend`` — the float64 reference ``Policy``
+    used by ``core.simkernel`` (absorbed ``core.policies``);
+  * ``repro_torch.sched.torch_backend`` — tensor key / voluntary-cost
+    functions driving ``core.simkernel_torch`` for **all** policy kinds;
   * ``repro_torch.sched.cuda_backend`` — the fused Load-Credit tick +
     k-lowest-credit selection CUDA kernel (``kernels.lags_select``) behind
     the serving engine's admission path at high tenant counts;
   * ``repro_torch.sched.serving``       — admission-policy registry (fifo /
     fair / lags) for the continuous-batching engine.
-
-The reference's numpy and JAX policy backends are not ported yet.
 
 ``tests/test_sched_backends.py`` is the reference's cross-backend gate:
 numpy, JAX and Pallas must agree on scheduling decisions (identical

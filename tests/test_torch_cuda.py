@@ -9,10 +9,15 @@ machine with one:
 import pytest
 import torch
 
+from repro_torch.core import simkernel_torch as st
+from repro_torch.core.traces import lightest_band_fns, make_workload
+from repro_torch.fleet import place, simulate_fleet
+from repro_torch.fleet.simulate import _pad_trace
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lags_select as lags
 from repro_torch.kernels import ssm_scan as ssm
+from repro_torch.sched import torch_backend as tb
 
 pytestmark = pytest.mark.cuda
 
@@ -175,3 +180,54 @@ def test_ssm_scan_kernel_takes_f32_only(card):
     x = torch.ones(1, 4, 32, 16, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="float32"):
         ssm.ssm_scan(x, x, x[:, :, 0], torch.zeros(1, 32, 16, device="cuda"))
+
+
+# -- the tick simulator: the card runs the CPU's arithmetic -----------------
+
+def _sim_params(code, n_fns, dur, n_cores=12):
+    rt = (tuple(int(f) for f in lightest_band_fns(n_fns))
+          if code == tb.LAGS_STATIC else ())
+    return st.SimParams(n_cores=n_cores, n_fns=n_fns,
+                        n_ticks=int(dur / st.TICK), policy=code, rt_fns=rt)
+
+
+@pytest.mark.parametrize("code", sorted(tb.NAME_OF),
+                         ids=lambda c: tb.NAME_OF[c])
+def test_simulate_on_card_equals_cpu(card, code):
+    """tests/test_simkernel_jax.py's trace (40 functions, 15 s, 8 threads,
+    12 cores): the same completion ticks on the card as on the CPU."""
+    wl = make_workload("azure2021", 40, duration_s=15.0, seed=3,
+                       threads_per_fn=8)
+    p = _sim_params(code, 40, 15.0)
+    got, want = (st.simulate(st.build_slot_trace(wl, 40, 8, device=dev), p)
+                 for dev in ("cuda", "cpu"))
+    assert got["done_tick"].device.type == "cuda"
+    assert torch.equal(got["done_tick"].cpu(), want["done_tick"])
+    for k in ("busy_s", "overhead_s", "credit"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-5, atol=0)
+
+
+def test_padded_batch_on_card_equals_each_node(card):
+    traces = []
+    for n_fns, seed in ((6, 1), (5, 2)):
+        wl = make_workload("azure2021", n_fns, duration_s=3.0, seed=seed,
+                           threads_per_fn=4)
+        traces.append(st.build_slot_trace(wl, n_fns, 4, device="cuda"))
+    R = max(t.arrival_tick.shape[1] for t in traces)
+    padded = [_pad_trace(t, 24, R) for t in traces]
+    batch = st.simulate(st.SlotTrace(*(torch.stack(x) for x in zip(*padded))),
+                        _sim_params(tb.LAGS, 6, 3.0, n_cores=4))
+    for i, (t, n_fns) in enumerate(zip(traces, (6, 5))):
+        out = st.simulate(t, _sim_params(tb.LAGS, n_fns, 3.0, n_cores=4))
+        t0, r0 = t.arrival_tick.shape
+        assert torch.equal(batch["done_tick"][i, :t0, :r0], out["done_tick"])
+        for k in ("busy_s", "overhead_s"):
+            assert torch.equal(batch[k][i], out[k])
+
+
+def test_torch_fleet_on_card_equals_cpu(card):
+    asg = place("round-robin", 11, 2)
+    got, want = (simulate_fleet("lags", asg, duration_s=5.0, backend="torch",
+                                device=dev) for dev in ("cuda", "cpu"))
+    for g, w in zip(got.nodes, want.nodes):
+        assert (g.latencies == w.latencies).all() and len(g.latencies) > 0
