@@ -65,9 +65,11 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     overhead equal to the JAX reference's at the same call (constants
     below), and ``lags`` and ``cfs`` also on the CPU, with completion ticks
     equal to the card's; ticks/s on the card and the CPU;
-12. the Fig. 7 consolidation sweep (``consolidation_sweep(total_fns=800,
-    node_counts=(14, 12, 10), backend="torch", duration_s=30.0)``), every
-    node of a configuration in one batched tick loop on the card: p50 and
+12. the Fig. 7 consolidation sweep at its two ends
+    (``consolidation_sweep(total_fns=800, node_counts=(14, 10),
+    backend="torch", duration_s=30.0)``; the 12-node configurations are
+    left out for time), every node of a configuration in one batched tick
+    loop on the card: p50 and
     p95 equal to the reference's, overhead share within rtol 1e-5,
     ``min_nodes_meeting_slo`` 14 for both policies; the 10-node LAGS fleet
     again on the CPU, with completion ticks equal to the card's; ticks/s
@@ -75,7 +77,15 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 13. the device's busy share over 200 ticks of one node and of the 10-node
     fleet under ``torch.profiler``; phases 11 to 13 launch none of the
     hand-written kernels (their counts stay 0);
-14. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
+14. the chaos layer at full size: ``simulate_fleet_chaos(backend="torch")``
+    on ``benchmarks/fig_chaos_topology.py``'s consolidated LAGS fleet (800
+    functions, 10 nodes in racks of 2, 60 s in 5 s epochs): the rack story
+    (a trending rack drained, then crashed) and a partition on the card,
+    each equal to the JAX reference's run at the same call (``REF_CHAOS``),
+    and the partition again on the CPU with the card's latencies; wall
+    seconds, epoch ticks/s, the controller's host time an epoch and the
+    ``chaos.*`` arrival counters; no hand-written kernel launches;
+15. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
     path under ``kernel``), then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -980,43 +990,48 @@ REF_FIG11 = {
 # Fig. 7: ``repro.fleet.consolidate.consolidation_sweep(total_fns=800,
 # node_counts=(14, 12, 10), backend="jax", duration_s=30.0)``, the
 # cross-check of ``benchmarks/fig7_cluster.py``: p50 and p95 (s) and the
-# overhead share per (policy, nodes); ``min_nodes_meeting_slo`` is 14 for
-# both policies.
+# overhead share per (policy, nodes) of its 14- and 10-node configurations
+# (each configuration is simulated alone, so it does not depend on the
+# others in the sweep); ``min_nodes_meeting_slo`` is 14 for both policies.
 REF_FIG7 = {
     ("cfs", 14): (0.148, 0.232, 0.022415417716616676),
-    ("cfs", 12): (0.152, 0.496, 0.033407347290604204),
     ("cfs", 10): (0.156, 1.072, 0.06029708120557997),
     ("lags", 14): (0.148, 0.244, 0.017715106313190763),
-    ("lags", 12): (0.148, 0.876, 0.028697392675611708),
     ("lags", 10): (0.152, 1.784, 0.050209426879882814),
 }
 SIM_RTOL = 1e-5  # busy, overhead: f32 sums whose order may differ
 
 
 @contextlib.contextmanager
-def simulate_clock(calls):
-    """Append (trace, params, output, wall seconds) of every
-    ``simkernel_torch.simulate`` call, the card synchronised before and
-    after, to ``calls`` while the block runs."""
+def clock(owner, name, calls):
+    """Append (positional arguments..., output, wall seconds) of every call
+    of ``owner.name``, the card synchronised before and after, to
+    ``calls`` while the block runs."""
     import torch
 
-    from repro_torch.core import simkernel_torch as st
+    orig = getattr(owner, name)
 
-    orig = st.simulate
-
-    def timed(trace, p):
+    def timed(*args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig(trace, p)
+        out = orig(*args, **kw)
         torch.cuda.synchronize()
-        calls.append((trace, p, out, time.perf_counter() - t0))
+        calls.append((*args, out, time.perf_counter() - t0))
         return out
 
-    st.simulate = timed
+    setattr(owner, name, timed)
     try:
         yield calls
     finally:
-        st.simulate = orig
+        setattr(owner, name, orig)
+
+
+def simulate_clock(calls):
+    """``clock`` of ``simkernel_torch.simulate``: (trace, params, output,
+    wall seconds) a call."""
+    from repro_torch.core import simkernel_torch as st
+
+    return clock(st, "simulate", calls)
 
 
 def sim_check(name, got, want, what):
@@ -1096,10 +1111,10 @@ def fig7(torch, card):
     calls = []
     with simulate_clock(calls):
         t0 = time.perf_counter()
-        res = consolidation_sweep(total_fns=800, node_counts=(14, 12, 10),
+        res = consolidation_sweep(total_fns=800, node_counts=(14, 10),
                                   backend="torch", duration_s=30.0)
         wall = time.perf_counter() - t0
-    require(len(res) == len(calls) == 6, f"{len(calls)} simulate calls")
+    require(len(res) == len(calls) == 4, f"{len(calls)} simulate calls")
     rate = {}
     for r, (trace, p, out, secs) in zip(res, calls):
         p50, p95, ovh = REF_FIG7[r.policy, r.n_nodes]
@@ -1167,6 +1182,250 @@ def simulators(torch, ops, card):
           + ", ".join(f"{k} {v:.1f}%" for k, v in busy.items())
           + f" (profiler on); hand-written kernel launches {json.dumps(n)} "
           f"[{card}]")
+
+
+# -- phase 14 -------------------------------------------------------------
+
+# The reference at the same calls (JAX 0.9.0 on the CPU; this script
+# imports nothing of it): the consolidated LAGS fleet of
+# ``benchmarks/fig_chaos_topology.py``, 800 functions placed ``rack-spread``
+# on 10 nodes of ``Topology.uniform(10, 2)``, through
+# ``repro.fleet.simulate_fleet_chaos("lags", asg, schedule, duration_s=60.0,
+# epoch_s=5.0, exec_s=CLUSTER_EXEC_S, topology=topo, backend="jax", ...)``:
+# "rack", rack 2's nodes at a 1.8x slowdown from t=5 s and its
+# ``rack_crash`` at t=30 s with ``proactive_drain=True,
+# drain_enter_ratio=1.35, drain_exit_ratio=1.15``; "partition",
+# ``FaultSchedule.single_partition((2, 3), 20.0, 10.0, 10, topo)``.  Each
+# is ``chaos_summary`` of the result: the sha256s are of the canonical
+# JSON of the latencies (s, float64) and of the migrations as
+# [epoch, fn, src, dst]; liveness per epoch is (live, suspect, fenced,
+# draining) nodes; busy and switch are summed over every epoch's nodes.
+REF_CHAOS = {
+    "rack": {
+        "n_arrived": 31313,
+        "n_completed": 30434,
+        "n_latencies": 29276,
+        "latency_sum_s": 11539.912,
+        "p50": 0.156,
+        "p95": 1.6480000000000001,
+        "latencies_sha256":
+            "9baef6bcd77901ec5b10d898704e6541eb8908425dee1b513de161a1af5c56b9",
+        "per_epoch_counts": [
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+            [100, 100, 100, 100, 0, 0, 100, 100, 100, 100],
+        ],
+        "per_epoch_liveness": [
+            [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 2],
+            [10, 0, 0, 2], [10, 0, 0, 2], [8, 2, 0, 0], [8, 2, 2, 0],
+            [8, 2, 2, 0], [8, 2, 2, 0], [8, 2, 2, 0], [8, 2, 2, 0],
+        ],
+        "drained": [4, 5],
+        "suspects": [4, 5],
+        "fenced": [4, 5],
+        "n_migrations": 160,
+        "migrations_sha256":
+            "c7e63e7eebe6d145c4860d07e446d5558b4d27c76e437e90a88d6e23f4e48e5d",
+        "lost_arrivals": 0,
+        "replayed_arrivals": 0,
+        "deferred_arrivals": 0,
+        "max_recovery_s": 0.0,
+        "busy_s": 4403.084720611572,
+        "switch_s": 398.97786062955856,
+    },
+    "partition": {
+        "n_arrived": 31313,
+        "n_completed": 31054,
+        "n_latencies": 30336,
+        "latency_sum_s": 8554.5,
+        "p50": 0.152,
+        "p95": 1.024,
+        "latencies_sha256":
+            "f2e89270c3c8590ddb982c8eb33bd54c8f631753c9a4db87d50cad0f238cf64b",
+        "per_epoch_counts": [
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+            [80, 80, 80, 80, 80, 80, 80, 80, 80, 80],
+        ],
+        "per_epoch_liveness": [
+            [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 0],
+            [10, 2, 0, 0], [10, 0, 2, 0], [10, 0, 0, 0], [10, 0, 0, 0],
+            [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 0], [10, 0, 0, 0],
+        ],
+        "drained": [],
+        "suspects": [2, 3],
+        "fenced": [2, 3],
+        "n_migrations": 0,
+        "migrations_sha256":
+            "4f53cda18c2baa0c0354bb5f9a3ecbe5ed12ab4d8e11ba873c2f11161202b945",
+        "lost_arrivals": 0,
+        "replayed_arrivals": 602,
+        "deferred_arrivals": 602,
+        "max_recovery_s": None,
+        "busy_s": 4355.7215584516525,
+        "switch_s": 302.32662609778345,
+    },
+}
+CHAOS_EPOCHS, CHAOS_EPOCH_TICKS = 12, 1250  # 60 s in 5 s epochs of 4 ms
+
+
+def chaos_summary(res):
+    """The numbers phase 14 holds to the reference, JSON-able."""
+    import hashlib
+
+    import numpy as np
+
+    def sha(x):
+        return hashlib.sha256(json.dumps(
+            x, separators=(",", ":")).encode()).hexdigest()
+
+    lat = [float(v) for v in np.asarray(res.latencies, np.float64)]
+    mig = [[m.epoch, m.fn, m.src, m.dst] for m in res.migrations]
+    nodes = [n for e in res.epochs for n in e.fleet.nodes]
+    return {
+        "n_arrived": int(res.n_arrived), "n_completed": int(res.n_completed),
+        "n_latencies": len(lat), "latency_sum_s": float(np.sum(lat)),
+        "p50": res.pct(50), "p95": res.pct(95), "latencies_sha256": sha(lat),
+        "per_epoch_counts": res.per_epoch_counts(),
+        "per_epoch_liveness": [
+            [v["live"], v["suspect"], v["fenced"], v["draining"]]
+            for v in res.per_epoch_liveness()],
+        "drained": sorted({n for e in res.epochs for n in e.draining}),
+        "suspects": sorted({n for e in res.epochs for n in e.suspects}),
+        "fenced": sorted({n for e in res.epochs for n in e.fenced}),
+        "n_migrations": len(mig), "migrations_sha256": sha(mig),
+        "lost_arrivals": int(res.lost_arrivals),
+        "replayed_arrivals": int(res.replayed_arrivals),
+        "deferred_arrivals": int(res.deferred_arrivals),
+        "max_recovery_s": res.max_recovery_s(),
+        "busy_s": float(sum(n.busy_time_s for n in nodes)),
+        "switch_s": float(sum(n.switch_time_s for n in nodes)),
+    }
+
+
+def chaos_run(torch, story, device=None):
+    """One ``simulate_fleet_chaos(backend="torch")`` run of phase 14 on
+    ``device`` (``None``: the card).  Returns the result, the wall seconds,
+    the seconds inside the batched tick loops and inside the
+    ``simulate_fleet`` calls, and the ``chaos.*`` obs counters."""
+    from repro_torch import obs
+    from repro_torch.core import simkernel_torch as st
+    from repro_torch.fleet import (CLUSTER_EXEC_S, FaultEvent, FaultSchedule,
+                                   Topology, place, rebalance,
+                                   simulate_fleet_chaos)
+
+    topo = Topology.uniform(10, 2)
+    asg = place("rack-spread", 800, 10, exec_s=CLUSTER_EXEC_S,
+                racks=topo.racks())
+    kw = dict(duration_s=60.0, epoch_s=5.0, exec_s=CLUSTER_EXEC_S,
+              topology=topo, backend="torch", device=device)
+    if story == "rack":
+        evs = [FaultEvent(5.0, "node_slow", n, factor=1.8)
+               for n in topo.nodes_in(2)]
+        evs.append(FaultEvent(30.0, "rack_crash", rack=2))
+        sched = FaultSchedule(evs, 10, topo)
+        kw.update(proactive_drain=True, drain_enter_ratio=1.35,
+                  drain_exit_ratio=1.15)
+    else:
+        sched = FaultSchedule.single_partition((2, 3), 20.0, 10.0, 10, topo)
+
+    loops, fleets = [], []
+    obs.enable()
+    obs.registry().reset()
+    try:
+        with clock(st, "simulate", loops), \
+                clock(rebalance, "simulate_fleet", fleets):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = simulate_fleet_chaos("lags", asg, sched, **kw)
+            wall = time.perf_counter() - t0
+        counters = {k: v["value"] for k, v in obs.registry().snapshot().items()
+                    if v["type"] == "counter"}
+    finally:
+        obs.disable()
+        obs.registry().reset()
+    require(len(loops) == len(fleets) == CHAOS_EPOCHS,
+            f"chaos {story}: {len(loops)} tick loops in {len(fleets)} "
+            f"simulate_fleet calls, expected {CHAOS_EPOCHS}")
+    return (res, wall, sum(c[-1] for c in loops), sum(c[-1] for c in fleets),
+            counters)
+
+
+def check_chaos(story, res, where):
+    """``res`` equals the reference's run: counts, sets, migrations,
+    latencies and percentiles exactly, busy and switch within SIM_RTOL."""
+    got, ref = chaos_summary(res), REF_CHAOS[story]
+    require(sorted(got) == sorted(ref), f"chaos {story}: summary keys")
+    for k in ref:
+        if k in ("busy_s", "switch_s"):
+            sim_check(f"chaos {story} on {where}", got[k], ref[k], k)
+        else:
+            require(got[k] == ref[k], f"chaos {story} on {where}: {k} "
+                    f"{got[k]!r}, the reference {ref[k]!r}")
+    return got
+
+
+def chaos(torch, ops, card):
+    """Phase 14: the chaos layer on the batched torch fleet at full size."""
+    import numpy as np
+
+    ops.reset_launch_counts()
+    runs = {}
+    for story, device in (("rack", None), ("partition", None),
+                          ("partition", "cpu")):
+        where = "the card" if device is None else "the CPU"
+        res, wall, loop, fleet, counters = chaos_run(torch, story, device)
+        s = check_chaos(story, res, where)
+        for name, attr in (("replayed", "replayed_arrivals"),
+                           ("carried", "carried_arrivals"),
+                           ("deferred", "deferred_arrivals")):
+            n = counters.get(f"chaos.{name}_arrivals", 0.0)
+            require(n == getattr(res, attr), f"chaos {story}: counter "
+                    f"chaos.{name}_arrivals {n}, the result "
+                    f"{getattr(res, attr)}")
+        runs[story, where] = res
+        ticks = CHAOS_EPOCHS * CHAOS_EPOCH_TICKS
+        print(f"chaos {story} on {where}: {s['n_completed']}/"
+              f"{s['n_arrived']} completed, p50 {s['p50']:.4f} s, p95 "
+              f"{s['p95']:.4f} s, {s['n_migrations']} migrations, drained "
+              f"{s['drained']}, suspects {s['suspects']}, fenced "
+              f"{s['fenced']}, lost {s['lost_arrivals']}, replayed "
+              f"{s['replayed_arrivals']}, deferred {s['deferred_arrivals']}, "
+              f"max recovery {s['max_recovery_s']} s; {wall:.3f} s wall, "
+              f"tick loops {loop:.3f} s = {ticks / loop:.1f} epoch ticks/s "
+              f"(N=10), controller host {(wall - fleet) / CHAOS_EPOCHS:.4f} "
+              f"s an epoch outside simulate_fleet; counters "
+              + ", ".join(f"{k} {counters.get(k, 0.0):.0f}" for k in (
+                  "chaos.replayed_arrivals", "chaos.carried_arrivals",
+                  "chaos.deferred_arrivals")) + f" [{card}]")
+    card_b, cpu_b = runs["partition", "the card"], runs["partition", "the CPU"]
+    require(np.array_equal(card_b.latencies, cpu_b.latencies),
+            "chaos partition: latencies differ on the card and the CPU")
+    n = ops.launch_counts()
+    require(not any(n.values()), f"the chaos phase launched {n}")
+    print("chaos: the rack story and the partition equal the reference on "
+          "the card (counts, liveness, node sets, migrations, arrival "
+          "ledger, latencies and percentiles; busy and switch within rtol "
+          "1e-5); the partition's latencies on the CPU equal the card's; "
+          f"hand-written kernel launches {json.dumps(n)}")
 
 
 def main():
@@ -1278,6 +1537,9 @@ def main():
 
     # phases 11-13: the tick simulator and the batched fleet
     simulators(torch, ops, card)
+
+    # phase 14: the chaos layer on the batched fleet
+    chaos(torch, ops, card)
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",

@@ -42,6 +42,10 @@ port writes the reference's rule out:
     source reads instead, the last bits differ and move completions (Fig. 7
     at 10 nodes moves its p95).  The same expressions run on the card and
     the CPU;
+  * XLA's CPU code flushes subnormal f32 results to zero; the PELT load
+    of a group idle for about 1000 ticks decays below the smallest normal
+    f32, so the load and the credit are flushed after each update (both
+    are non-negative), on the card as on the CPU;
   * the per-group sums use ``scatter_add_``: the values summed into one
     group are equal (or zero), so the order of the adds does not change
     the sum.
@@ -62,6 +66,7 @@ from repro_torch.sched import torch_backend as tb
 
 TICK = lc.TICK_SEC
 BIG = np.iinfo(np.int32).max // 2  # arrival tick of a padding request
+TINY = float(np.finfo(np.float32).tiny)  # 2**-126, the smallest normal f32
 
 # historical two-policy codes; the full set lives in torch_backend
 CFS, LAGS = tb.CFS, tb.LAGS
@@ -87,6 +92,11 @@ class SimParams(NamedTuple):
     depth: float = 2.0
     window_ticks: int = 1000
     rt_fns: Tuple[int, ...] = ()  # lags-static: fn ids under SCHED_RR
+
+
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """Non-negative ``x`` with its subnormal values flushed to zero."""
+    return x.masked_fill(x < TINY, 0.0)
 
 
 def _recip(c: float) -> float:
@@ -149,8 +159,9 @@ def pick(key: torch.Tensor, C: int):
 
 @torch.inference_mode()
 def simulate(trace: SlotTrace, p: SimParams):
-    """Returns dict of per-request completion ticks + node-level counters,
-    on the trace's device.  A trace with a leading node dimension runs
+    """Returns dict of per-request completion ticks + node-level counters
+    (and the final per-group ``load`` and ``credit``), on the trace's
+    device.  A trace with a leading node dimension runs
     every node in one loop and returns results with that dimension."""
     batched = trace.arrival_tick.dim() == 3
     at, de, slot_fn = (x if batched else x[None] for x in trace)
@@ -279,17 +290,18 @@ def simulate(trace: SlotTrace, p: SimParams):
         ptr = ptr + completed
         rem = new_rem
 
-        # load credit: ``lc.torch_tick`` with each product fused into its add
+        # load credit: ``lc.torch_tick`` with each product fused into its add,
+        # and each result flushed to zero below the smallest normal f32
         frac = torch.zeros_like(credit).scatter_add_(1, run_fn, eff * INV_TICK)
-        load = fma(load, y32, (1.0 - y) * frac)
-        credit = fma(credit, keep32, alpha * load)
+        load = flush(fma(load, y32, (1.0 - y) * frac))
+        credit = flush(fma(credit, keep32, alpha * load))
 
         # fn vruntime advances by group core-time
         vrt_fn = vrt_fn.scatter_add(1, run_fn, eff)
         prev_picked = picked_slot
 
     out = {"done_tick": done[..., :R].to(torch.int32), "busy_s": busy,
-           "overhead_s": ovh, "credit": credit}
+           "overhead_s": ovh, "credit": credit, "load": load}
     return out if batched else {k: v[0] for k, v in out.items()}
 
 

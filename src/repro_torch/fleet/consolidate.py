@@ -37,7 +37,7 @@ Copy of ``repro.fleet.consolidate``, with ``backend="torch"`` in place of
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -153,11 +153,12 @@ def placement_comparison(
     n_cores: int = 12,
     seed: int = 7,
     exec_s: float = CLUSTER_EXEC_S,
+    record_dir: Optional[str] = None,
     device=None,
 ) -> List[ClusterResult]:
     """Same (policy, n_nodes) configuration under each placement strategy —
-    the per-node imbalance columns are the interesting output.  The
-    reference's ``record_dir`` waits for the port of ``obs/recorder.py``."""
+    the per-node imbalance columns are the interesting output.  ``device``
+    is where ``backend="torch"`` runs (``None``: the card)."""
     out = []
     for name in placements:
         asg = place(name, total_fns, n_nodes, n_cores=n_cores,
@@ -165,6 +166,7 @@ def placement_comparison(
         fleet = simulate_fleet(
             policy, asg, duration_s=duration_s, n_cores=n_cores, seed=seed,
             exec_s=exec_s, backend=backend, distinct_seeds=True,
+            record_dir=(f"{record_dir}/{name}" if record_dir else None),
             device=device,
         )
         out.append(cluster_result(fleet, slo_s))

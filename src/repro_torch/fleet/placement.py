@@ -25,8 +25,7 @@ assignments:
   * ``rack-spread``  — least-loaded node, ties broken toward the
     least-loaded *rack*: balances reserved share like ``spread`` while
     steering equal-load choices across failure domains (pass the per-node
-    ``racks`` array from the reference's ``Topology.racks()``; the topology
-    layer is not ported yet), so
+    ``racks`` array from :meth:`repro_torch.fleet.topology.Topology.racks`), so
     a rack-scoped crash strands the smallest possible share and failover
     replicas do not re-concentrate in one domain.  Without ``racks`` it
     degrades to ``spread`` exactly (every node its own rack).

@@ -22,14 +22,17 @@ every node ``k`` functions reproduces ``simulate_node_share(policy, k*n,
 n)`` exactly (``tests/test_fleet.py``).  Pass ``distinct_seeds=True`` to
 decorrelate nodes instead.
 
-Fleet run records (the reference's ``record_dir`` and ``record_fleet``)
-need ``obs/recorder.py``, which is not ported yet; they are left out.
+Fleet observability: ``record_dir`` makes every simulated node emit a run
+record (``node<i>/run.json``); render the merged fleet view with
+
+  python -m repro_torch.obs.report --merge RECORD_DIR/node*
 
 Copy of ``repro.fleet.simulate``, with ``backend="torch"`` in place of
 ``backend="jax"``: the port imports nothing of ``repro``.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -257,6 +260,7 @@ def simulate_fleet(
     backend: str = "numpy",
     distinct_seeds: bool = False,
     threads_per_fn: int = 0,
+    record_dir: Optional[str] = None,
     node_exec_mult: Optional[np.ndarray] = None,
     dead: Optional[np.ndarray] = None,
     node_rates: Optional[List[Optional[np.ndarray]]] = None,
@@ -265,11 +269,10 @@ def simulate_fleet(
 ) -> FleetResult:
     """Simulate every node of a placed fleet; see the module docstring.
 
-    Chaos hooks (used by the reference's ``fleet.rebalance``, whose port is
-    next): ``node_exec_mult`` scales each node's per-request execution time
-    (a degraded/slow node serves the same demand more slowly), ``dead``
-    marks crashed nodes —
-    they are not simulated and appear as explicit zero-work nodes (their
+    Chaos hooks (used by :mod:`repro_torch.fleet.rebalance`):
+    ``node_exec_mult`` scales each node's per-request execution time (a
+    degraded/slow node serves the same demand more slowly), ``dead`` marks
+    crashed nodes — they are not simulated and appear as explicit zero-work nodes (their
     stranded arrivals are accounted by the chaos controller, not here) —
     and ``node_rates`` gives each node explicit per-function request
     rates, so a node's offered load follows the functions *assigned* to
@@ -345,7 +348,7 @@ def simulate_fleet(
         for i in range(assignment.n_nodes)
     ]
 
-    return FleetResult(
+    fleet = FleetResult(
         policy=policy_name,
         placement=assignment.placement,
         nodes=nodes,
@@ -354,3 +357,31 @@ def simulate_fleet(
         n_cores=n_cores,
         backend=backend,
     )
+    if record_dir:
+        record_fleet(fleet, record_dir)
+    return fleet
+
+
+def record_fleet(fleet: FleetResult, out_dir: str) -> List[str]:
+    """Emit one run record per simulated node (``node<i>/run.json``).
+
+    Uses each node's ``sched_summary()`` so records exist telemetry-on or
+    -off; merge them back into one fleet view with
+    ``python -m repro_torch.obs.report --merge out_dir/node*``.
+    """
+    from repro_torch.obs.recorder import record_run
+
+    paths = []
+    for i, r in enumerate(fleet.nodes):
+        paths.append(record_run(
+            os.path.join(out_dir, f"node{i}"),
+            meta={
+                "layer": "fleet", "policy": fleet.policy,
+                "placement": fleet.placement, "node": i,
+                "n_nodes": fleet.n_nodes, "n_fns": int(fleet.counts[i]),
+                "duration_s": fleet.duration_s, "backend": fleet.backend,
+            },
+            sched=r.sched_summary(),
+            include_registry=False,
+        ))
+    return paths

@@ -14,8 +14,24 @@ drives real compute); without it the calibrated step-cost model is used (fast
 sweeps).  At ``--pallas-threshold`` tenants or more, the per-step credit tick
 runs on the CUDA ``lags_select`` kernel.
 
-The reference's ``--obs-dir``, ``--trace``, ``--checkpoint-every`` and
-``--shard`` wait for the port of ``obs.recorder`` and ``obs.report``.
+Telemetry: ``--obs-dir DIR`` records the run (schedstats + metrics) as a
+diffable run record; ``--trace`` additionally captures a Chrome trace-event
+file (open in Perfetto).  Compare policies with
+
+  python -m repro_torch.launch.serve --policy lags --obs-dir /tmp/r/lags
+  python -m repro_torch.launch.serve --policy fair --obs-dir /tmp/r/fair
+  python -m repro_torch.obs.report --diff /tmp/r/fair /tmp/r/lags
+
+Long runs can be *watched live*: ``--checkpoint-every S`` rewrites the run
+record every S sim-seconds, so ``python -m repro_torch.obs.report DIR`` in
+another shell always renders the latest snapshot.  Multiple engine shards
+merge post-hoc into one fleet view:
+
+  python -m repro_torch.launch.serve --policy lags --shard s0 \
+      --obs-dir /tmp/f/s0
+  python -m repro_torch.launch.serve --policy lags --shard s1 --seed 1 \
+      --obs-dir /tmp/f/s1
+  python -m repro_torch.obs.report --merge /tmp/f/s0 /tmp/f/s1
 """
 from __future__ import annotations
 
@@ -25,7 +41,10 @@ import numpy as np
 
 import torch
 
+import repro_torch.obs as obs
 from repro_torch.core.traces import _mmpp_arrivals
+from repro_torch.obs import report as obs_report
+from repro_torch.obs.recorder import record_run
 from repro_torch.sched import serving as sched_serving
 from repro_torch.scheduler.tenant import Request, Tenant
 from repro_torch.serving.engine import Engine, EngineConfig
@@ -67,6 +86,17 @@ def main(argv=None):
                          "the fused CUDA credit kernel (0 = never)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--real-model", action="store_true")
+    ap.add_argument("--obs-dir", default="",
+                    help="record schedstats/metrics run record here")
+    ap.add_argument("--trace", action="store_true",
+                    help="capture a Chrome trace (needs --obs-dir to persist)")
+    ap.add_argument("--checkpoint-every", type=float, default=0.0,
+                    metavar="S",
+                    help="stream live schedstats: rewrite the run record "
+                         "every S sim-seconds (needs --obs-dir)")
+    ap.add_argument("--shard", default="",
+                    help="shard label recorded in the run meta, for "
+                         "post-hoc `report --merge` of parallel shards")
     ap.add_argument("--admission-timeout", type=float, default=0.0,
                     metavar="S",
                     help="graceful degradation: expire requests still "
@@ -101,6 +131,11 @@ def main(argv=None):
         except ValueError:
             ap.error(f"--fence-window expects T0:T1, got {w!r}")
 
+    if args.obs_dir or args.trace:
+        obs.enable()
+    if args.trace:
+        obs.install_tracer()
+
     tenants, arrivals = build_workload(args.tenants, args.duration, args.seed)
     eng = Engine(
         EngineConfig(policy=args.policy, n_slots=args.slots,
@@ -122,8 +157,43 @@ def main(argv=None):
         params = params_lib.init_params(cfg, gen, device=eng.device)
         eng.attach_model(cfg, params, max_len=64)
 
-    st = eng.run(args.duration, arrivals,
-                 fence_windows=fence_windows or None)
+    meta = {
+        "layer": "serving", "policy": args.policy,
+        "tenants": args.tenants, "duration_s": args.duration,
+        "slots": args.slots, "seed": args.seed,
+        "arrivals": len(arrivals),
+    }
+    if args.admission_timeout or args.shed_watermark:
+        meta["degradation"] = {
+            "admission_timeout_s": args.admission_timeout,
+            "shed_watermark": args.shed_watermark,
+            "shed_mode": args.shed_mode,
+        }
+    if fence_windows:
+        meta["fence_windows"] = [[a, b] for a, b in fence_windows]
+    if args.shard:
+        meta["shard"] = args.shard
+
+    n_ckpt = 0
+
+    def _checkpoint(stats):
+        # live schedstats stream: rewrite the run record in place so a
+        # concurrent `repro_torch.obs.report` sees the latest partial totals
+        nonlocal n_ckpt
+        n_ckpt += 1
+        record_run(
+            args.obs_dir,
+            meta={**meta, "checkpoint": n_ckpt,
+                  "progress_s": round(stats.time_s, 3), "live": True},
+            sched=stats.sched,
+        )
+
+    st = eng.run(
+        args.duration, arrivals,
+        checkpoint_every_s=args.checkpoint_every if args.obs_dir else 0.0,
+        on_checkpoint=_checkpoint if args.obs_dir else None,
+        fence_windows=fence_windows or None,
+    )
     lat = np.asarray([r.latency for r in st.completed])
     print(
         f"policy={args.policy} completed={len(st.completed)}/{len(arrivals)} "
@@ -135,7 +205,17 @@ def main(argv=None):
            if (st.shed or st.expired or st.backoffs) else "")
         + (f" fenced_steps={st.fenced_steps} deferred={st.deferred}"
            if (st.fenced_steps or st.deferred) else "")
+        + (f" checkpoints={n_ckpt}" if n_ckpt else "")
     )
+    if args.obs_dir:
+        path = record_run(
+            args.obs_dir,
+            meta={**meta, "checkpoints": n_ckpt} if n_ckpt else meta,
+            sched=st.sched,
+        )
+        print(f"run record -> {path}")
+        print(obs_report.summarize({"meta": {"policy": args.policy},
+                                    "sched": st.sched}))
     return st
 
 

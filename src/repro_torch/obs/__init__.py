@@ -1,4 +1,5 @@
-"""repro_torch.obs — shared observability: metrics, tracing, schedstats, reports.
+"""repro_torch.obs — shared observability: metrics, tracing, schedstats,
+reports.
 
 One subsystem backs every execution layer's accounting (DES oracle, tick
 simulator, serving engine, train loop) so policy comparisons are exportable
@@ -7,8 +8,9 @@ and diffable instead of hand-rolled printouts:
   * ``metrics``    — process-wide counters/gauges/log-bucketed histograms
   * ``tracing``    — bounded ring-buffer tracer, Chrome trace-event export
   * ``schedstats`` — per-tenant/per-function scheduling accounting
-
-The reference's ``recorder`` and ``report`` modules are not ported yet.
+  * ``recorder``   — persist a run as a diffable ``run.json`` (+ trace)
+  * ``report``     — ``python -m repro_torch.obs.report`` summaries and run
+    diffs
 
 Telemetry is opt-in: ``obs.enable()`` turns on the registry helpers;
 ``obs.install_tracer()`` additionally captures trace events.  Disabled-path

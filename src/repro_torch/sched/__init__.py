@@ -1,11 +1,25 @@
-"""repro_torch.sched — the scheduling-policy protocol, its numpy and torch
-backends, the serving admission registry and the CUDA backend of the credit
-tick (see each submodule).
+"""repro_torch.sched — the unified scheduling policy core.
 
-Port of ``repro.sched``: it exports the numpy backend's ``Policy`` and
-``make_policy`` (with ``EntityView``, ``pick_k`` and ``primary_key``) as the
-reference's package does.
+One policy protocol (``protocol.PolicySpec``: per-entity state arrays, a
+composite lower-runs-first key, a slice length, a preemption rule) with
+three interchangeable backends — numpy (simulators/DES), torch (the tensor
+tick simulator, all policies, one node or a batch of fleet nodes) and CUDA
+(the fused credit tick + selection kernel behind the serving engine's
+admission path) — plus the serving admission registry.  See each
+submodule's docstring.
+
+Port of ``repro.sched``: it exports the same names.
 """
+from repro_torch.sched.protocol import (  # noqa: F401
+    CFS_DEFAULT_SLICE_TICKS,
+    KINDS,
+    TUNED_SLICE_TICKS,
+    PolicySpec,
+    credit_preempt,
+    names,
+    register,
+    spec,
+)
 from repro_torch.sched.numpy_backend import (  # noqa: F401
     EntityView,
     Policy,

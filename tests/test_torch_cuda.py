@@ -11,7 +11,13 @@ import torch
 
 from repro_torch.core import simkernel_torch as st
 from repro_torch.core.traces import lightest_band_fns, make_workload
-from repro_torch.fleet import place, simulate_fleet
+from repro_torch.fleet import (
+    FaultSchedule,
+    Topology,
+    place,
+    simulate_fleet,
+    simulate_fleet_chaos,
+)
 from repro_torch.fleet.simulate import _pad_trace
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
@@ -231,3 +237,18 @@ def test_torch_fleet_on_card_equals_cpu(card):
                                 device=dev) for dev in ("cuda", "cpu"))
     for g, w in zip(got.nodes, want.nodes):
         assert (g.latencies == w.latencies).all() and len(g.latencies) > 0
+
+
+def test_chaos_partition_on_card_equals_cpu(card):
+    """A partition fenced by the chaos controller: every epoch's fleet in
+    one batched loop, on the card as on the CPU."""
+    topo = Topology.uniform(4, 2)
+    asg = place("rack-spread", 64, 4, exec_s=0.1, racks=topo.racks())
+    part = FaultSchedule.single_partition((1,), 3.0, 4.5, 4, topo)
+    got, want = (simulate_fleet_chaos(
+        "lags", asg, part, duration_s=12.0, epoch_s=1.5, exec_s=0.1, seed=10,
+        topology=topo, backend="torch", device=dev) for dev in ("cuda", "cpu"))
+    assert (got.latencies == want.latencies).all() and len(got.latencies) > 0
+    assert got.per_epoch_counts() == want.per_epoch_counts()
+    assert got.deferred_arrivals == want.deferred_arrivals > 0
+    assert {n for e in got.epochs for n in e.fenced} == {1}

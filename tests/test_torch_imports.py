@@ -3,10 +3,18 @@ entry points run on the card unless the CPU is asked for, and its kernel
 wrappers never fall back from the card to the CPU."""
 import ast
 import pathlib
+import types
 
 import numpy as np
 import pytest
 import torch
+
+import repro.fleet
+import repro.obs
+import repro.sched
+import repro_torch.fleet
+import repro_torch.obs
+import repro_torch.sched
 
 from repro_torch.configs.base import get_config, reduced
 from repro_torch.kernels import _build
@@ -134,3 +142,30 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc()
+
+
+def _public(pkg):
+    """The names a package exports, without its submodules."""
+    return {n for n, v in vars(pkg).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+@pytest.mark.parametrize("name", ["sched", "fleet", "obs"])
+def test_packages_export_the_reference_names(name):
+    port, ref = (getattr(repro_torch, name), getattr(repro, name))
+    assert _public(port) == _public(ref)
+    assert getattr(port, "__all__", None) == getattr(ref, "__all__", None)
+    if name == "sched":
+        from repro_torch.sched import PolicySpec, register, spec
+        assert isinstance(spec("lags"), PolicySpec) and callable(register)
+
+
+def test_chaos_fleet_raises_without_card_unless_cpu(no_card):
+    from repro_torch.fleet import FaultSchedule, place, simulate_fleet_chaos
+    asg = place("round-robin", 6, 2)
+    crash = FaultSchedule.single_crash(1, 1.0, 2)
+    kw = dict(duration_s=2.0, epoch_s=1.0, exec_s=0.1, backend="torch")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate_fleet_chaos("lags", asg, crash, **kw)
+    res = simulate_fleet_chaos("lags", asg, crash, device="cpu", **kw)
+    assert res.epochs[0].fleet.backend == "torch" and res.n_completed > 0

@@ -11,6 +11,7 @@ simulator as the reference's test does.
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.extend import core as jcore
 import pytest
 import torch
 
@@ -214,3 +215,46 @@ def test_batch_of_nodes_equals_each_node_alone():
         assert (batch["done_tick"][i, t0:] == -1).all()
         for k in ("busy_s", "overhead_s"):
             assert torch.equal(batch[k][i], out[k])
+
+
+def _ref_final_state(trace, p):
+    """The reference's final ``lax.scan`` state (ptr, rem, vrt_fn, load,
+    credit, ...), read from its own program: ``sj.simulate`` returns no
+    ``load``, so its jaxpr is re-run with the scan's outputs as results."""
+    closed = jax.make_jaxpr(lambda t: sj.simulate(t, p))(trace)
+    inner = closed.jaxpr.eqns[0].params["jaxpr"]  # the jitted body
+    (scan,) = [e for e in inner.jaxpr.eqns if e.primitive.name == "scan"]
+    body = jcore.ClosedJaxpr(inner.jaxpr.replace(outvars=list(scan.outvars)),
+                             inner.consts)
+    return jax.jit(jcore.jaxpr_as_fun(body))(*trace)
+
+
+@pytest.mark.parametrize("n_ticks", [1000, 1050, 1500])
+@pytest.mark.parametrize("code", [tb.LAGS, tb.CFS],
+                         ids=lambda c: tb.NAME_OF[c])
+def test_long_idle_group_flushes_subnormal_load(code, n_ticks):
+    """Group 0 runs for a few ticks, then idles: its PELT load decays by
+    0.5**(1/8) a tick and falls below the smallest normal f32 after about
+    1010 ticks, where the reference's compiled code flushes it to zero.
+    Group 0 runs again at tick 1300 and group 1 first at tick 1350.  The
+    port's load, credit and completion ticks equal the reference's."""
+    BIG = st.BIG
+    at = np.array([[0, 1300], [1350, BIG]], np.int32)
+    de = np.array([[0.02, 0.01], [0.01, 0.0]], np.float32)
+    fn = np.array([0, 1], np.int32)
+    p = dict(n_cores=1, n_fns=2, n_ticks=n_ticks, policy=code)
+    trace = sj.SlotTrace(*(jnp.asarray(x) for x in (at, de, fn)))
+    want = sj.simulate(trace, sj.SimParams(**p))
+    want_load = np.asarray(_ref_final_state(trace, sj.SimParams(**p))[3])
+    got = st.simulate(st.SlotTrace(*(torch.from_numpy(x)
+                                     for x in (at, de, fn))),
+                      st.SimParams(**p))
+    if n_ticks == 1050:  # past the range of normal f32 in the reference
+        assert want_load[0] == 0.0
+    np.testing.assert_array_equal(got["load"].numpy(), want_load)
+    np.testing.assert_array_equal(got["credit"].numpy(),
+                                  np.asarray(want["credit"]))
+    np.testing.assert_array_equal(got["done_tick"].numpy(),
+                                  np.asarray(want["done_tick"]))
+    assert (got["done_tick"].numpy() >= 0).sum() == (3 if n_ticks > 1352
+                                                     else 1)
