@@ -20,12 +20,16 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    shapes at G=1, the engine's shape B=16, H=32, Hkv=8, D=128 at
    L in {512, 4096} with kv_len including L-7, and phase 9's decode shape
    B=4, L=2112 with kv_len on and beside a split's edge, read through the
-   model's (B, L, Hkv, D) cache view; ``flash_attention`` at the
+   model's (B, L, Hkv, D) cache view, and there G=16 (H=64, Hkv=4) and G=7
+   (H=28, Hkv=4), also through a window's view of the cache's last 1024
+   rows; ``flash_attention`` at the
    reference's test shapes for (causal, 0), (causal, 128), (causal, 64) and
    (non-causal, 0), GQA cases, S=1 and ragged S read through the
    (B, S, H, D) projection view, and the Qwen3-8B prefill shape, where each
    64-row query tile of each (b, h) is also held to a relative error
-   ||got - want|| / ||want||; f32 and bf16 at the reference's tolerances;
+   ||got - want|| / ||want||; then non-causal at D=80 (hubert), G=16, G=7
+   and a window of 1024 at S=1536 (gemma3); f32 and bf16 at the
+   reference's tolerances;
    ``ssm_scan`` in f32 (the type the mixer hands it) at the reference's
    shapes, with a nonzero h0, and the falcon-mamba chunk shape, at 1e-4;
 5. times at the main paths' shapes: kernel, plain version, and where one
@@ -36,6 +40,7 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    at T in {1024, 4096, 65536} with k=16 and at (65536, 1024), beside an
    empty kernel's time under the same timer (``floor_ms``) and
    ``torch.topk`` on the precomputed key (selection only, tie order unset);
+   ``decode_attention`` also at G=16 (B=4, H=64, Hkv=4, L=2112);
 6. serving on the cost model: ``repro_torch.launch.serve.main`` at 4096
    tenants; its credit kernel launches once per busy engine step; a 300-tenant
    run on the card prints the same summary as on the CPU; the wall time per
@@ -85,8 +90,38 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     and the partition again on the CPU with the card's latencies; wall
     seconds, epoch ticks/s, the controller's host time an epoch and the
     ``chaos.*`` arrival counters; no hand-written kernel launches;
-15. a ``{"kernels": [...]}`` line (each kernel's CUDA function on the main
-    path under ``kernel``), then ``{"ok": true, "device": {...}}`` last.
+15. the reduced configs of the six families registered since (qwen2-moe,
+    qwen3-moe at G=16, jamba, gemma3 decoding past its window of 16,
+    qwen2-vl with three different position streams, hubert) in f32: the
+    card (kernels) equals the CPU (plain versions) in prefill logits, cache
+    leaves and 8 decode steps; jamba layer by layer;
+16. qwen2-moe-a2.7b at full width and depth (24 layers, bf16, random
+    weights from seed 0): served through ``Engine.attach_model`` on 16
+    slots with the LAGS credit tick (1024 tenants, 4.5 simulated seconds),
+    with the CPU engine's schedule; then prefill B=4, S=2048 with the share
+    of (token, k) pairs dropped at capacity, 32 decode steps with a profile
+    of one, and the cosine of prefill(S) against prefill(S-64) + 64 decode
+    steps, printed and not checked (capacity drops make the two different
+    functions);
+17. jamba-v0.1-52b at full width, its first 8 of 32 layers (one period: 1
+    attention and 7 Mamba layers, 4 MoE and 4 dense MLPs): prefill B=2,
+    S=2048, 32 decode steps, launch counts and finite logits;
+18. qwen3-moe-235b-a22b at full width, its first 8 of 94 layers: the same,
+    its decode on ``decode_attention`` at G=16;
+19. gemma3-27b at full width and depth (62 layers): prefill B=2, S=1536
+    past the window of 1024, 64 decode steps through the window's view, and
+    the cosine check of phase 9;
+20. qwen2-vl-7b at full width and depth (28 layers): prefill B=4, S=2048
+    with 1024 random vision embeddings and three position streams (stream
+    0 the row index, streams 1-2 a 32x32 grid over the image rows), 32
+    decode steps and the cosine check;
+21. hubert-xlarge at full width and depth (48 layers): the encoder forward
+    at B=4, S=2048 from random frames, 48 ``fa_mma`` launches (non-causal,
+    D=80), finite logits (4, 504);
+22. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+    kernel's CUDA function on the main path under ``kernel``, its launches
+    summed over every path above, ``decode_attention``'s G=16 time under
+    ``g16``), then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It exits nonzero at once where no card is present.
@@ -295,27 +330,34 @@ def one_launch(torch, lags, *args):
 # -- phase 4 --------------------------------------------------------------
 
 
-def dec_inputs(torch, gen, B, H, Hkv, L, D, dtype, kv_len):
+def dec_inputs(torch, gen, B, H, Hkv, L, D, dtype, kv_len, r0=0):
     """q (B, H, D) and the model's (B, L, Hkv, D) cache, seen as
-    (B, Hkv, L, D) views."""
+    (B, Hkv, L - r0, D) views from row r0 (r0 > 0: a window's view)."""
     dt = getattr(torch, dtype)
     n = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dt)  # noqa: E731
     q = n(B, H, D)
-    k = n(B, L, Hkv, D).permute(0, 2, 1, 3)
-    v = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    k = n(B, L, Hkv, D)[:, r0:].permute(0, 2, 1, 3)
+    v = n(B, L, Hkv, D)[:, r0:].permute(0, 2, 1, 3)
     return q, k, v, torch.tensor(kv_len, dtype=torch.int32, device="cuda")
 
 
 def dec_shapes():
-    # (B, H, Hkv, L, D, kv_len): tests/test_kernels.py at G=1, then the
+    # (B, H, Hkv, L, D, kv_len, r0): tests/test_kernels.py at G=1, then the
     # engine's shape for Qwen3-8B (G=4) with kv_len from 1 to L, L-7 among
     # them, then the decode after phase 9's prefill (B*Hkv = 32 heads: the
-    # kernel splits L 4 ways, kv_len on and beside a split's edge)
-    out = [(1, 2, 2, 512, 64, [512 // 3]), (2, 4, 4, 1024, 128, [512, 1024 - 7])]
+    # kernel splits L 4 ways, kv_len on and beside a split's edge); then
+    # G=16 (qwen3-moe, 64 heads over 4) and G=7 (qwen2-vl, 28 over 4) at
+    # that length, over the whole cache and through a window's view of its
+    # last 1024 rows (r0 = 1088, gemma3's decode past its window)
+    out = [(1, 2, 2, 512, 64, [512 // 3], 0),
+           (2, 4, 4, 1024, 128, [512, 1024 - 7], 0)]
     for L in (512, 4096):
         kv = [L - 7, L, 1, L // 2] + [(97 * i) % L + 1 for i in range(12)]
-        out.append((16, 32, 8, L, 128, kv))
-    out.append((4, 32, 8, 2112, 128, [2049, 1728, 1729, 2112]))
+        out.append((16, 32, 8, L, 128, kv, 0))
+    out.append((4, 32, 8, 2112, 128, [2049, 1728, 1729, 2112], 0))
+    for H in (64, 28):
+        out.append((4, H, 4, 2112, 128, [2049, 1728, 1729, 2112], 0))
+        out.append((4, H, 4, 2112, 128, [1024, 1000, 1, 513], 1088))
     return out
 
 
@@ -323,8 +365,9 @@ def check_decode(torch, dec):
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs = {}
     for dtype in ("float32", "bfloat16"):
-        for B, H, Hkv, L, D, kv_len in dec_shapes():
-            q, k, v, kv = dec_inputs(torch, gen, B, H, Hkv, L, D, dtype, kv_len)
+        for B, H, Hkv, L, D, kv_len, r0 in dec_shapes():
+            q, k, v, kv = dec_inputs(torch, gen, B, H, Hkv, L, D, dtype,
+                                     kv_len, r0)
             got = dec.decode_attention(q, k, v, kv)
             want = dec.decode_attention_plain(q, k, v, kv)
             torch.cuda.synchronize()
@@ -332,12 +375,12 @@ def check_decode(torch, dec):
             tol = TOL[dtype]
             bad = ((got.float() - want.float()).abs()
                    > tol["atol"] + tol["rtol"] * want.float().abs()).sum()
+            name = (f"decode_attention {dtype} B={B} H={H} Hkv={Hkv} L={L} "
+                    f"D={D} G={H // Hkv}" + (f" rows {r0}.." if r0 else ""))
             require(int(bad) == 0 and math.isfinite(err),
-                    f"decode_attention {dtype} B={B} H={H} Hkv={Hkv} L={L} "
-                    f"D={D}: {int(bad)} values outside {tol}, max err {err}")
-            errs[(dtype, B, H, Hkv, L, D)] = err
-            print(f"decode_attention {dtype} B={B} H={H} Hkv={Hkv} L={L} "
-                  f"D={D} G={H // Hkv}: max_abs_err={err:.3e} within {tol}")
+                    f"{name}: {int(bad)} values outside {tol}, max err {err}")
+            errs[(dtype, B, H, Hkv, L, D, r0)] = err
+            print(f"{name}: max_abs_err={err:.3e} within {tol}")
     return errs
 
 
@@ -368,12 +411,18 @@ def flash_inputs(torch, gen, B, H, Hkv, S, D, dtype):
 
 def flash_cases():
     # (B, H, Hkv, S, D, masks): tests/test_kernels.py at G=1; GQA and S
-    # that are no multiple of the 64-row tile; then the Qwen3-8B prefill
+    # that are no multiple of the 64-row tile; then the Qwen3-8B prefill;
+    # then hubert's non-causal D=80 (fa_mma in bf16), G=16 (qwen3-moe), G=7
+    # (qwen2-vl) and gemma3's window of 1024 at S=1536
     out = [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128), (1, 4, 4, 512, 128),
            (2, 8, 2, 300, 64), (1, 4, 2, 77, 16), (2, 4, 4, 200, 80),
            (2, 4, 2, 130, 64), (1, 8, 1, 1, 128)]
     out = [c + (FLASH_MASKS,) for c in out]
-    return out + [tuple(QWEN_PREFILL.values()) + ([(True, 0)],)]
+    return out + [tuple(QWEN_PREFILL.values()) + ([(True, 0)],),
+                  (2, 16, 16, 1024, 80, [(False, 0)]),
+                  (1, 64, 4, 1024, 128, [(True, 0)]),
+                  (1, 28, 4, 1024, 128, [(True, 0)]),
+                  (1, 32, 16, 1536, 128, [(True, 1024)])]
 
 
 def tile_rel_err(got, want, tile=64):
@@ -639,6 +688,7 @@ def serve_cost_model(torch, ops, serve, tick_kernel_ms):
           f"Engine._kernel_tick {sum(ticks) / len(ticks) * 1e3:.6g} ms "
           f"(host clock, mean of {len(ticks)} ticks)")
     tick_split(torch, 4096, tick_kernel_ms)
+    return n
 
 
 def to(tree, dev):
@@ -648,6 +698,22 @@ def to(tree, dev):
     if isinstance(tree, list):
         return [to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def init_full(torch, cfg, note=""):
+    """Random parameters from seed 0 on the card, the reference's init
+    rule; prints their count and bytes."""
+    from repro_torch.models.params import count_params, init_params
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}{note}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{count_params(params) / 1e9:.3f} B params in {cfg.param_dtype}, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    return params
 
 
 def check_model_small(torch):
@@ -684,19 +750,12 @@ def check_model_small(torch):
 def serve_qwen3_8b(torch, ops, serve, tick_kernel_ms):
     from repro_torch.configs.base import get_config
     from repro_torch.models import model
-    from repro_torch.models.params import count_params, init_params
+    from repro_torch.models.params import count_params
     from repro_torch.serving.engine import Engine, EngineConfig
 
     cfg = get_config("qwen3-8b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    torch.cuda.synchronize()
+    params = init_full(torch, cfg)
     n_params = count_params(params)
-    print(f"qwen3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B params in {cfg.param_dtype}, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
-          f"init {time.perf_counter() - t0:.1f} s")
 
     n_tenants, duration, max_len = 1024, 20.0, 512
     tenants, arrivals = serve.build_workload(n_tenants, duration, seed=0)
@@ -798,11 +857,81 @@ def profile(torch, label, step, n_steps=3):
 # -- phases 8 to 10 -------------------------------------------------------
 
 
+def mrope_positions(torch, B, S, n_img, device):
+    """(B, S, 3) M-RoPE positions: stream 0 the row index; streams 1 and 2
+    a square grid (row, column) over the first n_img rows, the image's, and
+    the row index after them."""
+    side = math.isqrt(n_img)
+    idx = torch.arange(S, dtype=torch.int32, device=device)
+    img = idx < n_img
+    h = torch.where(img, idx // side, idx)
+    w = torch.where(img, idx % side, idx)
+    return torch.stack([idx, h, w], -1).expand(B, S, 3).contiguous()
+
+
+def family_batch(torch, cfg, B, S, device, seed=1):
+    """A prefill batch: random tokens, or frames for the audio frontend;
+    for the vision frontend ``n_vision_tokens`` random embeddings over the
+    first rows and ``mrope_positions``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frames": torch.randn(B, S, cfg.d_model, generator=gen,
+                                      device=device)}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     dtype=torch.int32, device=device)}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.randn(B, cfg.n_vision_tokens,
+                                             cfg.d_model, generator=gen,
+                                             device=device)
+        batch["positions"] = mrope_positions(torch, B, S, cfg.n_vision_tokens,
+                                             device)
+    return batch
+
+
+def close(got, want, what):
+    """max abs error of ``got`` (card) against ``want`` (CPU), required
+    within 1e-4 + 1e-4 of want's largest entry; returns error / scale."""
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.float().cpu() - want).abs().max())
+    require(err <= 1e-4 + 1e-4 * scale, f"{what}: card vs CPU max err {err}")
+    return err / scale
+
+
+def family_end_to_end(torch, cfg, params, B=2, S=32, n_decode=8):
+    """Prefill logits and every cache leaf on the card (kernels) against
+    the CPU (plain versions), then ``n_decode`` steps fed the CPU's greedy
+    tokens.  Returns the worst error / scale."""
+    from repro_torch.models import model
+
+    on = {"cpu": params, "cuda": to(params, "cuda")}
+    batch = family_batch(torch, cfg, B, S, "cpu")
+    out = {dev: model.prefill(on[dev], cfg, to(batch, dev),
+                              max_len=S + n_decode, device=dev)
+           for dev in on}
+    worst = close(out["cuda"][0], out["cpu"][0], f"{cfg.name} prefill")
+    if cfg.encoder_only:
+        return worst
+    caches = {dev: out[dev][1] for dev in on}
+    tok = torch.argmax(out["cpu"][0], -1)[:, None].to(torch.int32)
+    for n in range(S, S + n_decode):
+        step = {dev: model.decode_step(on[dev], cfg, {"tokens": tok.to(dev)},
+                                       caches[dev], n, device=dev)[0]
+                for dev in on}
+        worst = max(worst, close(step["cuda"], step["cpu"],
+                                 f"{cfg.name} decode at {n}"))
+        tok = torch.argmax(step["cpu"], -1)[:, None].to(torch.int32)
+    for i, (c_card, c_cpu) in enumerate(zip(caches["cuda"], caches["cpu"])):
+        for leaf in c_cpu:
+            worst = max(worst, close(c_card[leaf], c_cpu[leaf],
+                                     f"{cfg.name} layer {i} {leaf}"))
+    return worst
+
+
 def check_prefill_small(torch):
     """The reduced prefill in f32 on the card (kernels) against the CPU
     (plain versions): logits and every cache leaf, then one decode step."""
     from repro_torch.configs.base import get_config, reduced
-    from repro_torch.models import model
     from repro_torch.models.params import init_params
 
     # S = 100 leaves a ragged 64-row tile; S = 300 a ragged 256-token chunk
@@ -811,70 +940,72 @@ def check_prefill_small(torch):
         cfg = reduced(get_config(name), n_layers=2, **overrides)
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              device="cpu")
-        toks = torch.randint(0, cfg.vocab_size, (3, S + 1), dtype=torch.int32,
-                             generator=torch.Generator().manual_seed(1))
-        out = {}
-        for dev in ("cpu", "cuda"):
-            p, t = to(params, dev), toks.to(dev)
-            logits, cache = model.prefill(p, cfg, {"tokens": t[:, :S]},
-                                          max_len=S + 1, device=dev)
-            step, cache = model.decode_step(p, cfg, {"tokens": t[:, S:]},
-                                            cache, S, device=dev)
-            out[dev] = [logits, step] + [v for c in cache for v in c.values()]
-        worst = 0.0
-        for got, want in zip(out["cuda"], out["cpu"]):
-            want = want.float()
-            err = float((got.float().cpu() - want).abs().max())
-            require(err <= 1e-4 + 1e-4 * float(want.abs().max()),
-                    f"reduced {name} prefill: card vs CPU max err {err}")
-            worst = max(worst, err / max(1.0, float(want.abs().max())))
+        worst = family_end_to_end(torch, cfg, params, B=3, S=S, n_decode=1)
         print(f"reduced {name} f32 prefill S={S} + 1 decode step: card "
-              f"(kernels) = CPU (plain versions) in logits and "
-              f"{len(out['cpu']) - 2} cache leaves, worst error / scale "
-              f"{worst:.3e}")
+              f"(kernels) = CPU (plain versions) in logits and every cache "
+              f"leaf, worst error / scale {worst:.3e}")
 
 
-def prefill_full(torch, ops, cfg, params, B, S, n_decode, kernel, launches):
-    """Prefill of B prompts of S random tokens, then ``n_decode`` greedy
-    decode steps from its cache.  The prefill must launch ``kernel``
-    ``launches`` times.  Returns those launches."""
+def rows(batch, n):
+    """The first n positions of a batch: every (B, S, ...) entry cut to n
+    rows; the vision embeddings kept where they fit."""
+    return {k: v for k, v in ((k, v if k == "vision_embeds" else v[:, :n])
+                              for k, v in batch.items())
+            if k != "vision_embeds" or v.shape[1] <= n}
+
+
+def add_counts(total, n):
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v
+
+
+def prefill_full(torch, ops, cfg, params, batch, n_decode, launches, tail=1,
+                 cos_min=0.99, label=None, profile_decode=False):
+    """Prefill of ``batch`` (B prompts of S positions), then ``n_decode``
+    greedy decode steps from its cache.  The prefill must launch each kernel
+    of ``launches`` that many times, each decode step every attention layer's
+    ``decode_attention``.  Then the consistency check: prefill of the first
+    S - ``tail`` positions and ``tail`` decode steps fed the prompt's last
+    tokens, against the whole prefill's last logits, cosine >= ``cos_min``
+    (None: printed, not checked; tail 0: no check).  Returns the launches of
+    the prefill and the decode steps, summed."""
     import torch.nn.functional as F
 
     from repro_torch.configs.base import layer_specs
     from repro_torch.models import model
 
+    label = label or cfg.name
+    B, S = next(iter(batch.values())).shape[:2]
     max_len = S + n_decode
-    toks = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
-                         device="cuda",
-                         generator=torch.Generator(device="cuda").manual_seed(8))
-    run = lambda t, n=max_len: model.prefill(  # noqa: E731
-        params, cfg, {"tokens": t}, max_len=n, device="cuda")
-    run(toks[:, :64])  # warm-up: cuBLAS and the kernels' first launches
+    run = lambda b, n=max_len: model.prefill(  # noqa: E731
+        params, cfg, b, max_len=n, device="cuda")
+    run(rows(batch, 64))  # warm-up: cuBLAS and the kernels' first launches
     torch.cuda.synchronize()
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = run(toks)
+    logits, cache = run(batch)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     n = ops.launch_counts()
-    require(n[kernel] == launches,
-            f"{kernel} launches {n[kernel]} in the {cfg.name} prefill, "
-            f"want {launches}")
+    for kernel, want in launches.items():
+        require(n[kernel] == want, f"{kernel} launches {n[kernel]} in the "
+                f"{label} prefill, want {want}")
     require(logits.shape == (B, cfg.vocab_size), f"logits {logits.shape}")
     require(bool(torch.isfinite(logits).all()),
-            f"{cfg.name} prefill: non-finite logits")
+            f"{label} prefill: non-finite logits")
     secs = [first_s]
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run(toks)
+        run(batch)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     med = sorted(secs)[1]
-    print(f"prefill {cfg.name} B={B} S={S}: median {med * 1e3:.3f} ms "
+    print(f"prefill {label} B={B} S={S}: median {med * 1e3:.3f} ms "
           f"(runs {', '.join(f'{x * 1e3:.3f}' for x in secs)} ms), "
           f"{B * S / med:.0f} tokens/s; launches {json.dumps(n)}")
+    total = dict(n)
 
     # decode from the prefill's cache
     n_attn = sum(spec.kind == "attn" for spec in layer_specs(cfg))
@@ -891,53 +1022,72 @@ def prefill_full(torch, ops, cfg, params, B, S, n_decode, kernel, launches):
         tok = torch.argmax(step, -1)[:, None].to(torch.int32)
     torch.cuda.synchronize()
     nd = ops.launch_counts()
-    require(nd["decode_attention"] == n_attn * n_decode,
-            f"decode_attention launches {nd['decode_attention']} after the "
-            f"prefill, want {n_attn} x {n_decode}")
-    require(bool(torch.isfinite(step).all()),
-            f"{cfg.name} decode after prefill: non-finite logits")
-    step_ms = sorted(a.elapsed_time(b) for a, b in ev[3:])
-    print(f"decode {cfg.name} B={B} from the prefill's cache, positions "
-          f"{S}..{S + n_decode - 1}: median {step_ms[len(step_ms) // 2]:.3f} "
-          f"ms a step; launches {json.dumps(nd)}")
+    add_counts(total, nd)
+    if n_decode:
+        require(nd["decode_attention"] == n_attn * n_decode,
+                f"decode_attention launches {nd['decode_attention']} after "
+                f"the prefill, want {n_attn} x {n_decode}")
+        require(bool(torch.isfinite(step).all()),
+                f"{label} decode after prefill: non-finite logits")
+        step_ms = sorted(a.elapsed_time(b) for a, b in ev[3:])
+        print(f"decode {label} B={B} from the prefill's cache, positions "
+              f"{S}..{S + n_decode - 1}: median "
+              f"{step_ms[len(step_ms) // 2]:.3f} ms a step; launches "
+              f"{json.dumps(nd)}")
+        if profile_decode:
+            profile(torch, f"decode step {label} B={B} at {S + n_decode}",
+                    lambda: model.decode_step(params, cfg, {"tokens": tok},
+                                              cache, S + n_decode - 1,
+                                              device="cuda"))
     del cache
 
-    # prefill(S) against prefill(S - 1) and one decode step
-    _, short = run(toks[:, :S - 1], S)
-    last, short = model.decode_step(params, cfg, {"tokens": toks[:, S - 1:]},
-                                    short, S - 1, device="cuda")
-    del short
-    cos = F.cosine_similarity(logits.float(), last.float(), dim=-1)
-    require(bool(torch.isfinite(last).all()) and float(cos.min()) >= 0.99,
-            f"{cfg.name}: prefill vs prefill + decode cosine "
-            f"{cos.tolist()} < 0.99")
-    print(f"consistency {cfg.name}: last logits of prefill(S={S}) vs "
-          f"prefill(S-1) + decode, cosine similarity min {float(cos.min()):.6f} "
-          f"(per prompt {', '.join(f'{c:.6f}' for c in cos.tolist())}); "
-          f"max abs diff {float((logits.float() - last.float()).abs().max()):.4f}")
-    profile(torch, f"prefill {cfg.name} B={B} S={S}", lambda: run(toks),
+    if tail:
+        # prefill(S - tail), then tail decode steps fed the prompt's tokens
+        _, short = run(rows(batch, S - tail), S)
+        for t in range(S - tail, S):
+            db = {k: v[:, t:t + 1] for k, v in batch.items()
+                  if k in ("tokens", "positions")}
+            last, short = model.decode_step(params, cfg, db, short, t,
+                                            device="cuda")
+        del short
+        cos = F.cosine_similarity(logits.float(), last.float(), dim=-1)
+        require(bool(torch.isfinite(last).all()),
+                f"{label}: non-finite logits after prefill + decode")
+        if cos_min is not None:
+            require(float(cos.min()) >= cos_min,
+                    f"{label}: prefill vs prefill + decode cosine "
+                    f"{cos.tolist()} < {cos_min}")
+        print(f"consistency {label}: last logits of prefill(S={S}) vs "
+              f"prefill(S-{tail}) + {tail} decode step"
+              f"{'s' if tail > 1 else ''}, cosine similarity min "
+              f"{float(cos.min()):.6f} (per prompt "
+              f"{', '.join(f'{c:.6f}' for c in cos.tolist())}"
+              + ("; not checked: capacity drops make prefill and decode "
+                 "different functions" if cos_min is None else "")
+              + f"); max abs diff "
+              f"{float((logits.float() - last.float()).abs().max()):.4f}")
+    profile(torch, f"prefill {label} B={B} S={S}", lambda: run(batch),
             n_steps=1)
-    return n[kernel]
+    return total
+
+
+def token_batch(torch, cfg, B, S, seed=8):
+    """B prompts of S random tokens on the card."""
+    return {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, S), dtype=torch.int32, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(seed))}
 
 
 def mamba_full(torch, ops):
     from repro_torch.configs.base import get_config
     from repro_torch.models.mamba import CHUNK
-    from repro_torch.models.params import count_params, init_params
 
     cfg = get_config("falcon-mamba-7b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    torch.cuda.synchronize()
-    print(f"falcon-mamba-7b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"d_inner {cfg.d_inner}, {count_params(params) / 1e9:.3f} B params "
-          f"in {cfg.param_dtype}, {torch.cuda.memory_allocated() / 1e9:.2f} "
-          f"GB on the card, init {time.perf_counter() - t0:.1f} s")
+    params = init_full(torch, cfg)
     residual_growth(torch, cfg, params)
     B, S = 4, 1024
-    return prefill_full(torch, ops, cfg, params, B, S, 32, "ssm_scan",
-                        cfg.n_layers * -(-S // CHUNK))
+    return prefill_full(torch, ops, cfg, params, token_batch(torch, cfg, B, S),
+                        32, {"ssm_scan": cfg.n_layers * -(-S // CHUNK)})
 
 
 def residual_growth(torch, cfg, params, B=1, S=256):
@@ -954,7 +1104,7 @@ def residual_growth(torch, cfg, params, B=1, S=256):
         x = params["embed"][toks].to(getattr(torch, cfg.dtype))
         peaks = []
         for spec, p, c in zip(layer_specs(cfg), params["layers"], cache):
-            x = blocks.apply_layer(cfg, spec, p, x, None, c)
+            x, _ = blocks.apply_layer(cfg, spec, p, x, None, c)
             peaks.append(float(x.float().abs().max()))
     bad = [i for i, v in enumerate(peaks) if not math.isfinite(v)]
     require(not bad, f"{cfg.name}: the residual overflows at layer "
@@ -1428,9 +1578,224 @@ def chaos(torch, ops, card):
           f"hand-written kernel launches {json.dumps(n)}")
 
 
+# -- phases 15 to 21 ------------------------------------------------------
+
+# (config, overrides) of phase 15: qwen3-moe at G = 16, its full config's
+FAMILIES = (("qwen2-moe-a2.7b", {}),
+            ("qwen3-moe-235b-a22b", {"n_heads": 16, "n_kv_heads": 1}),
+            ("jamba-v0.1-52b", {}), ("gemma3-27b", {}), ("qwen2-vl-7b", {}),
+            ("hubert-xlarge", {}))
+
+
+def family_layerwise(torch, cfg, params, B=2, S=32, n_decode=8):
+    """As ``family_end_to_end``, layer by layer: each layer on both devices
+    fed the CPU's input to it (no rope: jamba's).  Returns the worst error /
+    scale of any layer's output or cache leaf."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models import blocks, model
+
+    on = {"cpu": params, "cuda": to(params, "cuda")}
+    caches = {dev: model.init_cache(cfg, B, S + n_decode, device=dev)
+              for dev in on}
+    toks = torch.randint(0, cfg.vocab_size, (B, S + n_decode),
+                         dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    worst = 0.0
+    for start, n in [(0, S)] + [(p, 1) for p in range(S, S + n_decode)]:
+        x = params["embed"][toks[:, start:start + n]]
+        for i, spec in enumerate(layer_specs(cfg)):
+            ys = {}
+            for dev in on:
+                kv_len = torch.full((B,), start + n, dtype=torch.int32,
+                                    device=dev)
+                ys[dev], _ = blocks.apply_layer(
+                    cfg, spec, on[dev]["layers"][i], x.to(dev), None,
+                    caches[dev][i], None if start == 0 else start, kv_len)
+            what = f"{cfg.name} layer {i} ({spec.kind}/{spec.mlp}) at {start}"
+            worst = max(worst, close(ys["cuda"], ys["cpu"], what))
+            for leaf in caches["cpu"][i]:
+                worst = max(worst, close(caches["cuda"][i][leaf],
+                                         caches["cpu"][i][leaf],
+                                         f"{what}: {leaf}"))
+            x = ys["cpu"]
+    return worst
+
+
+def check_families_small(torch):
+    """Phase 15: the reduced configs of the six families in f32, card
+    (kernels) against CPU (plain versions).  Jamba layer by layer: under
+    the reference's init its reduced residual reaches ~1e11 and its logits
+    move by ~1e-3 when its input moves by 1e-7 (tests/test_torch_families.py),
+    so one-ulp differences between cuBLAS and the CPU's products are not
+    held end to end."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models.params import init_params
+
+    for name, overrides in FAMILIES:
+        cfg = reduced(get_config(name), **overrides)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        layerwise = name.startswith("jamba")
+        worst = (family_layerwise if layerwise else family_end_to_end)(
+            torch, cfg, params)
+        what = ("layer by layer, prefill S=32 + 8 decode steps"
+                if layerwise else "prefill S=32" if cfg.encoder_only else
+                "prefill S=32 + 8 decode steps, logits and cache leaves")
+        print(f"reduced {cfg.name} {json.dumps(overrides)} f32, {what}: card "
+              f"(kernels) = CPU (plain versions), worst error / scale "
+              f"{worst:.3e}")
+
+
+@contextlib.contextmanager
+def moe_drops(shares):
+    """Append the share of (token, k) pairs each ``moe`` call drops at
+    capacity to ``shares`` while the block runs."""
+    from repro_torch.models import moe
+
+    orig = moe.moe
+
+    def counted(params, x, cfg, *args, **kwargs):
+        keep = moe.route(params, x, cfg, *args, **kwargs)[5]
+        shares.append(1.0 - float(keep.mean()))
+        return orig(params, x, cfg, *args, **kwargs)
+
+    moe.moe = counted
+    try:
+        yield shares
+    finally:
+        moe.moe = orig
+
+
+def serve_moe(torch, ops, serve):
+    """Phase 16: qwen2-moe-a2.7b at full width and depth, served through
+    ``Engine.attach_model`` with the LAGS credit tick, then prefill."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    cfg = get_config("qwen2-moe-a2.7b")
+    params = init_full(torch, cfg)
+    n_tenants, duration, max_len = 1024, 4.5, 256
+    tenants, arrivals = serve.build_workload(n_tenants, duration, seed=0)
+    eng = Engine(EngineConfig(n_slots=16), tenants, device="cuda")
+    eng.attach_model(cfg, params, max_len=max_len)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = eng.run(duration, arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launch_counts()
+    busy = st.steps - st.idle_steps
+    steps = eng._cache_len
+    require(steps == min(busy, max_len - 1) > 0,
+            f"{steps} decode steps, want min({busy}, {max_len - 1})")
+    require(n["decode_attention"] == cfg.n_layers * steps,
+            f"decode_attention launches {n['decode_attention']} != "
+            f"{cfg.n_layers} x {steps}")
+    require(n["lags_select"] == busy,
+            f"lags_select launches {n['lags_select']} != busy steps {busy}")
+    tenants_c, arrivals_c = serve.build_workload(n_tenants, duration, seed=0)
+    st_c = Engine(EngineConfig(n_slots=16), tenants_c, device="cpu").run(
+        duration, arrivals_c)
+    require(summary(st) == summary(st_c), "the card's schedule differs from "
+            "the CPU engine's on the same workload")
+    logits, _ = model.decode_step(params, cfg, {"tokens": eng._tokens},
+                                  eng._cache, steps, device="cuda")
+    require(bool(torch.isfinite(logits).all()), "non-finite logits")
+    del eng
+    print(f"engine qwen2-moe-a2.7b: tenants={n_tenants} slots=16 "
+          f"steps={st.steps} busy_steps={busy} decode_steps={steps} "
+          f"completed={len(st.completed)}/{len(arrivals)} "
+          f"membership_changes={st.membership_changes} wall={wall:.2f} s, "
+          f"{wall / busy * 1e3:.6g} ms a busy step; the CPU engine's "
+          f"schedule is the same; launches={json.dumps(n)}")
+
+    batch = token_batch(torch, cfg, 4, 2048)
+    shares = []
+    with moe_drops(shares):
+        model.prefill(params, cfg, batch, device="cuda")
+    print(f"qwen2-moe-a2.7b prefill B=4 S=2048: (token, k) pairs dropped at "
+          f"capacity {100 * sum(shares) / len(shares):.3f}% over the "
+          f"{len(shares)} MoE layers (per layer {min(shares) * 100:.3f}% to "
+          f"{max(shares) * 100:.3f}%)")
+    total = dict(n)
+    add_counts(total, prefill_full(
+        torch, ops, cfg, params, batch, 32, {"flash_attention": cfg.n_layers},
+        tail=64, cos_min=None, profile_decode=True))
+    return total
+
+
+def reduced_depth(torch, ops, name, n_layers, B=2, S=2048, n_decode=32):
+    """Phases 17-18: a config at full width with its first ``n_layers``
+    layers: prefill, then ``n_decode`` decode steps; launch counts and
+    finite logits."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, layer_specs
+    from repro_torch.models.mamba import CHUNK
+
+    full = get_config(name)
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    note = f" ({n_layers} of {full.n_layers} layers)"
+    params = init_full(torch, cfg, note)
+    specs = layer_specs(cfg)
+    launches = {"flash_attention": sum(s.kind == "attn" for s in specs),
+                "ssm_scan": sum(s.kind == "mamba" for s in specs)
+                * -(-S // CHUNK)}
+    total = prefill_full(torch, ops, cfg, params,
+                         token_batch(torch, cfg, B, S), n_decode, launches,
+                         tail=0, label=cfg.name + note)
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def families_full(torch, ops, counts):
+    """Phases 19-21: gemma3-27b, qwen2-vl-7b and hubert-xlarge at full width
+    and depth."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config("gemma3-27b")
+    t0 = time.perf_counter()
+    params = init_full(torch, cfg)
+    # past the window of 1024 in prefill and in every decode step
+    add_counts(counts, prefill_full(
+        torch, ops, cfg, params, token_batch(torch, cfg, 2, 1536), 64,
+        {"flash_attention": cfg.n_layers}))
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 19 gemma3-27b: {time.perf_counter() - t0:.1f} s wall")
+
+    cfg = get_config("qwen2-vl-7b")
+    t0 = time.perf_counter()
+    params = init_full(torch, cfg)
+    add_counts(counts, prefill_full(
+        torch, ops, cfg, params, family_batch(torch, cfg, 4, 2048, "cuda"),
+        32, {"flash_attention": cfg.n_layers}))
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 20 qwen2-vl-7b: {time.perf_counter() - t0:.1f} s wall")
+
+    cfg = get_config("hubert-xlarge")
+    t0 = time.perf_counter()
+    params = init_full(torch, cfg)
+    route = fa.route(torch.bfloat16, cfg.head_dim)
+    require(route == "fa_mma", f"hubert's D=80 takes {route}, not fa_mma")
+    add_counts(counts, prefill_full(
+        torch, ops, cfg, params, family_batch(torch, cfg, 4, 2048, "cuda"),
+        0, {"flash_attention": cfg.n_layers}, tail=0,
+        label=f"{cfg.name} (encoder-only, {route})"))
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 21 hubert-xlarge: {time.perf_counter() - t0:.1f} s wall")
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1494,6 +1859,7 @@ def main():
     t65536_k1024 = time_lags(torch, lags, timer, T=65536, k=1024)
     times["decode_attention"] = time_decode(torch, dec, timer)
     d4096 = time_decode(torch, dec, timer, L=4096)
+    d_g16 = time_decode(torch, dec, timer, B=4, H=64, Hkv=4, L=2112)
     times["flash_attention"] = time_flash(torch, fa, timer, **QWEN_PREFILL)
     times["ssm_scan"] = time_ssm(torch, ssm, timer, **MAMBA_CHUNK)
     del timer
@@ -1505,6 +1871,8 @@ def main():
                      times["decode_attention"]),
                     ("decode_attention bf16 B=16 H=32 Hkv=8 L=4096 kv=4089",
                      d4096),
+                    ("decode_attention bf16 G=16 B=4 H=64 Hkv=4 L=2112 "
+                     "kv=2105", d_g16),
                     ("flash_attention bf16 causal B=4 H=32 Hkv=8 S=2048 D=128",
                      times["flash_attention"]),
                     ("ssm_scan f32 B=4 S=256 I=8192 N=16",
@@ -1518,28 +1886,54 @@ def main():
             for k, v in t.items()) + f" x_bound={t['ms'] / t['bound_ms']:.3f}"
             + ratio + floor + f" [{card}]")
 
+    # each kernel's launches, summed over every path the script drives
+    # (each path counted from 0 just before it runs)
+    counts = {}
+
     # phase 6: the serving entry point on the cost model
-    serve_cost_model(torch, ops, serve, t4096["ms"])
+    add_counts(counts, serve_cost_model(torch, ops, serve, t4096["ms"]))
 
     # phase 7: the main path at full width
     check_model_small(torch)
-    counts, qwen = serve_qwen3_8b(torch, ops, serve,
-                                  times["lags_select"]["ms"])
+    n, qwen = serve_qwen3_8b(torch, ops, serve, times["lags_select"]["ms"])
+    add_counts(counts, n)
 
     # phases 8-10: prefill, reduced on card and CPU, then at full size
     check_prefill_small(torch)
-    counts["flash_attention"] = prefill_full(
-        torch, ops, get_config("qwen3-8b"), qwen, B=4, S=2048, n_decode=64,
-        kernel="flash_attention", launches=36)
+    cfg = get_config("qwen3-8b")
+    add_counts(counts, prefill_full(
+        torch, ops, cfg, qwen, token_batch(torch, cfg, 4, 2048), 64,
+        {"flash_attention": 36}))
     del qwen  # 16 GB: falcon-mamba's weights take its place
     torch.cuda.empty_cache()
-    counts["ssm_scan"] = mamba_full(torch, ops)
+    add_counts(counts, mamba_full(torch, ops))
 
     # phases 11-13: the tick simulator and the batched fleet
     simulators(torch, ops, card)
 
     # phase 14: the chaos layer on the batched fleet
     chaos(torch, ops, card)
+
+    # phase 15: the reduced families, card against CPU
+    t0 = time.perf_counter()
+    check_families_small(torch)
+    print(f"phase 15 reduced families: {time.perf_counter() - t0:.1f} s wall")
+
+    # phase 16: qwen2-moe-a2.7b served and prefilled at full size
+    t0 = time.perf_counter()
+    add_counts(counts, serve_moe(torch, ops, serve))
+    torch.cuda.empty_cache()
+    print(f"phase 16 qwen2-moe-a2.7b: {time.perf_counter() - t0:.1f} s wall")
+
+    # phases 17-18: full width, the first 8 layers
+    for phase, name in ((17, "jamba-v0.1-52b"), (18, "qwen3-moe-235b-a22b")):
+        t0 = time.perf_counter()
+        add_counts(counts, reduced_depth(torch, ops, name, 8))
+        print(f"phase {phase} {name} (8 of {get_config(name).n_layers} "
+              f"layers): {time.perf_counter() - t0:.1f} s wall")
+
+    # phases 19-21: gemma3, qwen2-vl and hubert at full size
+    families_full(torch, ops, counts)
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",
@@ -1552,8 +1946,11 @@ def main():
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:61",
              launches=counts["decode_attention"],
-             max_abs_err=dec_err[("bfloat16", 16, 32, 8, 512, 128)],
-             **times["decode_attention"]),
+             max_abs_err=dec_err[("bfloat16", 16, 32, 8, 512, 128, 0)],
+             **times["decode_attention"],
+             g16=dict(shape="B=4 H=64 Hkv=4 L=2112 D=128 kv_len=2105 bf16",
+                      max_abs_err=dec_err[("bfloat16", 4, 64, 4, 2112, 128,
+                                           0)], **d_g16)),
         dict(name="flash_attention", route="cuda",
              kernel=fa.route(torch.bfloat16, QWEN_PREFILL["D"]),
              source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -1568,6 +1965,7 @@ def main():
              max_abs_err=ssm_err[tuple(MAMBA_CHUNK.values())],
              **times["ssm_scan"]),
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall [{card}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

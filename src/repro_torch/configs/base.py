@@ -193,13 +193,17 @@ def list_configs():
     return sorted(_REGISTRY)
 
 
-# only the configs whose layers the port runs are listed; the reference
-# registers ten
 _CONFIG_MODULES = [
+    "jamba_v0_1_52b",
     "qwen3_8b",
     "stablelm_1_6b",
     "mistral_nemo_12b",
+    "gemma3_27b",
+    "qwen2_moe_a2_7b",
+    "qwen3_moe_235b_a22b",
+    "qwen2_vl_7b",
     "falcon_mamba_7b",
+    "hubert_xlarge",
 ]
 
 

@@ -7,6 +7,9 @@
 // in its (B, L, Hkv, D) cache as a permuted view, nothing is copied);
 // kv_len (B,) int32; out (B, H, D) contiguous, in q's dtype.  Query head h
 // reads KV head h / G with G = H / Hkv; G = 1 is the TPU kernel's function.
+// G may be up to 16 (qwen3-moe's 64 heads over 4): each kernel is built for
+// a group bound GB of 8 and of 16, and the launch takes the smaller that
+// holds G, so a group of 8 or fewer keeps the GB = 8 code and registers.
 // Scores, softmax and the P.V sum are f32; the output is cast at the end.
 //
 // What bounds it on this card: bytes.  Each valid cache row is read once
@@ -53,7 +56,7 @@ namespace {
 constexpr int NW = 4;      // warps a block
 constexpr int NS = 4;      // stages of each warp's ring in dec_split
 constexpr int NRG = 4;     // rows a lane group takes from each tile in dec_split
-constexpr int MAX_G = 8;   // query heads per KV head
+constexpr int MAX_G = 16;  // query heads per KV head: the larger group bound
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -96,20 +99,20 @@ template <int LPR, int CPL> struct Cfg {
 };
 
 // a block's shared memory: the ring, or more where the merges need it (the
-// warps' partials, the splits' weights)
-size_t merge_smem(size_t ring, int D, int n_split) {
-  const size_t warps = sizeof(float) * (2 * NW * MAX_G + NW * MAX_G * (size_t)D);
-  const size_t splits = sizeof(float) * (MAX_G * (size_t)n_split + MAX_G);
+// warps' partials, the splits' weights), for GB heads a row
+size_t merge_smem(size_t ring, int D, int n_split, int GB) {
+  const size_t warps = sizeof(float) * (2 * NW * GB + NW * GB * (size_t)D);
+  const size_t splits = sizeof(float) * (GB * (size_t)n_split + GB);
   return ring > warps ? (ring > splits ? ring : splits) : (warps > splits ? warps : splits);
 }
 
 // The end of a block, shared by both kernels.  Each warp has left its
 // partial in shared memory: m (log2 units) at wm[w][g], l at wm[NW + w][g],
-// acc at wm[2 NW][w][g][d], with MAX_G heads a row.  ``rows`` says whether
+// acc at wm[2 NW][w][g][d], with GB heads a row.  ``rows`` says whether
 // the block's split held a valid row.  The warps merge; with one split the
 // block writes the output, otherwise its split's (m, l, acc), and the last
 // block of (b, hk) to finish merges every split and resets its counter.
-template <typename T, int D>
+template <typename T, int D, int GB>
 __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
                                        float* m_part, float* l_part,
                                        float* acc_part, unsigned* counters,
@@ -120,19 +123,19 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
   float* wm = reinterpret_cast<float*>(smem);
   if (rows) {
     __syncthreads();
-    const float* wl = wm + NW * MAX_G;
-    const float* wacc = wm + 2 * NW * MAX_G;
+    const float* wl = wm + NW * GB;
+    const float* wacc = wm + 2 * NW * GB;
     for (int i = threadIdx.x; i < G * D; i += NW * 32) {
       const int g = i / D, d = i - g * D;
       float mm = wm[g];
 #pragma unroll
-      for (int w = 1; w < NW; ++w) mm = fmaxf(mm, wm[w * MAX_G + g]);
+      for (int w = 1; w < NW; ++w) mm = fmaxf(mm, wm[w * GB + g]);
       float den = 0.f, num = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        const float f = exp2f(wm[w * MAX_G + g] - mm);
-        den += f * wl[w * MAX_G + g];
-        num += f * wacc[(w * MAX_G + g) * D + d];
+        const float f = exp2f(wm[w * GB + g] - mm);
+        den += f * wl[w * GB + g];
+        num += f * wacc[(w * GB + g) * D + d];
       }
       const long long bh = head0 + g;
       if (n_split == 1) {
@@ -160,8 +163,8 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  float* wsm = wm;                       // [MAX_G][n_split] weights
-  float* den = wsm + MAX_G * n_split;    // [MAX_G]
+  float* wsm = wm;                 // [GB][n_split] weights
+  float* den = wsm + GB * n_split;  // [GB]
   for (int g = warp; g < G; g += NW) {
     const long long base = (head0 + g) * n_split;
     float mm = -CUDART_INF_F;
@@ -194,7 +197,7 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
   if (threadIdx.x == 0) *counter = 0u;  // ready for the next launch
 }
 
-template <int LPR, int CPL>
+template <int LPR, int CPL, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_split(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const int* __restrict__ kv_len,
@@ -217,18 +220,18 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
   auto col = [&](int c) { return (sub + c * LPR) * EPC; };  // chunk c's first column
 
   if (n > 0) {
-    float qv[MAX_G][E];
+    float qv[GB][E];
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
+    for (int g = 0; g < GB; ++g)
 #pragma unroll
       for (int c = 0; c < CPL; ++c)
 #pragma unroll
         for (int e = 0; e < EPC; ++e)
           qv[g][c * EPC + e] =
               g < G ? q[b * qsb + (hk * G + g) * qsh + col(c) + e] : 0.f;
-    float m[MAX_G], l[MAX_G], acc[MAX_G][E];  // (m, l) in log2 units
+    float m[GB], l[GB], acc[GB][E];  // (m, l) in log2 units
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
+    for (int g = 0; g < GB; ++g) {
       m[g] = NEG_INF;
       l[g] = 0.f;
 #pragma unroll
@@ -269,7 +272,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_commit();
       cp_async_wait<NS - 1>();  // tile i has landed
       const int r0 = (warp + i * NW) * C::TR + grp;
-      float s[NRG][MAX_G];
+      float s[NRG][GB];
 #pragma unroll
       for (int j = 0; j < NRG; ++j) {
         float kf[E];
@@ -283,7 +286,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
         }
         const bool ok = r0 + j * C::RPW < n;
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
+        for (int g = 0; g < GB; ++g) {
           if (g >= G) break;
           float x = 0.f;
 #pragma unroll
@@ -295,7 +298,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g >= G) break;
         float mt = s[0][g];
 #pragma unroll
@@ -325,7 +328,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
           unpack(u, vf + c * EPC);
         }
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
+        for (int g = 0; g < GB; ++g) {
           if (g >= G) break;
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[g][e] += s[j][g] * vf[e];
@@ -338,7 +341,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g >= G) break;
         const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
         const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
@@ -357,23 +360,23 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
     float* wm = reinterpret_cast<float*>(smem);
     if (grp == 0) {
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
+      for (int g = 0; g < GB; ++g) {
         if (g >= G) break;
         if (sub == 0) {
-          wm[warp * MAX_G + g] = m[g];
-          wm[(NW + warp) * MAX_G + g] = l[g];
+          wm[warp * GB + g] = m[g];
+          wm[(NW + warp) * GB + g] = l[g];
         }
 #pragma unroll
         for (int c = 0; c < CPL; ++c)
 #pragma unroll
           for (int e = 0; e < EPC; ++e)
-            wm[2 * NW * MAX_G + (warp * MAX_G + g) * D + col(c) + e] =
+            wm[2 * NW * GB + (warp * GB + g) * D + col(c) + e] =
                 acc[g][c * EPC + e];
       }
     }
   }
-  finish<float, D>(smem, n > 0, out, m_part, l_part, acc_part, counters, G,
-                   n_split, split, head0, b, hk);
+  finish<float, D, GB>(smem, n > 0, out, m_part, l_part, acc_part, counters,
+                       G, n_split, split, head0, b, hk);
 }
 
 
@@ -387,7 +390,10 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
 // row g + 8, so one mma sums both and p keeps about 16 bits, as the plain
 // version's f32 p.  V's B fragments come by ldmatrix.trans.  K and V tile
 // rows are padded by 16 bytes, so ldmatrix's 8-row reads fall in distinct
-// banks.
+// banks.  That is the GB = 8 build.  With GB = 16, heads g and g + 8 fill
+// all 16 rows (rows G..15 zero): the lanes of quad g keep the softmax of
+// both rows, and O += P V takes two mma, one of the hi parts of p and one of
+// the lo parts.
 constexpr int TK = 16;  // cache rows of a tile in the mma kernel
 
 template <int D> struct MmaCfg {
@@ -416,7 +422,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+template <int D, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
@@ -428,6 +434,7 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
         long long vsl, float scale_log2) {
   using C = MmaCfg<D>;
   constexpr int KS = D / 16, ND = D / 8;
+  constexpr int R = GB / 8;  // query rows a quad holds: g, and g + 8 at GB = 16
   extern __shared__ __align__(16) uint8_t smem[];
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -438,25 +445,37 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
   const long long head0 = (long long)b * H + (long long)hk * G;
 
   if (n > 0) {
-    // row g of Q as A fragments (a1 = a3 = 0: rows 8..15)
-    uint32_t qa[KS][2];
-    {
+    // rows g and g + 8 of Q as A fragments: qa[ks][r][h] is row g + 8 r,
+    // columns ks * 16 + h * 8 + 2 t (+1); at GB = 8 rows 8..15 are zero
+    uint32_t qa[KS][2][2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int hq = g + 8 * r;  // the query head of this row
       const unsigned short* qr = reinterpret_cast<const unsigned short*>(q) +
-                                 b * qsb + (hk * G + min(g, G - 1)) * qsh;
+                                 b * qsb + (hk * G + min(hq, G - 1)) * qsh;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int c = ks * 16 + h * 8 + 2 * t;
-          qa[ks][h] = g < G ? (uint32_t)qr[c] | ((uint32_t)qr[c + 1] << 16) : 0u;
+          qa[ks][r][h] = r < R && hq < G
+                             ? (uint32_t)qr[c] | ((uint32_t)qr[c + 1] << 16)
+                             : 0u;
         }
     }
-    float o[ND][4];  // rows g (p's hi part) and g + 8 (its lo part)
+    // GB = 8: rows g (p's hi part) and g + 8 (its lo part), both head g;
+    // GB = 16: row g (head g) and row g + 8 (head g + 8)
+    float o[ND][4];
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
-    float m = NEG_INF, l = 0.f;  // row g, log2 units
+    float m[R], l[R];  // rows g and g + 8, log2 units
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.f;
+    }
 
     const __nv_bfloat16* kb = k + b * ksb + hk * ksh + (long long)start * ksl;
     const __nv_bfloat16* vb = v + b * vsb + hk * vsh + (long long)start * vsl;
@@ -498,48 +517,56 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
         asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                      : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
                      : "r"(addr));
-        mma_bf16(s[0], qa[ks][0], 0u, qa[ks][1], 0u, b0, b1);
-        mma_bf16(s[1], qa[ks][0], 0u, qa[ks][1], 0u, b2, b3);
+        mma_bf16(s[0], qa[ks][0][0], qa[ks][1][0], qa[ks][0][1], qa[ks][1][1], b0, b1);
+        mma_bf16(s[1], qa[ks][0][0], qa[ks][1][0], qa[ks][0][1], qa[ks][1][1], b2, b3);
       }
-      // s[nt][e], e < 2: row g, key r0 + nt * 8 + 2 t + e
-      float mx = NEG_INF;
+      // s[nt][2 r + e]: row g + 8 r, key r0 + nt * 8 + 2 t + e
+      float corr[R];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int r = 0; r < R; ++r) {
+        float mx = NEG_INF;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][e];
-          x = r0 + nt * 8 + 2 * t + e < n ? x * scale_log2 : -CUDART_INF_F;
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m, mx);  // >= NEG_INF: never -inf
-      const float corr = exp2f(m - m_new);
-      float ps = 0.f;
+        for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[nt][2 * r + e];
+            x = r0 + nt * 8 + 2 * t + e < n ? x * scale_log2 : -CUDART_INF_F;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);  // >= NEG_INF: never -inf
+        corr[r] = exp2f(m[r] - m_new);
+        float ps = 0.f;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          s[nt][e] = exp2f(s[nt][e] - m_new);  // 0 where masked
-          ps += s[nt][e];
-        }
-      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
-      l = l * corr + ps;
-      m = m_new;
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = s[nt][2 * r + e];
+            x = exp2f(x - m_new);  // 0 where masked
+            ps += x;
+          }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+        l[r] = l[r] * corr[r] + ps;
+        m[r] = m_new;
+      }
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[nd][e] *= corr;
+        for (int e = 0; e < 4; ++e) o[nd][e] *= corr[R == 2 ? e >> 1 : 0];
 
-      // P as the A fragment: hi in row g, lo in row g + 8
-      uint32_t ph[2], pl[2];
+      // p of row g + 8 r as hi = bf16(p) and lo = bf16(p - hi)
+      uint32_t ph[2][2], pl[2][2];  // [r][nt]
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        ph[nt] = pack_bf16(s[nt][0], s[nt][1]);
-        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&ph[nt]);
-        pl[nt] = pack_bf16(s[nt][0] - __low2float(hv), s[nt][1] - __high2float(hv));
-      }
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const float p0 = s[nt][2 * r], p1 = s[nt][2 * r + 1];
+          ph[r][nt] = pack_bf16(p0, p1);
+          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&ph[r][nt]);
+          pl[r][nt] = pack_bf16(p0 - __low2float(hv), p1 - __high2float(hv));
+        }
 #pragma unroll
       for (int nd = 0; nd < ND; nd += 2) {
         const int j = lane >> 3, r = lane & 7;
@@ -548,8 +575,15 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
         asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                      : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
                      : "r"(addr));
-        mma_bf16(o[nd], ph[0], pl[0], ph[1], pl[1], b0, b1);
-        mma_bf16(o[nd + 1], ph[0], pl[0], ph[1], pl[1], b2, b3);
+        if (R == 1) {  // hi in row g, lo in row g + 8
+          mma_bf16(o[nd], ph[0][0], pl[0][0], ph[0][1], pl[0][1], b0, b1);
+          mma_bf16(o[nd + 1], ph[0][0], pl[0][0], ph[0][1], pl[0][1], b2, b3);
+        } else {  // rows g and g + 8: the hi parts, then the lo parts
+          mma_bf16(o[nd], ph[0][0], ph[1][0], ph[0][1], ph[1][1], b0, b1);
+          mma_bf16(o[nd + 1], ph[0][0], ph[1][0], ph[0][1], ph[1][1], b2, b3);
+          mma_bf16(o[nd], pl[0][0], pl[1][0], pl[0][1], pl[1][1], b0, b1);
+          mma_bf16(o[nd + 1], pl[0][0], pl[1][0], pl[0][1], pl[1][1], b2, b3);
+        }
       }
       __syncwarp();  // every lane is done with the stage before it is refilled
     }
@@ -558,35 +592,38 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
     // the warp's partial to shared memory, free once every ring is drained
     __syncthreads();
     float* wm = reinterpret_cast<float*>(smem);
-    if (g < G) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int hq = g + 8 * r;
+      if (hq >= G) continue;
       if (t == 0) {
-        wm[warp * MAX_G + g] = m;
-        wm[(NW + warp) * MAX_G + g] = l;
+        wm[warp * GB + hq] = m[r];
+        wm[(NW + warp) * GB + hq] = l[r];
       }
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          wm[2 * NW * MAX_G + (warp * MAX_G + g) * D + nd * 8 + 2 * t + e] =
-              o[nd][e] + o[nd][e + 2];
+          wm[2 * NW * GB + (warp * GB + hq) * D + nd * 8 + 2 * t + e] =
+              R == 1 ? o[nd][e] + o[nd][e + 2] : o[nd][2 * r + e];
     }
   }
-  finish<__nv_bfloat16, D>(smem, n > 0, out, m_part, l_part, acc_part, counters,
-                           G, n_split, split, head0, b, hk);
+  finish<__nv_bfloat16, D, GB>(smem, n > 0, out, m_part, l_part, acc_part,
+                               counters, G, n_split, split, head0, b, hk);
 }
 
-template <int D>
+template <int D, int GB>
 int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
                void* out, float* m_part, float* l_part, float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
                int n_split, long long qsb, long long qsh, long long ksb,
                long long ksh, long long ksl, long long vsb, long long vsh,
                long long vsl, float scale, cudaStream_t st) {
-  const size_t smem = merge_smem(MmaCfg<D>::SMEM, D, n_split);
+  const size_t smem = merge_smem(MmaCfg<D>::SMEM, D, n_split, GB);
   cudaError_t err = cudaFuncSetAttribute(
-      dec_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dec_mma<D, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dec_mma<D><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
+  dec_mma<D, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_len, static_cast<__nv_bfloat16*>(out),
       m_part, l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb,
@@ -594,7 +631,7 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int LPR, int CPL>
+template <int LPR, int CPL, int GB>
 int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
                void* out, float* m_part, float* l_part, float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
@@ -602,11 +639,12 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
                long long ksh, long long ksl, long long vsb, long long vsh,
                long long vsl, float scale, cudaStream_t st) {
   using C = Cfg<LPR, CPL>;
-  const size_t smem = merge_smem(C::SMEM, C::D, n_split);
+  const size_t smem = merge_smem(C::SMEM, C::D, n_split, GB);
   cudaError_t err = cudaFuncSetAttribute(
-      dec_split<LPR, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dec_split<LPR, CPL, GB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dec_split<LPR, CPL><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
+  dec_split<LPR, CPL, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), kv_len, static_cast<float*>(out), m_part,
       l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb, ksh,
@@ -638,8 +676,10 @@ extern "C" int decode_attention_smem(int dtype, int D) {
 }
 
 // dtype: 0 = float32 (dec_split), 1 = bfloat16 (dec_mma); D one of the head
-// dims above; k and v 16-byte aligned with strides in multiples of 16 bytes,
-// which the caller checks.  counters: B * Hkv zeros, left zero.
+// dims above; G = H / Hkv at most MAX_G, built for the group bound 8 where
+// it holds G and 16 otherwise; k and v 16-byte aligned with strides in
+// multiples of 16 bytes, which the caller checks.  counters: B * Hkv zeros,
+// left zero.
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const int* kv_len,
     void* out, float* m_part, float* l_part, float* acc_part, unsigned* counters,
@@ -647,19 +687,31 @@ extern "C" int decode_attention_launch(
     long long qsh, long long ksb, long long ksh, long long ksl, long long vsb,
     long long vsh, long long vsl, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (G < 1 || G > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
+#define F32_GB(DD, LPR, CPL, GB)                                                \
+  return launch_f32<LPR, CPL, GB>(q, k, v, kv_len, out, m_part, l_part,         \
+                                  acc_part, counters, B, H, G, L, chunk,        \
+                                  n_split, qsb, qsh, ksb, ksh, ksl, vsb, vsh,   \
+                                  vsl, scale, st);
 #define F32_CASE(DD, LPR, CPL)                                                  \
-  if (dtype == 0 && D == DD)                                                    \
-    return launch_f32<LPR, CPL>(q, k, v, kv_len, out, m_part, l_part, acc_part, \
-                                counters, B, H, G, L, chunk, n_split, qsb, qsh, \
-                                ksb, ksh, ksl, vsb, vsh, vsl, scale, st);
+  if (dtype == 0 && D == DD) {                                                  \
+    if (G <= 8) F32_GB(DD, LPR, CPL, 8)                                         \
+    F32_GB(DD, LPR, CPL, 16)                                                    \
+  }
+#define BF16_GB(DD, GB)                                                         \
+  return launch_mma<DD, GB>(q, k, v, kv_len, out, m_part, l_part, acc_part,     \
+                            counters, B, H, G, L, chunk, n_split, qsb, qsh,     \
+                            ksb, ksh, ksl, vsb, vsh, vsl, scale, st);
 #define BF16_CASE(DD)                                                           \
-  if (dtype == 1 && D == DD)                                                    \
-    return launch_mma<DD>(q, k, v, kv_len, out, m_part, l_part, acc_part,       \
-                          counters, B, H, G, L, chunk, n_split, qsb, qsh, ksb,  \
-                          ksh, ksl, vsb, vsh, vsl, scale, st);
+  if (dtype == 1 && D == DD) {                                                  \
+    if (G <= 8) BF16_GB(DD, 8)                                                  \
+    BF16_GB(DD, 16)                                                             \
+  }
   DEC_F32(F32_CASE)
   DEC_BF16(BF16_CASE)
+#undef F32_GB
 #undef F32_CASE
+#undef BF16_GB
 #undef BF16_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,9 +8,10 @@ is no fallback from one to the other.
 
 The signature keeps the TPU kernel's, q (B, H, D), k/v (B, Hkv, L, D),
 kv_len (B,), and adds grouped-query attention: query head h reads KV head
-h // G with G = H // Hkv (G = 1 is the TPU kernel's function).  k and v may
-be strided views, so the model hands in its (B, L, Hkv, D) cache permuted
-and copies nothing.  Scores, softmax and the P.V sum are f32; the output is
+h // G with G = H // Hkv up to 16 (G = 1 is the TPU kernel's function; the
+kernel is built for groups of up to 8 and of up to 16).  k and v may be
+strided views, so the model hands in its (B, L, Hkv, D) cache permuted, or
+a window's view of it that starts at a later row, and copies nothing.  Scores, softmax and the P.V sum are f32; the output is
 cast to q's dtype.  The TPU kernel's 8-row query padding is TPU layout and is
 not carried over.
 

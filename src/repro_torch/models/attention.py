@@ -1,8 +1,9 @@
 """GQA attention: prefill over a prompt, and decode against the KV cache.
 
 Port of ``repro.models.attention.multihead_attention``.  Both paths compute
-the q/k/v projections, qk-norm and NeoX rope, and write k, v into the cache
-in the reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
+the q/k/v projections, qk-norm and NeoX rope (M-RoPE's sections are in the
+cos/sin the model hands in), and write k, v into the cache in the
+reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
 
 * Prefill (``prefill_attention``) starts at cache_len 0: it writes the S new
   keys and values at ``[:, :S]`` and attends with the CUDA
@@ -11,14 +12,18 @@ in the reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
   window.  The reference attends over the whole zeroed cache masked at
   kv_len = S with keys repeated G times; that is the same function.  The
   kernel reads the (B, S, Hkv, D) projections through strides, query head h
-  reading KV head h // G: no repeat, no copy.
+  reading KV head h // G: no repeat, no copy.  The encoder-only forward has
+  no cache (``cache`` None) and writes none.
 * Decode (``decode_attention``, S = 1) writes at ``cache_len`` and runs the
   CUDA ``decode_attention`` kernel over the cache, read through a permuted
-  (B, Hkv, L, D) view.
+  (B, Hkv, L, D) view.  A windowed layer keeps the keys at positions
+  > cache_len - window (reference attention.py:57-58): every row of the
+  batch shares cache_len, so they are the cache's rows r0..cache_len with
+  r0 = max(0, cache_len + 1 - window), and the kernel reads a view that
+  starts at row r0, with kv_len cut by r0.  Nothing is copied.
 
 The reference casts p to the value dtype before P.V; the flash kernel does
-the same, the decode kernel keeps p in f32.  Decode with a window raises:
-the TPU decode kernel has none.  M-RoPE comes with a later slice.
+the same, the decode kernel keeps p in f32.
 """
 from __future__ import annotations
 
@@ -50,14 +55,15 @@ def _out(params: dict, out, x):
         H * D, x.shape[-1])
 
 
-def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
+def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
                       window=None):
     """x: (B, S, M); rope: (cos, sin) of (B, S, D/2) or None.  Writes k, v
-    into ``cache`` at [:, :S] and returns y (B, S, M)."""
+    into ``cache`` at [:, :S] (unless it is None) and returns y (B, S, M)."""
     S = x.shape[1]
     q, k, v = _qkv(params, x, cfg, rope)
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    if cache is not None:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
     out = ops.flash_attention(
         q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
         causal=cfg.causal, window=window or 0)  # (B, H, S, D)
@@ -69,16 +75,15 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     """x: (B, 1, M); rope: (cos, sin) of (B, 1, D/2) or None; kv_len: (B,)
     int32 = cache_len + 1.  Writes the new k, v into ``cache`` at
     ``cache_len`` and returns y (B, 1, M)."""
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window decode is not ported: the TPU decode kernel has "
-            "no window")
     if x.shape[1] != 1:
         raise NotImplementedError("decode takes one token a step (S = 1)")
     q, k, v = _qkv(params, x, cfg, rope)
     ck, cv = cache["k"], cache["v"]
     ck[:, cache_len] = k[:, 0].to(ck.dtype)
     cv[:, cache_len] = v[:, 0].to(cv.dtype)
+    r0 = max(0, cache_len + 1 - window) if window else 0
+    if r0:
+        ck, cv, kv_len = ck[:, r0:], cv[:, r0:], kv_len - r0
     out = ops.decode_attention(
         q[:, 0], ck.to(x.dtype).permute(0, 2, 1, 3),
         cv.to(x.dtype).permute(0, 2, 1, 3), kv_len)  # (B, H, D)

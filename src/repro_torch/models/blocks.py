@@ -2,31 +2,30 @@
 
 Port of ``repro.models.blocks``.  The reference scans over stacked layer
 periods to bound XLA compile time; PyTorch runs eagerly, so the port loops
-over its per-layer parameter dicts.  Attention and Mamba layers with a dense
-MLP (or none) run; MoE layers raise ``NotImplementedError`` until their
-slice.
+over its per-layer parameter dicts.  A layer is an attention or a Mamba
+mixer, followed by a dense MLP, an MoE MLP or none (Jamba puts MoE after
+Mamba mixers too).
 
-``cache_len`` None means prefill: the tokens are the whole context and the
-cache starts empty.  Otherwise it is a decode step at ``cache_len``, with
-``kv_len`` (B,) = cache_len + 1.
+``cache_len`` None means a forward over the whole context: the cache starts
+empty, or is None for the encoder-only forward, which keeps none.
+Otherwise it is a decode step at ``cache_len``, with ``kv_len`` (B,) =
+cache_len + 1.  Both functions return the MoE layers' summed aux loss
+beside x, as the reference does: 0.0 where no layer is MoE.
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_specs
-from repro_torch.models import attention, mamba, mlp
+from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import rms_norm
 
 
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, params: dict, x, rope,
-                cache: dict, cache_len=None, kv_len=None):
-    """Pre-norm residual layer; ``cache`` is updated in place.  Returns x."""
-    if spec.mlp not in ("dense", "none"):
-        raise NotImplementedError(f"{spec.mlp} MLPs are not ported yet")
+                cache, cache_len=None, kv_len=None):
+    """Pre-norm residual layer; ``cache`` is updated in place.  Returns
+    (x, aux)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if spec.kind == "mamba":
         y = mamba.mamba_mixer(params["mamba"], h, cfg, cache)
-    elif spec.kind != "attn":
-        raise NotImplementedError(f"{spec.kind} layers are not ported yet")
     elif cache_len is None:
         y = attention.prefill_attention(params["attn"], h, cfg, rope, cache,
                                         window=spec.window)
@@ -34,14 +33,24 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params: dict, x, rope,
         y = attention.decode_attention(params["attn"], h, cfg, rope, cache,
                                        cache_len, kv_len, window=spec.window)
     x = x + y
+    aux = 0.0
     if spec.mlp == "dense":
         x = x + mlp.mlp(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))
-    return x
+    elif spec.mlp == "moe":
+        y2, aux = moe.moe(params["moe"],
+                          rms_norm(x, params["ln2"], cfg.norm_eps), cfg)
+        x = x + y2
+    return x, aux
 
 
-def apply_stack(cfg: ModelConfig, layers: list, x, rope, cache: list,
+def apply_stack(cfg: ModelConfig, layers: list, x, rope, cache,
                 cache_len=None, kv_len=None):
-    """Every layer in order; ``cache[i]`` is layer i's cache."""
-    for spec, p, c in zip(layer_specs(cfg), layers, cache, strict=True):
-        x = apply_layer(cfg, spec, p, x, rope, c, cache_len, kv_len)
-    return x
+    """Every layer in order; ``cache[i]`` is layer i's cache (``cache``
+    None: no layer keeps one).  Returns (x, aux summed over the layers)."""
+    specs = layer_specs(cfg)
+    cache = [None] * len(specs) if cache is None else cache
+    aux = 0.0
+    for spec, p, c in zip(specs, layers, cache, strict=True):
+        x, a = apply_layer(cfg, spec, p, x, rope, c, cache_len, kv_len)
+        aux = aux + a
+    return x, aux

@@ -1,9 +1,11 @@
 """Shared building blocks: norms and rotary embeddings.
 
-Port of ``repro.models.common`` for the decode path: ``rms_norm`` with f32
+Port of ``repro.models.common`` for the forward path: ``rms_norm`` with f32
 statistics and ``apply_rope`` in the GPT-NeoX convention, with cos/sin cast
-to the activation dtype as the reference casts them.  M-RoPE and the loss
-come with later slices.
+to the activation dtype as the reference casts them.  The reference's
+``apply_rope`` computes its angles inside; the port splits them out
+(``rope_angles``, M-RoPE's sections included) so that a forward computes
+them once for every layer.  The loss comes with a later slice.
 """
 from __future__ import annotations
 
@@ -28,13 +30,28 @@ def rms_norm(x, weight, eps: float = 1e-6):
     return (y * weight.float()).to(x.dtype)
 
 
-def rope_angles(positions, head_dim: int, theta: float):
-    """positions: (..., S) int -> f32 cos/sin of shape (..., S, head_dim//2)."""
+def rope_angles(positions, head_dim: int, theta: float, mrope_sections=None):
+    """f32 cos/sin of shape (B, S, head_dim//2) for positions (B, S), or for
+    M-RoPE's (B, S, 3) streams (temporal, height, width).
+
+    With ``mrope_sections`` the head_dim//2 rotary frequencies are cut into
+    three sections in order, each turned by its own position stream; (B, S,
+    3) positions without sections turn every frequency by stream 0, as the
+    reference does for a default-RoPE layer."""
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32,
                             device=positions.device) / float(half)
     freqs = 1.0 / (theta ** exponent)
-    ang = positions.float()[..., None] * freqs
+    if positions.dim() == 3 and mrope_sections is not None:
+        # frequency j reads the stream of the section it falls in
+        stream = torch.repeat_interleave(
+            torch.arange(3, device=positions.device),
+            torch.tensor(mrope_sections, device=positions.device))
+        ang = positions.float()[..., stream] * freqs
+    else:
+        if positions.dim() == 3:
+            positions = positions[..., 0]
+        ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
 

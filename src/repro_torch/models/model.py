@@ -1,15 +1,27 @@
-"""Top-level decoder: embeddings, the stack, the unembedding; prefill and
-decode.
+"""Top-level model: embeddings and frontends, the stack, the unembedding;
+prefill and decode.
 
 Port of ``repro.models.model`` for ``init_cache``, ``prefill`` and
 ``decode_step``; the parameters come from ``repro_torch.models.params``.
 Both entry points run on ``device`` (default cuda), where ``params`` must
 lie, and keep f32 products in full f32 (no TF32).  The cache is a list with
 one dict per layer and is updated in place (the reference returns a new
-one).  Positions are start..start+S-1 for every row; M-RoPE, positions
-given in ``batch["positions"]``, the vision and audio frontends, the
-encoder-only forward, ``train_loss`` and the chunked loss come with later
-slices and raise NotImplementedError.
+one).
+
+* Frontends: ``audio_frames`` takes ``batch["frames"]`` (B, S, M) as the
+  embeddings; ``vision`` overwrites the first rows of the token embeddings
+  with ``batch["vision_embeds"]`` (B, n, M) where it is given.
+* Positions: start..start+S-1 for every row (three equal streams for
+  M-RoPE), or ``batch["positions"]``, (B, S) or M-RoPE's (B, S, 3).  The
+  reference's causal mask compares a cache row's index with stream 0 of the
+  positions (attention.py:56, 103, 122-129); the port's kernels mask by
+  index, so given positions are taken only where stream 0 is the row index
+  start..start+S-1 on every row, and raise NotImplementedError otherwise.
+  Streams 1 and 2 may be anything.
+* The encoder-only forward (``cfg.encoder_only``) is ``prefill`` without a
+  cache: it returns (logits of the last row, None) and has no decode step.
+
+``train_loss`` and the chunked loss come with a later slice.
 """
 from __future__ import annotations
 
@@ -33,14 +45,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
             shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
             cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
                           "v": torch.zeros(shape, dtype=dt, device=dev)})
-        elif spec.kind == "mamba":
+        else:
             cache.append({
                 "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
                                  dtype=torch.float32, device=dev),
                 "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
                                     dtype=dt, device=dev)})
-        else:
-            raise NotImplementedError(f"{spec.kind} caches are not ported yet")
     return cache
 
 
@@ -50,30 +60,53 @@ def unembed_matrix(params, cfg: ModelConfig):
     return params["unembed"]
 
 
-def _start(params, cfg: ModelConfig, batch: dict, device):
-    """The device, the tokens, and the checks both entry points share."""
+def _start(params, cfg: ModelConfig, device):
+    """The device both entry points run on, after their shared checks."""
     dev = resolve(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params lie on {params['embed'].device}, not {dev}")
-    for name, what in (("frontend", cfg.frontend != "none"),
-                       ("encoder-only", cfg.encoder_only),
-                       ("mrope", cfg.rope_kind == "mrope"),
-                       ("batch['positions']", "positions" in batch)):
-        if what:
-            raise NotImplementedError(
-                f"{cfg.name}: the {name} path is not ported yet")
     # PyTorch's default, set here so that a caller's TF32 choice cannot
     # loosen f32 configs: TF32 keeps about three decimal digits
     torch.backends.cuda.matmul.allow_tf32 = False
-    return dev, torch.as_tensor(batch["tokens"], device=dev)
+    return dev
 
 
-def _rope(cfg: ModelConfig, B: int, S: int, start: int, dev):
-    """cos/sin of the positions start..start+S-1 for every row, or None."""
+def _embed(params, cfg: ModelConfig, batch: dict, dev):
+    """(B, S, M) in ``cfg.dtype``: the frames, or the token embeddings with
+    the vision embeddings over their first rows."""
+    dt = dtype_of(cfg)
+    if cfg.frontend == "audio_frames":
+        return torch.as_tensor(batch["frames"], device=dev).to(dt)
+    x = params["embed"][torch.as_tensor(batch["tokens"], device=dev)].to(dt)
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        v = torch.as_tensor(batch["vision_embeds"], device=dev)
+        if v.shape[1] > x.shape[1]:
+            raise ValueError(f"{v.shape[1]} vision embeddings do not fit "
+                             f"{x.shape[1]} positions")
+        x[:, :v.shape[1]] = v.to(dt)
+    return x
+
+
+def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev):
+    """cos/sin of the positions, or None where the config has no rope."""
+    index = torch.arange(start, start + S, dtype=torch.int32, device=dev)
+    if "positions" in batch:
+        pos = torch.as_tensor(batch["positions"], device=dev)
+        stream0 = pos[..., 0] if pos.dim() == 3 else pos
+        if not torch.equal(stream0, index.expand(B, S)):
+            raise NotImplementedError(
+                f"{cfg.name}: batch['positions'] whose stream 0 is not the "
+                f"row index {start}..{start + S - 1}: the reference's causal "
+                "mask compares each cache row with stream 0, the port's "
+                "kernels mask by row index")
+    else:
+        pos = index.expand(B, S)
+        if cfg.rope_kind == "mrope":
+            pos = pos[..., None].expand(B, S, 3)
     if cfg.rope_kind == "none":
         return None
-    pos = torch.arange(start, start + S, dtype=torch.int32, device=dev)
-    return rope_angles(pos.expand(B, S), cfg.head_dim, cfg.rope_theta)
+    return rope_angles(pos, cfg.head_dim, cfg.rope_theta,
+                       cfg.mrope_sections if cfg.rope_kind == "mrope" else None)
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -86,17 +119,19 @@ def _logits(params, cfg: ModelConfig, x):
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int | None = None,
             device=None):
     """Forward over a prompt, filling a new cache.  batch["tokens"]: (B, S),
-    any S >= 1.  Returns (last_logits (B, V), cache of ``max_len`` rows,
-    default S)."""
-    dev, tokens = _start(params, cfg, batch, device)
-    B, S = tokens.shape
+    any S >= 1 (``batch["frames"]`` (B, S, M) for the audio frontend).
+    Returns (last_logits (B, V), cache of ``max_len`` rows, default S); the
+    encoder-only forward returns no cache."""
+    dev = _start(params, cfg, device)
+    x = _embed(params, cfg, batch, dev)
+    B, S = x.shape[:2]
     max_len = max_len or S
     if S < 1 or max_len < S:
         raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
-    x = params["embed"][tokens].to(dtype_of(cfg))
-    rope = _rope(cfg, B, S, 0, dev)
-    cache = init_cache(cfg, B, max_len, device=dev)
-    x = blocks.apply_stack(cfg, params["layers"], x, rope, cache)
+    rope = _rope(cfg, batch, B, S, 0, dev)
+    cache = None if cfg.encoder_only else init_cache(cfg, B, max_len,
+                                                     device=dev)
+    x, _ = blocks.apply_stack(cfg, params["layers"], x, rope, cache)
     return _logits(params, cfg, x[:, -1:]), cache
 
 
@@ -105,11 +140,13 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
                 device=None):
     """One incremental token.  batch["tokens"]: (B, 1).  Returns (logits
     (B, V), cache), the cache written at ``cache_len``."""
-    dev, tokens = _start(params, cfg, batch, device)
-    B, S = tokens.shape
-    x = params["embed"][tokens].to(dtype_of(cfg))
-    rope = _rope(cfg, B, S, cache_len, dev)
+    if cfg.encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
+    dev = _start(params, cfg, device)
+    x = _embed(params, cfg, batch, dev)
+    B, S = x.shape[:2]
+    rope = _rope(cfg, batch, B, S, cache_len, dev)
     kv_len = torch.full((B,), cache_len + S, dtype=torch.int32, device=dev)
-    x = blocks.apply_stack(cfg, params["layers"], x, rope, cache, cache_len,
-                           kv_len)
+    x, _ = blocks.apply_stack(cfg, params["layers"], x, rope, cache, cache_len,
+                              kv_len)
     return _logits(params, cfg, x), cache

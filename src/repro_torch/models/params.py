@@ -1,8 +1,8 @@
 """Decoder parameters: random init on a device, and import of the reference's.
 
 Port of ``repro.models.params`` for attention and Mamba layers with a dense
-MLP or none.  The port keeps one dict per layer instead of the reference's
-stacked ``stack/body`` arrays:
+MLP, an MoE MLP or none.  The port keeps one dict per layer instead of the
+reference's stacked ``stack/body`` arrays:
 
   {"embed": (V, M), "layers": [layer, ...], "final_norm": (M,),
    "unembed": (M, V)}                      # no "unembed" when embeddings tie
@@ -12,10 +12,13 @@ stacked ``stack/body`` arrays:
            "w_down": (F, M)}}
   Mamba layer = {"ln1": (M,), "mamba": {leaves of ``mamba.mamba_specs``}}
                                             # plus ln2/mlp where d_ff > 0
+  MoE MLP = {"ln2": (M,), "moe": {"w_router": (M, E) f32, "w_gate": (E, M,
+           F), "w_up": (E, M, F), "w_down": (E, F, M), "shared": {"w_gate":
+           (M, Fs), "w_up": (M, Fs), "w_down": (Fs, M)}}}  # in place of mlp
 
 Dense weights and the embedding are in ``cfg.param_dtype``, norms in f32;
 the Mamba leaves keep the reference's types (``dt_bias``, ``A_log`` and
-``D`` in f32).
+``D`` in f32), and so does the router (f32).
 
 ``init_params`` draws from the reference's distributions: embeddings
 N(0, 0.02²), norms and ``D`` one, biases zero, ``A_log`` = log(1..N) over
@@ -24,7 +27,11 @@ every channel, dense weights N(0, 1/fan_in) with the reference's
 array.  For a layer inside the scanned stack that is the number of stacked
 layers, not the input width: Qwen3-8B's wq has std 1/6 (36 layers),
 falcon-mamba-7b's in_proj 1/8 (64 layers), and the reduced two-layer
-config's wq 1/sqrt(2).  The port copies the rule so
+config's wq 1/sqrt(2).  A layer past the last whole period (gemma3's last
+two) takes its own ``shape[0]``: its input width, or E for an expert
+weight.  A config
+cut to fewer layers stacks fewer, so its std changes with the depth: the
+8-layer qwen3-moe's weights have std 1/sqrt(8).  The port copies the rule so
 that its magnitudes match the reference's.  PyTorch cannot replay JAX's
 path-keyed random stream, so the values themselves differ; parity tests
 carry the reference's arrays over with ``from_jax_params``.
@@ -41,15 +48,7 @@ from repro_torch.configs.base import (LayerSpec, ModelConfig, layer_specs,
 from repro_torch.device import resolve
 from repro_torch.models.common import param_dtype_of
 from repro_torch.models.mamba import mamba_specs
-
-
-def _check_supported(cfg: ModelConfig):
-    for i, spec in enumerate(layer_specs(cfg)):
-        if spec.kind not in ("attn", "mamba") \
-                or spec.mlp not in ("dense", "none"):
-            raise NotImplementedError(
-                f"{cfg.name} layer {i} is {spec.kind}/{spec.mlp}: the port "
-                "runs attention and Mamba layers with dense MLPs or none")
+from repro_torch.models.moe import moe_specs
 
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -74,6 +73,13 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
         shapes[("mlp", "w_gate")] = ((M, F), "dense", pd)
         shapes[("mlp", "w_up")] = ((M, F), "dense", pd)
         shapes[("mlp", "w_down")] = ((F, M), "dense", pd)
+    elif spec.mlp == "moe":
+        shapes[("ln2",)] = ((M,), "ones", torch.float32)
+        for name, leaf in moe_specs(cfg).items():
+            for sub, (shape, init, dt) in (
+                    leaf.items() if name == "shared" else [(None, leaf)]):
+                path = ("moe", name) if sub is None else ("moe", name, sub)
+                shapes[path] = (shape, init, getattr(torch, dt))
     return shapes
 
 
@@ -102,7 +108,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters on ``device`` (default cuda), drawn from
     ``generator`` (a ``torch.Generator`` on that device)."""
     dev = resolve(device)
-    _check_supported(cfg)
     pd = param_dtype_of(cfg)
     M, V = cfg.d_model, cfg.vocab_size
     # the reference stacks n_rep = n_layers // P layers per period position;
@@ -141,7 +146,6 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device=None) -> dict:
     ``unembed``.
     """
     dev = resolve(device)
-    _check_supported(cfg)
     P = scan_period(cfg)
     n_rep = cfg.n_layers // P
     specs = layer_specs(cfg)

@@ -23,6 +23,9 @@ from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lags_select as lags
 from repro_torch.kernels import ssm_scan as ssm
+from repro_torch.configs.base import get_config, layer_specs, reduced
+from repro_torch.models import blocks, model
+from repro_torch.models.params import init_params
 from repro_torch.sched import torch_backend as tb
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +125,42 @@ def test_decode_attention_kernel_matches_plain(card, dtype, B, H, Hkv, L, D):
     want = dec.decode_attention_plain(q, k, v, kv_len)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# (B, H, Hkv, L, r0): G = 16 (qwen3-moe's 64 query heads over 4 KV heads)
+# and G = 7 (qwen2-vl's 28 over 4) at D = 128, over the whole cache (r0 = 0)
+# and through a window's view of it that starts at row r0 (gemma3's decode
+# past its window), one split and several
+DEC_GROUP_SHAPES = [(B, H, 4, L, r0) for B, L, r in ((4, 2112, 1088),
+                                                     (2, 300, 44))
+                    for H in (64, 28) for r0 in (0, r)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,L,r0", DEC_GROUP_SHAPES)
+def test_decode_attention_large_groups_and_window_views(card, dtype, B, H,
+                                                        Hkv, L, r0):
+    D = 128
+    n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
+    q = n(B, H, D)
+    k = n(B, L, Hkv, D)[:, r0:].permute(0, 2, 1, 3)  # the window's view
+    v = n(B, L, Hkv, D)[:, r0:].permute(0, 2, 1, 3)
+    rows = L - r0
+    kv_len = torch.tensor([[rows, rows - 7, 1, rows // 3][b % 4]
+                           for b in range(B)], dtype=torch.int32,
+                          device="cuda")
+    got = dec.decode_attention(q, k, v, kv_len)
+    want = dec.decode_attention_plain(q, k, v, kv_len)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_decode_attention_refuses_groups_past_16(card):
+    q = torch.zeros(1, 34, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 2, 32, 64, device="cuda", dtype=torch.bfloat16)
+    assert dec.decode_attention(q[:, :32], kv, kv, torch.tensor(
+        [7], device="cuda")).shape == (1, 32, 64)
+    with pytest.raises(ValueError, match="G=17 exceeds the kernel's 16"):
+        dec.decode_attention(q, kv, kv, torch.tensor([7], device="cuda"))
 
 
 def test_decode_attention_kernel_refuses_unaligned_cache(card):
@@ -252,3 +291,105 @@ def test_chaos_partition_on_card_equals_cpu(card):
     assert got.per_epoch_counts() == want.per_epoch_counts()
     assert got.deferred_arrivals == want.deferred_arrivals > 0
     assert {n for e in got.epochs for n in e.fenced} == {1}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _assert_scaled(got, want, what):
+    """Within 1e-4 of ``want``'s scale (its largest entry, at least 1)."""
+    want = want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got.float().cpu() - want).abs().max())
+    assert err <= 1e-4 * scale, f"{what}: max err {err}, scale {scale}"
+
+
+# the reduced configs of the model families in f32, on the card (kernels)
+# against the CPU (plain versions): prefill S=32 and 8 decode steps
+FAMILIES = {
+    "qwen2-moe": ("qwen2-moe-a2.7b", {}),
+    "qwen3-moe-G16": ("qwen3-moe-235b-a22b", {"n_heads": 16, "n_kv_heads": 1}),
+    "gemma3": ("gemma3-27b", {}),
+    "qwen2-vl": ("qwen2-vl-7b", {}),
+    "hubert": ("hubert-xlarge", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(FAMILIES))
+def test_family_on_card_equals_cpu(card, case):
+    """Logits and every cache leaf after prefill, then 8 decode steps fed
+    the CPU's greedy tokens (gemma3 past its window of 16; qwen2-vl with
+    vision rows and three different position streams)."""
+    name, overrides = FAMILIES[case]
+    cfg = reduced(get_config(name), **overrides)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on = {"cpu": params, "cuda": _to(params, "cuda")}
+    g = torch.Generator().manual_seed(1)
+    B, S = 2, 32
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn(B, S, cfg.d_model, generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=g, dtype=torch.int32)}
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.randn(B, cfg.n_vision_tokens,
+                                             cfg.d_model, generator=g)
+        idx = torch.arange(S, dtype=torch.int32)
+        batch["positions"] = torch.stack(
+            [idx, idx // 4, idx % 4 + 1], -1).expand(B, S, 3).contiguous()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        logits, cache = model.prefill(on[dev], cfg, _to(batch, dev),
+                                      max_len=S + 8, device=dev)
+        out[dev] = (logits, cache)
+    _assert_scaled(out["cuda"][0], out["cpu"][0], f"{case} prefill logits")
+    if cfg.encoder_only:
+        return
+    caches = {dev: out[dev][1] for dev in out}
+    tok = torch.argmax(out["cpu"][0], -1)[:, None].to(torch.int32)
+    for n in range(S, S + 8):
+        step = {dev: model.decode_step(on[dev], cfg, {"tokens": tok.to(dev)},
+                                       caches[dev], n, device=dev)[0]
+                for dev in ("cpu", "cuda")}
+        _assert_scaled(step["cuda"], step["cpu"], f"{case} decode at {n}")
+        tok = torch.argmax(step["cpu"], -1)[:, None].to(torch.int32)
+    for i, (c_card, c_cpu) in enumerate(zip(caches["cuda"], caches["cpu"])):
+        for leaf in c_cpu:
+            _assert_scaled(c_card[leaf], c_cpu[leaf], f"{case} layer {i} {leaf}")
+
+
+def test_jamba_layerwise_on_card_equals_cpu(card):
+    """The reduced jamba (16 layers) layer by layer, each layer on both
+    devices fed the CPU's input to it: under the reference's init its
+    residual reaches ~1e11 and its logits move by ~1e-3 when the input
+    moves by 1e-7 (tests/test_torch_families.py), so the whole forward is
+    not held to 1e-4.  Prefill S=32, then 8 decode steps."""
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on = {"cpu": params, "cuda": _to(params, "cuda")}
+    B, S = 2, 32
+    caches = {dev: model.init_cache(cfg, B, S + 8, device=dev)
+              for dev in on}
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 8), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(1))
+    for start, n in [(0, S)] + [(p, 1) for p in range(S, S + 8)]:
+        x = params["embed"][toks[:, start:start + n]]
+        for i, spec in enumerate(layer_specs(cfg)):
+            ys = {}
+            for dev in on:
+                kv_len = torch.full((B,), start + n, dtype=torch.int32,
+                                    device=dev)
+                ys[dev], _ = blocks.apply_layer(
+                    cfg, spec, on[dev]["layers"][i], x.to(dev), None,
+                    caches[dev][i], None if start == 0 else start, kv_len)
+            what = f"layer {i} ({spec.kind}/{spec.mlp}) at {start}"
+            _assert_scaled(ys["cuda"], ys["cpu"], what)
+            for leaf in caches["cpu"][i]:
+                _assert_scaled(caches["cuda"][i][leaf], caches["cpu"][i][leaf],
+                               f"{what}: {leaf}")
+            x = ys["cpu"]

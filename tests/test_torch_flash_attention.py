@@ -115,6 +115,8 @@ def test_route_refuses_other_dtypes():
     s.kind == "attn" for s in layer_specs(get_config(n)))])
 def test_every_attention_config_prefills_on_fa_wgmma(name):
     """The prefill of every attention config of the port runs in bf16 at a
-    head dim that fa_wgmma takes."""
+    head dim that fa_wgmma takes, but hubert-xlarge's head dim 80, which
+    takes fa_mma."""
     cfg = get_config(name)
-    assert fa_mod.route(getattr(torch, cfg.dtype), cfg.head_dim) == "fa_wgmma"
+    want = "fa_mma" if name == "hubert-xlarge" else "fa_wgmma"
+    assert fa_mod.route(getattr(torch, cfg.dtype), cfg.head_dim) == want

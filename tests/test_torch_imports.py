@@ -92,6 +92,33 @@ def test_prefill_raises_without_card_unless_cpu(no_card, name):
                           cache, 5)
 
 
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                                  "jamba-v0.1-52b", "gemma3-27b",
+                                  "qwen2-vl-7b", "hubert-xlarge"])
+def test_new_families_raise_without_card_unless_cpu(no_card, name):
+    """The MoE, hybrid, windowed, vision and encoder-only configs take the
+    same entry points: cuda by default, the CPU only when asked."""
+    from repro_torch.models import moe
+
+    cfg = reduced(get_config(name))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator())
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": np.zeros((2, 8, cfg.d_model), np.float32)}
+    else:
+        batch = {"tokens": np.zeros((2, 8), np.int32)}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.prefill(params, cfg, batch)
+    logits, cache = model.prefill(params, cfg, batch, max_len=9, device="cpu")
+    assert logits.shape == (2, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert (cache is None) == cfg.encoder_only
+    if cfg.n_experts:  # the reference's names, no mesh constraint
+        assert {"moe_specs", "_capacity", "moe"} <= set(vars(moe))
+        assert "constrain" not in vars(moe)
+
+
 def test_serve_raises_without_card_unless_cpu(no_card, capsys):
     argv = ["--tenants", "8", "--duration", "0.5"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
