@@ -6,7 +6,7 @@
 Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: the five CUDA sources from ``src/repro_torch/kernels/csrc``, in
+2. build: the seven CUDA sources from ``src/repro_torch/kernels/csrc``, in
    parallel, with the compiler's register, shared memory and spill report
    for each kernel;
 3. ``lags_select`` against its plain PyTorch version: random cases at T
@@ -118,10 +118,45 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 21. hubert-xlarge at full width and depth (48 layers): the encoder forward
     at B=4, S=2048 from random frames, 48 ``fa_mma`` launches (non-causal,
     D=80), finite logits (4, 504);
-22. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+22. the training kernels against their plain versions: ``flash_attention``
+    with positions (``fa_mma``, ``fa_fwd``) and ``flash_attention_bwd`` at
+    the reference's test shapes, GQA, windows, non-causal D=80, S=1, ragged
+    S, positions with repeats and gaps, and the qwen3-8b and stablelm-1.6b
+    training shapes (f32 at TOL, bf16 at TOL and at a relative error of
+    1e-2 over each 64-row tile, printed in the kernels line);
+    ``decode_attention`` over rows [kv_start,
+    kv_len) at G=4 and G=16, an empty range giving 0; ``ssm_scan_bwd`` at
+    the reference's shapes, without dy or dh_last, and one falcon-mamba
+    training chunk, at 1e-4;
+23. the backward kernels' times at the training shapes beside their plain
+    versions, their bounds (five products for attention) and, for
+    attention, autograd of ``scaled_dot_product_attention`` as a yardstick
+    the port never calls;
+24. the reduced stablelm, qwen3-8b (G=2), falcon-mamba, gemma3 and
+    qwen2-vl in f32, the card (forward and backward kernels, remat on)
+    against the CPU (plain versions): loss and every gradient leaf of
+    ``train_loss``, then one train step (AdamW, clipping), and on qwen3-8b
+    the step's updated parameters and moments within 1e-6;
+25. stablelm-1.6b at full width and depth (24 layers, 1.645 B params,
+    bf16) trains 10 steps at B=8, S=2048 through
+    ``repro_torch.launch.train.main``: finite losses whose last three
+    average below the first, 24 x 10 backward and 2 x 24 x 10 forward
+    attention launches (remat recomputes each layer), step time, tokens/s,
+    peak memory, and a profile of one step with the backward kernels'
+    share;
+26. qwen3-8b (its first 4 of 36 layers, B=4, S=2048) and falcon-mamba-7b
+    (its first 8 of 64, B=2, S=1024; full depth needs ~112 GB of training
+    state) train 5 steps each at full width: finite losses, launch counts,
+    step time and a profile;
+27. checkpoint, kill and resume on the card: the reduced stablelm through
+    the train CLI in two child processes, the first dying after step 5
+    (exit code 17), the second resuming from the verified step-6
+    checkpoint;
+28. the script's wall seconds, a ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
-    ``g16``), then ``{"ok": true, "device": {...}}`` last.
+    ``g16``; the two backward kernels at the stablelm-1.6b and falcon-mamba
+    training shapes), then ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It exits nonzero at once where no card is present.
@@ -827,10 +862,10 @@ def serve_qwen3_8b(torch, ops, serve, tick_kernel_ms):
     return n, params
 
 
-def profile(torch, label, step, n_steps=3):
+def profile(torch, label, step, n_steps=3, rows_out=None):
     """Where a step's time goes: device time by kernel, and the share of
     the step's wall time the card is busy.  Returns (wall ms, busy ms) of
-    one step."""
+    one step; ``rows_out`` gets every (ms, count, kernel) row."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -846,6 +881,8 @@ def profile(torch, label, step, n_steps=3):
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
+    if rows_out is not None:
+        rows_out.extend(rows)
     busy = sum(r[0] for r in rows)
     print(f"profile {label} (profiler on): wall {wall_ms:.3f} ms, "
           f"kernels {busy:.3f} ms, device busy {100 * busy / wall_ms:.1f}%")
@@ -1792,6 +1829,471 @@ def families_full(torch, ops, counts):
     print(f"phase 21 hubert-xlarge: {time.perf_counter() - t0:.1f} s wall")
 
 
+# -- phases 22 to 27: training -------------------------------------------
+
+
+# the attention and scan shapes of the training steps of phases 25-26
+STABLELM_TRAIN = dict(B=8, H=32, Hkv=32, S=2048, D=64)  # stablelm-1.6b
+QWEN_TRAIN = dict(B=4, H=32, Hkv=8, S=2048, D=128)  # qwen3-8b, 4 layers
+MAMBA_TRAIN_CHUNK = dict(B=2, S=256, I=8192, N=16)  # falcon-mamba, 8 layers
+# bf16 results are held to TOL element by element AND, over each 64-row tile
+# of each (b, head), to ||got - want|| <= BF16_TILE_REL * (||want|| +
+# TILE_FLOOR * sqrt(n)), n the tile's values.  At the training shapes |dk|
+# and |dv| fall to ~3e-3 on late keys and |dq| is ~2e-2, so TOL's atol of
+# 2e-2 alone would pass a tile off by 30%; the tile's norm does not.  The
+# limit is phase 4's for the forward: the backward's worst tile measured
+# 1.4e-3 (qwen3-8b's dq), the positioned forward's 3.3e-3.  The floor, 1/30
+# of the smallest gradients compared, keeps tiles whose exact value is 0
+# (S = 1: dS = dP - Delta, where the kernel leaves ~1e-6 of rounding) from
+# dividing noise by noise.
+BF16_TILE_REL = 1e-2
+TILE_FLOOR = 1e-4
+
+
+def tile_rel(got, want, tile=64, floor=TILE_FLOOR):
+    """max over (b, h, 64-row tile) of ||got - want|| / (||want|| + floor *
+    sqrt(n)), n the tile's values; any S."""
+    import torch
+    import torch.nn.functional as F
+
+    B, H, S, D = want.shape
+    pad = (0, 0, 0, (-S) % tile)
+    d = F.pad(got.float() - want.float(), pad).reshape(B, H, -1, tile * D)
+    w = F.pad(want.float(), pad).reshape(B, H, -1, tile * D)
+    rows = torch.full((S,), float(D), device=want.device)
+    n = F.pad(rows, (0, (-S) % tile)).reshape(-1, tile).sum(-1)
+    den = (w.norm(dim=-1) + floor * n.sqrt()).clamp_min(1e-30)
+    return float((d.norm(dim=-1) / den).max())
+
+
+def close_kernel(got, want, dtype, name):
+    """f32 at TOL; bf16 at TOL and at BF16_TILE_REL over each 64-row tile of
+    each (b, head).  Returns (max abs error, tile error; 0 for f32)."""
+    ok, err, bad = within(got, want, TOL[dtype])
+    require(ok, f"{name}: {bad} values outside {TOL[dtype]}, max err {err}")
+    if dtype != "bfloat16":
+        print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}")
+        return err, 0.0
+    r = tile_rel(got, want)
+    require(r <= BF16_TILE_REL, f"{name}: a 64-row tile's error {r:.3e} > "
+            f"{BF16_TILE_REL} (max abs err {err:.3e})")
+    print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}; 64-row tile "
+          f"error {r:.3e} <= {BF16_TILE_REL} (without the floor "
+          f"{tile_rel(got, want, floor=0.0):.3e})")
+    return err, r
+
+
+def train_positions(torch, gen, B, S):
+    """(B, S) int32 positions from 2, rising by 0, 1 or 2 a row: repeats
+    and gaps, so the masks by position differ from those by index."""
+    steps = torch.randint(0, 3, (B, S), generator=gen, device="cuda")
+    return (torch.cumsum(steps, 1) + 2).to(torch.int32)
+
+
+def check_flash_train(torch, fa):
+    """Phase 22, attention: the positioned forward (fa_mma, fa_fwd) and the
+    backward kernel against their plain versions.  Returns (max abs error,
+    tile error) of dq, dk and dv by case."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    # (B, H, Hkv, S, D, causal, window, positions, dtypes): the reference's
+    # test shapes at G=1, GQA, S=1, ragged S, D=80 non-causal, positions
+    # with and without a window, then the qwen3-8b and stablelm-1.6b
+    # training shapes
+    both = ("float32", "bfloat16")
+    cases = [(1, 1, 1, 128, 64, True, 0, False, both),
+             (2, 2, 2, 256, 128, True, 128, False, both),
+             (2, 2, 2, 256, 128, False, 0, False, both),
+             (2, 8, 2, 300, 64, True, 64, False, both),
+             (1, 8, 1, 1, 128, True, 0, False, both),
+             (1, 4, 2, 77, 16, True, 0, False, both),
+             (2, 4, 4, 200, 80, False, 0, False, both),
+             (2, 4, 2, 100, 64, True, 0, True, both),
+             (1, 4, 1, 90, 32, False, 30, True, both),
+             (2, 8, 2, 300, 128, True, 64, True, both),
+             tuple(QWEN_TRAIN.values()) + (True, 0, False, ("bfloat16",)),
+             tuple(STABLELM_TRAIN.values()) + (True, 0, False, ("bfloat16",))]
+    errs = {}
+    for B, H, Hkv, S, D, causal, window, posn, dtypes in cases:
+        for dtype in dtypes:
+            q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
+            do = flash_inputs(torch, gen, B, H, H, S, D, dtype)[0]
+            pos = train_positions(torch, gen, B, S) if posn else None
+            kw = dict(causal=causal, window=window, q_pos=pos, k_pos=pos)
+            name = (f"{dtype} B={B} H={H} Hkv={Hkv} S={S} D={D} "
+                    f"causal={causal} window={window} positions={posn}")
+            o = fa.flash_attention(q, k, v, **kw)
+            o_p = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if posn:
+                close_kernel(o, o_p, dtype, f"flash_attention "
+                             f"{fa.route(q.dtype, D, True)} {name}")
+            before = fa.bwd_launches
+            got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+            want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+            require(fa.bwd_launches == before + 1, "one backward launch")
+            res = [close_kernel(g, w, dtype, f"flash_attention_bwd d{t} "
+                                f"{name}") for t, g, w in zip("qkv", got, want)]
+            errs[(dtype, B, H, Hkv, S, D, causal, window, posn)] = (
+                max(e for e, _ in res), max(r for _, r in res))
+            del got, want, o, o_p
+    torch.cuda.empty_cache()
+    return errs
+
+
+def check_decode_positions(torch, dec):
+    """Phase 22, decode: rows [kv_start, kv_len) of the cache against the
+    plain version at phase 9's shape (G=4) and at G=16, with an empty range
+    (0) and ranges on and beside a split's edge."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for dtype in ("float32", "bfloat16"):
+        for H, Hkv in ((32, 8), (64, 4)):
+            B, L, D = 4, 2112, 128
+            kv_len = [2100, 5, 1500, 700]
+            q, k, v, kv = dec_inputs(torch, gen, B, H, Hkv, L, D, dtype,
+                                     kv_len)
+            start = torch.tensor([1000, 5, 0, 640], dtype=torch.int32,
+                                 device="cuda")
+            got = dec.decode_attention(q, k, v, kv, kv_start=start)
+            want = dec.decode_attention_plain(q, k, v, kv, kv_start=start)
+            torch.cuda.synchronize()
+            ok, err, bad = within(got, want, TOL[dtype])
+            name = (f"decode_attention kv_start {dtype} B={B} H={H} "
+                    f"Hkv={Hkv} L={L}")
+            require(ok, f"{name}: {bad} values outside {TOL[dtype]}, "
+                    f"max err {err}")
+            require(int(torch.count_nonzero(got[1])) == 0,
+                    f"{name}: an empty range must give 0")
+            print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}, the "
+                  f"empty range 0")
+
+
+def check_ssm_train(torch, ssm):
+    """Phase 22, the scan's backward kernel against its plain version at
+    the reference's shapes, a ragged S, without dy or dh_last, and one
+    chunk of the falcon-mamba training step."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = [(1, 128, 256, 8, True, True), (2, 256, 512, 16, True, True),
+             (2, 37, 64, 16, True, False), (1, 5, 32, 4, False, True),
+             tuple(MAMBA_TRAIN_CHUNK.values()) + (True, True)]
+    errs = {}
+    for B, S, I, N, with_dy, with_dh in cases:
+        dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N)
+        dy = (torch.randn(B, S, I, generator=gen, device="cuda")
+              if with_dy else None)
+        dh = (torch.randn(B, I, N, generator=gen, device="cuda")
+              if with_dh else None)
+        got = ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+        want = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh)
+        torch.cuda.synchronize()
+        name = f"ssm_scan_bwd float32 B={B} S={S} I={I} N={N}"
+        worst = 0.0
+        for t, g, w in zip(("dA", "dBx", "C", "h0"), got, want):
+            ok, err, bad = within(g, w, SSM_TOL)
+            require(ok, f"{name} d{t}: {bad} values outside {SSM_TOL}, max "
+                    f"err {err}")
+            worst = max(worst, err)
+        errs[(B, S, I, N)] = worst
+        print(f"{name} dy={with_dy} dh_last={with_dh}: max_abs_err="
+              f"{worst:.3e} within {SSM_TOL}")
+    return errs
+
+
+def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
+    """Phase 23: the backward kernel beside its plain version and, as a
+    yardstick the port never calls, the backward of
+    ``scaled_dot_product_attention`` (autograd of one SDPA call)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
+    do = flash_inputs(torch, gen, B, H, H, S, D, dtype)[0]
+    o = fa.flash_attention(q, k, v)
+    ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), iters=10)
+    plain_ms = timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do),
+                        iters=3, warmup=1)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                         enable_gqa=True)
+    lib_ms = library_ms(torch, timer, "SDPA backward",
+                        lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                    retain_graph=True),
+                        iters=10)
+    esize = 2 if dtype == "bfloat16" else 4
+    # q, o, dO in and dQ out (H heads); k, v in and dK, dV out (Hkv heads)
+    n_bytes = B * S * D * esize * (4 * H + 4 * Hkv)
+    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
+    # five products: S, dP, dV, dK, dQ, 2 flops a multiply-add
+    n_ops = 5 * 2 * pairs * D * B * H
+    b, by = bound_ms(n_bytes, n_ops, dtype)
+    del out, qs, ks, vs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                bound_by=by)
+
+
+def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N)
+    dy = torch.randn(B, S, I, generator=gen, device="cuda")
+    dh = torch.randn(B, I, N, generator=gen, device="cuda")
+    ms = timer.ms(lambda: ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh))
+    plain_ms = timer.ms(lambda: ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy,
+                                                       dh), iters=3, warmup=1)
+    # f32: dA, dBx, C, h0, dy, dh_last in; d(dA), d(dBx), dC, dh0 out
+    n_bytes = 4 * (4 * B * S * I * N + 2 * B * S * N + 3 * B * I * N
+                   + B * S * I)
+    # dh (multiply-add), d(dA), the carried dA * dh, dC (multiply-add)
+    n_ops = 6 * B * S * I * N
+    b, by = bound_ms(n_bytes, n_ops, "float32")
+    # no one PyTorch call computes a selective scan or its gradient
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
+                bound_by=by)
+
+
+def check_train_small(torch):
+    """Phase 24: reduced configs in f32, the card (kernels, forward and
+    backward, remat on) against the CPU (plain versions): the loss and
+    every gradient leaf of ``train_loss``, then one train step (AdamW,
+    clipping) whose loss and gradient norm agree.  Gradients are held to
+    1e-3 of each leaf's scale: the reduced stablelm's and qwen2-vl's move
+    by ~1e-3 of their scale under 1e-7 input noise in the reference itself
+    (tests/test_torch_train.py).  On qwen3-8b (G=2), whose gradients agree
+    to ~1e-6 of their scale, the step's updated parameters and moments are
+    held to 1e-6 as tests/test_torch_train.py holds them to the reference
+    (clip 1e-3, active); the ill-conditioned configs cannot hold that: the
+    first AdamW step moves each parameter by lr * g / (|g| + eps), which
+    turns a gradient's relative error into the update's where |g| is near
+    eps."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.models import model
+    from repro_torch.models.params import init_params
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.tree import leaves
+
+    for name, overrides in (("stablelm-1.6b", {}),
+                            ("qwen3-8b", {"n_kv_heads": 2}),
+                            ("falcon-mamba-7b", {"n_layers": 2}),
+                            ("gemma3-27b", {}), ("qwen2-vl-7b", {})):
+        cfg = reduced(get_config(name), **overrides)
+        batch = TokenStream(cfg, 2, 128, DataConfig()).batch_at(0)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        exact = name == "qwen3-8b"
+        tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
+            lr=1e-3, warmup_steps=0, **({"clip_norm": 1e-3} if exact else {})))
+        grads, steps, states = {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            p = to(to(params, "cuda"), dev)  # a copy of its own on each
+            for t in leaves(p):
+                t.requires_grad_(True)
+            loss, _ = model.train_loss(p, cfg, to({
+                k: torch.from_numpy(v) for k, v in batch.items()}, dev),
+                device=dev)
+            grads[dev] = (float(loss.detach()),
+                          torch.autograd.grad(loss, leaves(p)))
+            state = train_loop.TrainState(p, optimizer.init_state(p))
+            states[dev], m = train_loop.make_train_step(cfg, tc)(state,
+                                                                 batch)
+            steps[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        (l_card, g_card), (l_cpu, g_cpu) = grads["cuda"], grads["cpu"]
+        require(abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu),
+                f"{name}: loss {l_card} on the card, {l_cpu} on the CPU")
+        worst = 0.0
+        for a, b in zip(g_card, g_cpu):
+            err = float((a.cpu() - b).abs().max())
+            scale = max(float(b.abs().max()), 1e-30)
+            require(err <= 1e-3 * scale, f"{name}: a gradient leaf differs "
+                    f"by {err}, scale {scale}")
+            worst = max(worst, err / scale)
+        (sl_card, n_card), (sl_cpu, n_cpu) = steps["cuda"], steps["cpu"]
+        require(abs(sl_card - sl_cpu) <= 1e-5 * abs(sl_cpu)
+                and abs(n_card - n_cpu) <= 1e-4 * n_cpu,
+                f"{name}: train step loss {sl_card} / {sl_cpu}, grad norm "
+                f"{n_card} / {n_cpu} (card / CPU)")
+        upd = ""
+        if exact:
+            require(n_cpu > 1e-3, f"{name}: the clip is not active")
+            upd_err = 0.0
+            for what in ("params", "mu", "nu"):
+                tree = {d: (states[d].params if what == "params"
+                            else getattr(states[d].opt, what))
+                        for d in states}
+                for a, b in zip(leaves(tree["cuda"]), leaves(tree["cpu"]),
+                                strict=True):
+                    e = float((a.detach().cpu() - b.detach()).abs().max())
+                    require(e <= 1e-6, f"{name}: after one step a {what} leaf "
+                            f"differs by {e} (card / CPU)")
+                    upd_err = max(upd_err, e)
+            upd = (f"; updated params, mu and nu (clip 1e-3) max abs error "
+                   f"{upd_err:.3e} <= 1e-6")
+        print(f"reduced {name} f32 (B=2, S=128): card = CPU, loss "
+              f"{l_card:.6f} vs {l_cpu:.6f}, gradients worst error / scale "
+              f"{worst:.3e}; one train step's grad norm {n_card:.6f} vs "
+              f"{n_cpu:.6f}" + upd)
+
+
+def train_profile(torch, cfg, B, S, label):
+    """One train step under the profiler after one untimed step: kernel
+    time by name and the backward kernels' share of it."""
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+
+    state = train_loop.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = train_loop.make_train_step(cfg, train_loop.TrainConfig(
+        opt=optimizer.OptConfig(lr=1e-3, warmup_steps=0)))
+    batch = TokenStream(cfg, B, S, DataConfig()).batch_at(0)
+    step(state, batch)
+    rows = []
+    _, busy = profile(torch, label, lambda: step(state, batch), n_steps=1,
+                      rows_out=rows)
+    fa_ms = sum(r[0] for r in rows if "fa_bwd" in r[2])
+    ssm_ms = sum(r[0] for r in rows if "ssm_bwd" in r[2])
+    print(f"profile {label}: flash_attention_bwd {fa_ms:.3f} ms "
+          f"({100 * fa_ms / busy:.1f}% of kernel time), ssm_scan_bwd "
+          f"{ssm_ms:.3f} ms ({100 * ssm_ms / busy:.1f}%)")
+    del state
+    torch.cuda.empty_cache()
+
+
+def check_losses(name, losses):
+    require(all(math.isfinite(x) for x in losses),
+            f"{name}: a loss is not finite: {losses}")
+    tail = losses[-3:]
+    require(sum(tail) / len(tail) < losses[0],
+            f"{name}: the mean of the last 3 losses {tail} is not below the "
+            f"first {losses[0]}")
+
+
+def train_stablelm(torch, ops, steps=10, B=8, S=2048):
+    """Phase 25: stablelm-1.6b at full width and depth (24 layers, 1.645 B
+    params, bf16) trains ``steps`` steps through
+    ``repro_torch.launch.train.main``, the train CLI: finite losses whose
+    last three average below the first, launch counts, step time, tokens/s
+    and peak memory; then a profile of one step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_cli
+
+    cfg = get_config("stablelm-1.6b")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_cli.main(["--arch", cfg.name, "--steps", str(steps),
+                          "--batch", str(B), "--seq", str(S)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = ops.launch_counts()
+    losses = out["losses"]
+    check_losses(cfg.name, losses)
+    n_attn = cfg.n_layers
+    want = {"flash_attention_bwd": n_attn * steps,
+            # remat runs each layer's forward again in the backward pass
+            "flash_attention": 2 * n_attn * steps}
+    for kernel, w in want.items():
+        require(n[kernel] == w, f"{cfg.name}: {kernel} launches {n[kernel]} "
+                f"!= {w}")
+    step_s = sorted(out["seconds"][1:])[len(out["seconds"][1:]) // 2]
+    print(f"phase 25 {cfg.name} train (B={B}, S={S}, {steps} steps through "
+          f"launch.train.main): {wall:.1f} s wall, median step "
+          f"{step_s * 1e3:.1f} ms ({B * S / step_s:.0f} tokens/s), first step "
+          f"{out['seconds'][0] * 1e3:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; launches {n}")
+    train_profile(torch, cfg, B, S, f"{cfg.name} train step B={B} S={S}")
+    return n
+
+
+def train_cut_depth(torch, ops, name, n_layers, B, S, steps=5):
+    """Phase 26: a config at full width with its first ``n_layers``
+    layers (its training state does not fit 80 GB at full depth) trains
+    ``steps`` steps through the train step: finite losses, launch counts,
+    step time, tokens/s, peak memory and a profile of one step."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, layer_specs
+    from repro_torch.models.params import count_params
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    state = train_loop.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    step = train_loop.make_train_step(cfg, train_loop.TrainConfig(
+        opt=optimizer.OptConfig(lr=1e-3, warmup_steps=2, total_steps=steps)))
+    stream = TokenStream(cfg, B, S, DataConfig())
+    ops.reset_launch_counts()
+    losses, secs = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, stream.batch_at(i))
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    n = ops.launch_counts()
+    require(all(math.isfinite(x) for x in losses),
+            f"{name}: a loss is not finite: {losses}")
+    n_attn = sum(s.kind == "attn" for s in layer_specs(cfg))
+    n_mamba = n_layers - n_attn
+    chunks = -(-S // 256)
+    want = {"flash_attention_bwd": n_attn * steps,
+            "flash_attention": 2 * n_attn * steps,
+            "ssm_scan_bwd": n_mamba * chunks * steps,
+            "ssm_scan": 2 * n_mamba * chunks * steps}
+    for kernel, w in want.items():
+        require(n[kernel] == w, f"{name}: {kernel} launches {n[kernel]} != "
+                f"{w}")
+    n_params = count_params(state.params)
+    del state
+    torch.cuda.empty_cache()
+    step_s = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"phase 26 {name} ({n_layers} of {get_config(name).n_layers} "
+          f"layers, {n_params / 1e9:.3f} B params) train B={B} S={S}, "
+          f"{steps} steps: median step {step_s * 1e3:.1f} ms "
+          f"({B * S / step_s:.0f} tokens/s), first {secs[0] * 1e3:.1f} ms, "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; losses "
+          + " ".join(f"{x:.4f}" for x in losses) + f"; launches {n}")
+    train_profile(torch, cfg, B, S, f"{name} ({n_layers} layers) train step "
+                  f"B={B} S={S}")
+    return n
+
+
+def resume_on_card():
+    """Phase 27: the reduced stablelm trains on the card through the train
+    CLI with checkpoints every 3 steps, dies at step 5 (exit code 17), and
+    a second run resumes from the verified step-6 checkpoint and finishes.
+    Both runs are child processes, waited for."""
+    import os
+    import tempfile
+
+    from repro_torch.train import checkpoint as ckpt
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        args = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                "stablelm-1.6b", "--reduced", "--steps", "9", "--batch", "2",
+                "--seq", "32", "--ckpt-dir", d, "--ckpt-every", "3"]
+        t0 = time.perf_counter()
+        p1 = subprocess.run(args + ["--simulate-failure", "5"],
+                            capture_output=True, text=True, env=env, cwd=ROOT,
+                            timeout=300)
+        require(p1.returncode == 17, f"the failing run exited "
+                f"{p1.returncode}: {p1.stderr[-2000:]}")
+        require(ckpt.latest_step(d) == 6 and ckpt.verify(d, 6),
+                f"latest verified step {ckpt.latest_step(d)}, want 6")
+        p2 = subprocess.run(args, capture_output=True, text=True, env=env,
+                            cwd=ROOT, timeout=300)
+        require(p2.returncode == 0, f"the resumed run exited {p2.returncode}:"
+                f" {p2.stderr[-2000:]}")
+        require("resumed from step 6" in p2.stdout and "step 8" in p2.stdout,
+                f"the resumed run printed {p2.stdout[-2000:]}")
+    print(f"phase 27 checkpoint, kill and resume on the card (reduced "
+          f"stablelm, two child processes): exit 17 after step 5, resumed "
+          f"from step 6 and finished step 8, {time.perf_counter() - t0:.1f} "
+          f"s wall")
+
+
 def main():
     import torch
 
@@ -1935,6 +2437,55 @@ def main():
     # phases 19-21: gemma3, qwen2-vl and hubert at full size
     families_full(torch, ops, counts)
 
+    # phase 22: the training kernels against their plain versions
+    fa_bwd_err = check_flash_train(torch, fa)
+    fa_bwd_stablelm = fa_bwd_err[("bfloat16", *STABLELM_TRAIN.values(), True,
+                                  0, False)]
+    fa_bwd_qwen_err = fa_bwd_err[("bfloat16", *QWEN_TRAIN.values(), True, 0,
+                                  False)]
+    check_decode_positions(torch, dec)
+    ssm_bwd_err = check_ssm_train(torch, ssm)
+
+    # phase 23: the backward kernels' times at the training shapes
+    timer = Timer(torch)
+    times["flash_attention_bwd"] = time_flash_bwd(torch, fa, timer,
+                                                  **STABLELM_TRAIN)
+    fa_bwd_qwen = time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
+    times["ssm_scan_bwd"] = time_ssm_bwd(torch, ssm, timer,
+                                         **MAMBA_TRAIN_CHUNK)
+    del timer
+    for name, t in (("flash_attention_bwd bf16 causal B=8 H=32 Hkv=32 S=2048 "
+                     "D=64", times["flash_attention_bwd"]),
+                    ("flash_attention_bwd bf16 causal B=4 H=32 Hkv=8 S=2048 "
+                     "D=128", fa_bwd_qwen),
+                    ("ssm_scan_bwd f32 B=2 S=256 I=8192 N=16",
+                     times["ssm_scan_bwd"])):
+        ratio = (f" x_library={t['ms'] / t['library_ms']:.3f}"
+                 if t["library_ms"] else "")
+        print(f"time {name}: " + " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in t.items()) + f" x_bound={t['ms'] / t['bound_ms']:.3f}"
+            + ratio + f" [{card}]")
+
+    # phase 24: reduced train steps, card against CPU
+    t0 = time.perf_counter()
+    check_train_small(torch)
+    print(f"phase 24 reduced train steps: {time.perf_counter() - t0:.1f} s "
+          f"wall")
+
+    # phase 25: stablelm-1.6b at full width and depth through the train CLI
+    add_counts(counts, train_stablelm(torch, ops))
+    torch.cuda.empty_cache()
+
+    # phase 26: full width, cut depth
+    for name, n_layers, B, S in (("qwen3-8b", 4, 4, 2048),
+                                 ("falcon-mamba-7b", 8, 2, 1024)):
+        add_counts(counts, train_cut_depth(torch, ops, name, n_layers, B, S))
+        torch.cuda.empty_cache()
+
+    # phase 27: checkpoint, kill and resume on the card
+    resume_on_card()
+
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",
              source="src/repro_torch/kernels/csrc/lags_select.cu",
@@ -1964,6 +2515,33 @@ def main():
              launches=counts["ssm_scan"],
              max_abs_err=ssm_err[tuple(MAMBA_CHUNK.values())],
              **times["ssm_scan"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             kernel=("fa_bwd_dq_mma + fa_bwd_dkdv_mma (bf16), fa_bwd_dq_f32 "
+                     "+ fa_bwd_dkdv_f32"),
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention.py:77",
+             replaces_note=("the TPU kernel has no backward: the reference "
+                            "differentiates src/repro/models/attention.py:46 "
+                            "(_attend_chunk) with XLA"),
+             launches=counts["flash_attention_bwd"],
+             max_abs_err=fa_bwd_stablelm[0],
+             max_tile_rel_err=fa_bwd_stablelm[1],
+             shape="B=8 H=32 Hkv=32 S=2048 D=64 causal bf16",
+             **times["flash_attention_bwd"],
+             qwen3=dict(shape="B=4 H=32 Hkv=8 S=2048 D=128 causal bf16",
+                        max_abs_err=fa_bwd_qwen_err[0],
+                        max_tile_rel_err=fa_bwd_qwen_err[1], **fa_bwd_qwen)),
+        dict(name="ssm_scan_bwd", route="cuda",
+             kernel="ssm_bwd_ckpt + ssm_bwd + ssm_bwd_dc",
+             source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+             replaces="src/repro/kernels/ssm_scan.py:51",
+             replaces_note=("the TPU kernel has no backward: the reference "
+                            "differentiates the scan of "
+                            "src/repro/models/mamba.py:56 with XLA"),
+             launches=counts["ssm_scan_bwd"],
+             max_abs_err=ssm_bwd_err[tuple(MAMBA_TRAIN_CHUNK.values())],
+             shape="B=2 S=256 I=8192 N=16 f32",
+             **times["ssm_scan_bwd"]),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall [{card}]")
     print(json.dumps({"kernels": kernels}))

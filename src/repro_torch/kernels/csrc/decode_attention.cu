@@ -5,7 +5,10 @@
 // src/repro/kernels/decode_attention.py::decode_attention (body _dec_kernel).
 // Shapes: q (B, H, D); k, v (B, Hkv, L, D) given by strides (the model hands
 // in its (B, L, Hkv, D) cache as a permuted view, nothing is copied);
-// kv_len (B,) int32; out (B, H, D) contiguous, in q's dtype.  Query head h
+// kv_len (B,) int32; optional kv_start (B,) int32, so row b attends over
+// cache rows [kv_start[b], kv_len[b]) (the reference's decode mask under
+// given positions; an empty range gives 0); out (B, H, D) contiguous, in
+// q's dtype.  Query head h
 // reads KV head h / G with G = H / Hkv; G = 1 is the TPU kernel's function.
 // G may be up to 16 (qwen3-moe's 64 heads over 4): each kernel is built for
 // a group bound GB of 8 and of 16, and the launch takes the smaller that
@@ -201,7 +204,7 @@ template <int LPR, int CPL, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_split(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const int* __restrict__ kv_len,
-          float* __restrict__ out, float* __restrict__ m_part,
+          const int* __restrict__ kv_start, float* __restrict__ out, float* __restrict__ m_part,
           float* __restrict__ l_part, float* __restrict__ acc_part,
           unsigned* __restrict__ counters, int H, int G, int L, int chunk,
           int n_split, long long qsb, long long qsh, long long ksb,
@@ -214,8 +217,9 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane / LPR, sub = lane % LPR;
   const int len = min(kv_len[b], L);
-  const int start = split * chunk;
-  const int n = min(start + chunk, len) - start;  // rows of this split
+  // rows [kv_start[b], len) are attended to; this split holds [start, start + n)
+  const int start = max(split * chunk, kv_start != nullptr ? kv_start[b] : 0);
+  const int n = min(split * chunk + chunk, len) - start;
   const long long head0 = (long long)b * H + (long long)hk * G;  // (b, h) of g = 0
   auto col = [&](int c) { return (sub + c * LPR) * EPC; };  // chunk c's first column
 
@@ -426,7 +430,7 @@ template <int D, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
-        __nv_bfloat16* __restrict__ out, float* __restrict__ m_part,
+        const int* __restrict__ kv_start, __nv_bfloat16* __restrict__ out, float* __restrict__ m_part,
         float* __restrict__ l_part, float* __restrict__ acc_part,
         unsigned* __restrict__ counters, int H, int G, int L, int chunk,
         int n_split, long long qsb, long long qsh, long long ksb,
@@ -440,8 +444,9 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int len = min(kv_len[b], L);
-  const int start = split * chunk;
-  const int n = min(start + chunk, len) - start;  // rows of this split
+  // rows [kv_start[b], len) are attended to; this split holds [start, start + n)
+  const int start = max(split * chunk, kv_start != nullptr ? kv_start[b] : 0);
+  const int n = min(split * chunk + chunk, len) - start;
   const long long head0 = (long long)b * H + (long long)hk * G;
 
   if (n > 0) {
@@ -614,7 +619,7 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
 
 template <int D, int GB>
 int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
-               void* out, float* m_part, float* l_part, float* acc_part,
+               const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
                int n_split, long long qsb, long long qsh, long long ksb,
                long long ksh, long long ksl, long long vsb, long long vsh,
@@ -625,7 +630,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
   if (err != cudaSuccess) return static_cast<int>(err);
   dec_mma<D, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), kv_len, static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(v), kv_len, kv_start,
+      static_cast<__nv_bfloat16*>(out),
       m_part, l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb,
       ksh, ksl, vsb, vsh, vsl, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
@@ -633,7 +639,7 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
 
 template <int LPR, int CPL, int GB>
 int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
-               void* out, float* m_part, float* l_part, float* acc_part,
+               const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
                int n_split, long long qsb, long long qsh, long long ksb,
                long long ksh, long long ksl, long long vsb, long long vsh,
@@ -646,7 +652,8 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
   if (err != cudaSuccess) return static_cast<int>(err);
   dec_split<LPR, CPL, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_len, static_cast<float*>(out), m_part,
+      static_cast<const float*>(v), kv_len, kv_start, static_cast<float*>(out),
+      m_part,
       l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb, ksh,
       ksl, vsb, vsh, vsl, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
@@ -675,6 +682,7 @@ extern "C" int decode_attention_smem(int dtype, int D) {
   return 0;
 }
 
+// kv_start: (B,) int32 first row attended to, or null for row 0.
 // dtype: 0 = float32 (dec_split), 1 = bfloat16 (dec_mma); D one of the head
 // dims above; G = H / Hkv at most MAX_G, built for the group bound 8 where
 // it holds G and 16 otherwise; k and v 16-byte aligned with strides in
@@ -682,14 +690,15 @@ extern "C" int decode_attention_smem(int dtype, int D) {
 // left zero.
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const int* kv_len,
-    void* out, float* m_part, float* l_part, float* acc_part, unsigned* counters,
+    const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part, unsigned* counters,
     int B, int H, int G, int L, int D, int chunk, int n_split, long long qsb,
     long long qsh, long long ksb, long long ksh, long long ksl, long long vsb,
     long long vsh, long long vsl, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
 #define F32_GB(DD, LPR, CPL, GB)                                                \
-  return launch_f32<LPR, CPL, GB>(q, k, v, kv_len, out, m_part, l_part,         \
+  return launch_f32<LPR, CPL, GB>(q, k, v, kv_len, kv_start, out, m_part,      \
+                                  l_part,                                       \
                                   acc_part, counters, B, H, G, L, chunk,        \
                                   n_split, qsb, qsh, ksb, ksh, ksl, vsb, vsh,   \
                                   vsl, scale, st);
@@ -699,7 +708,8 @@ extern "C" int decode_attention_launch(
     F32_GB(DD, LPR, CPL, 16)                                                    \
   }
 #define BF16_GB(DD, GB)                                                         \
-  return launch_mma<DD, GB>(q, k, v, kv_len, out, m_part, l_part, acc_part,     \
+  return launch_mma<DD, GB>(q, k, v, kv_len, kv_start, out, m_part, l_part,     \
+                            acc_part,                                           \
                             counters, B, H, G, L, chunk, n_split, qsb, qsh,     \
                             ksb, ksh, ksl, vsb, vsh, vsl, scale, st);
 #define BF16_CASE(DD)                                                           \

@@ -1,6 +1,11 @@
 // Flash attention (forward) for Hopper (sm_90a): online softmax over KV
 // tiles, causal mask k <= q, optional window k > q - window, scale 1/sqrt(D),
-// f32 scores, output in q's dtype.
+// f32 scores, output in q's dtype.  With positions (q_pos, k_pos: (B, S)
+// int32, either may be null for the row index) the masks compare positions
+// instead of indices: key j is kept for query i when k_pos[b,j] <=
+// q_pos[b,i] (causal) and k_pos[b,j] > q_pos[b,i] - window (window > 0), the
+// reference's _attend_chunk mask (src/repro/models/attention.py:53-57); every
+// KV tile is then visited, and a row with no kept key gives 0.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (body _fa_kernel).
@@ -80,14 +85,15 @@ __device__ __forceinline__ void load_tile(float* dst, int dst_stride,
   }
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(NT, 2)
 fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
        const float* __restrict__ v, float* __restrict__ out, int H, int G, int S,
        int n_q, long long qsb, long long qsh, long long qss, long long ksb,
        long long ksh, long long kss, long long vsb, long long vsh,
        long long vss, long long osb, long long osh, long long oss,
-       float scale, int causal, int window) {
+       float scale, int causal, int window, const int* __restrict__ q_pos,
+       const int* __restrict__ k_pos) {
   using L = Smem<D>;
   constexpr int DC = D / TX;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -108,13 +114,20 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
 
   load_tile<D>(Qs, L::QS, qb, qss, q0, S);
 
-  // the KV tiles this query tile can see
+  // the KV tiles this query tile can see: all of them under positions
+  const bool posn = POS;
   const int q_last = min(q0 + BQ, S) - 1;
-  int kt_end = (causal ? q_last : S - 1) / BK + 1;
+  int kt_end = (causal && !posn ? q_last : S - 1) / BK + 1;
   int kt_begin = 0;
-  if (window > 0) {
+  if (window > 0 && !posn) {
     const int k_min = q0 - window + 1;  // lowest key any row here keeps
     kt_begin = k_min > 0 ? k_min / BK : 0;
+  }
+  int qpv[RPT];  // this thread's query positions
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + ty * RPT + i;
+    qpv[i] = POS && q_pos != nullptr && qi < S ? q_pos[(long long)b * S + qi] : qi;
   }
 
   float m[RPT], l[RPT], acc[RPT][DC];
@@ -157,15 +170,21 @@ fa_fwd(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // mask, online softmax, p = 0 where masked
+    int kpv[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int kj = k0 + tx + TX * j;
+      kpv[j] = POS && k_pos != nullptr && kj < S ? k_pos[(long long)b * S + kj] : kj;
+    }
     bool keep[RPT][RPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
-      const int qp = q0 + ty * RPT + i;
+      const int qp = qpv[i];
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
-        const int kp = k0 + tx + TX * j;
-        bool ok = kp < S;
+        const int kp = kpv[j];
+        bool ok = k0 + tx + TX * j < S;
         if (causal) ok = ok && kp <= qp;
         if (window > 0) ok = ok && kp > qp - window;
         keep[i][j] = ok;
@@ -275,14 +294,15 @@ __device__ __forceinline__ void load_tile16(__nv_bfloat16* dst,
   }
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(MW * 32)
 fa_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
        int H, int G, int S, int n_q, long long qsb, long long qsh,
        long long qss, long long ksb, long long ksh, long long kss,
        long long vsb, long long vsh, long long vss, long long osb,
-       long long osh, long long oss, float scale, int causal, int window) {
+       long long osh, long long oss, float scale, int causal, int window,
+       const int* __restrict__ q_pos, const int* __restrict__ k_pos) {
   constexpr int RS = D + 8;  // padded row stride of the K and V tiles
   constexpr int KD = D / 16, ND = D / 8, NK = BK / 8;
   __shared__ __align__(16) __nv_bfloat16 Ks[BK * RS];
@@ -318,12 +338,19 @@ fa_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     }
   }
 
+  const bool posn = POS;
   const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_end = (causal ? q_last : S - 1) / BK + 1;
+  const int kt_end = (causal && !posn ? q_last : S - 1) / BK + 1;
   int kt_begin = 0;
-  if (window > 0) {
+  if (window > 0 && !posn) {
     const int k_min = q0 - window + 1;
     kt_begin = k_min > 0 ? k_min / BK : 0;
+  }
+  int qpv[2];  // the positions of rows r0 + g and r0 + g + 8
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int qi = r0 + g + 8 * hf;
+    qpv[hf] = POS && q_pos != nullptr && qi < S ? q_pos[(long long)b * S + qi] : qi;
   }
 
   float o[ND][4];
@@ -356,16 +383,25 @@ fa_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
 
     // mask, online softmax over the quad; element e of tile nt is row
     // r0 + g + 8 * (e / 2), key k0 + nt * 8 + tig * 2 + e % 2
+    int kpv[NK][2];
+#pragma unroll
+    for (int nt = 0; nt < NK; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + nt * 8 + tig * 2 + e;
+        kpv[nt][e] = POS && k_pos != nullptr && kj < S
+                         ? k_pos[(long long)b * S + kj] : kj;
+      }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int qp = r0 + g + 8 * hf;
+      const int qp = qpv[hf];
       float mx = NEG_INF;
 #pragma unroll
       for (int nt = 0; nt < NK; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kp = k0 + nt * 8 + tig * 2 + e;
-          bool ok = kp < S;
+          const int kp = kpv[nt][e];
+          bool ok = k0 + nt * 8 + tig * 2 + e < S;
           if (causal) ok = ok && kp <= qp;
           if (window > 0) ok = ok && kp > qp - window;
           float& x = s[nt][hf * 2 + e];
@@ -434,22 +470,25 @@ fa_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
   }
 }
 
-template <int D>
+// POS: a call with positions; without them the kernels compile to the
+// index masks alone
+template <int D, bool POS>
 int launch(int dtype, const void* q, const void* k, const void* v, void* out,
            int B, int H, int G, int S, long long qsb, long long qsh,
            long long qss, long long ksb, long long ksh, long long kss,
            long long vsb, long long vsh, long long vss, long long osb,
            long long osh, long long oss, float scale, int causal, int window,
-           cudaStream_t st) {
+           const int* q_pos, const int* k_pos, cudaStream_t st) {
   const int n_q = (S + BQ - 1) / BQ;
   const dim3 grid(n_q, B * H);
   if (dtype == 1) {
-    fa_mma<D><<<grid, MW * 32, 0, st>>>(
+    fa_mma<D, POS><<<grid, MW * 32, 0, st>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
         static_cast<__nv_bfloat16*>(out), H, G, S, n_q, qsb, qsh, qss, ksb,
-        ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window);
+        ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window, q_pos,
+        k_pos);
     return static_cast<int>(cudaGetLastError());
   }
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -457,13 +496,13 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
   // above 48 KB a block's dynamic shared memory must be asked for, or the
   // launch is refused
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd<D, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fa_fwd<D><<<grid, NT, smem, st>>>(
+  fa_fwd<D, POS><<<grid, NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), H, G, S, n_q,
       qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, scale,
-      causal, window);
+      causal, window, q_pos, k_pos);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,19 +510,26 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32 (fa_fwd), 1 = bfloat16 (fa_mma: every stride a multiple
 // of 8 elements and every pointer 16-byte aligned, which the caller checks).
-// A head dim not built here returns cudaErrorInvalidValue.
+// q_pos, k_pos: (B, S) int32 positions, or null for the row index.  A head
+// dim not built here returns cudaErrorInvalidValue.
 extern "C" int flash_attention_launch(
     int dtype, const void* q, const void* k, const void* v, void* out, int B,
     int H, int G, int S, int D, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
-    int causal, int window, void* stream) {
+    int causal, int window, const int* q_pos, const int* k_pos, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_CASE(DD)                                                          \
   case DD:                                                                   \
-    return launch<DD>(dtype, q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb,   \
-                      ksh, kss, vsb, vsh, vss, osb, osh, oss, scale, causal, \
-                      window, st);
+    return q_pos != nullptr || k_pos != nullptr                              \
+               ? launch<DD, true>(dtype, q, k, v, out, B, H, G, S, qsb, qsh, \
+                                  qss, ksb, ksh, kss, vsb, vsh, vss, osb,     \
+                                  osh, oss, scale, causal, window, q_pos,     \
+                                  k_pos, st)                                  \
+               : launch<DD, false>(dtype, q, k, v, out, B, H, G, S, qsb, qsh, \
+                                   qss, ksb, ksh, kss, vsb, vsh, vss, osb,    \
+                                   osh, oss, scale, causal, window, q_pos,    \
+                                   k_pos, st);
   switch (D) {  // the head dims of flash_attention.HEAD_DIMS
     FA_CASE(16)
     FA_CASE(32)

@@ -7,7 +7,9 @@ for tensors on the CPU and launches the kernel for tensors on a card; there
 is no fallback from one to the other.
 
 The signature keeps the TPU kernel's, q (B, H, D), k/v (B, Hkv, L, D),
-kv_len (B,), and adds grouped-query attention: query head h reads KV head
+kv_len (B,), and adds grouped-query attention and an optional kv_start
+(B,), the first row a query attends to (the reference's decode mask under
+given positions): query head h reads KV head
 h // G with G = H // Hkv up to 16 (G = 1 is the TPU kernel's function; the
 kernel is built for groups of up to 8 and of up to 16).  k and v may be
 strided views, so the model hands in its (B, L, Hkv, D) cache permuted, or
@@ -91,17 +93,23 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention_plain(q, k, v, kv_len, *, scale=None):
-    """Plain PyTorch version, in the kernel's numerics: f32 scores masked at
-    kv_len with -1e30, f32 softmax, f32 P.V, output in q's dtype."""
+def decode_attention_plain(q, k, v, kv_len, *, scale=None, kv_start=None):
+    """Plain PyTorch version, in the kernel's numerics: f32 scores masked
+    outside rows [kv_start, kv_len) with -1e30, f32 softmax (an empty range
+    gives 0, as the reference's clamped softmax does), f32 P.V, output in
+    q's dtype."""
     B, Hkv, L, D = k.shape
     H = q.shape[1]
     G = H // Hkv
     qf = q.float().reshape(B, Hkv, G, D)
     s = torch.einsum("bhgd,bhld->bhgl", qf, k.float()) * _scale(D, scale)
-    valid = torch.arange(L, device=q.device)[None, :] < kv_len.reshape(B, 1)
+    rows = torch.arange(L, device=q.device)[None, :]
+    valid = rows < kv_len.reshape(B, 1)
+    if kv_start is not None:
+        valid &= rows >= kv_start.reshape(B, 1)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF / 2))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgl,bhld->bhgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
 
@@ -109,18 +117,21 @@ def decode_attention_plain(q, k, v, kv_len, *, scale=None):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "decode_attention_launch": (
-        [_I] + [_P] * 9 + [_I] * 7 + [_L] * 8 + [_F, _P], _I),
+        [_I] + [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _P], _I),
     "decode_attention_max_group": ([], _I),
 }
 
 
-def decode_attention(q, k, v, kv_len, *, scale=None):
+def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None):
     """q: (B, H, D); k, v: (B, Hkv, L, D), any strides with the last one 1;
-    kv_len: (B,) valid prefix length.  Returns (B, H, D) in q's dtype."""
+    kv_len: (B,) valid prefix length; kv_start: optional (B,) first valid
+    row.  Returns (B, H, D) in q's dtype."""
     global launches
-    dev = _build.device_of(q, k, v, kv_len)
+    dev = _build.device_of(*(t for t in (q, k, v, kv_len, kv_start)
+                             if t is not None))
     if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len, scale=scale)
+        return decode_attention_plain(q, k, v, kv_len, scale=scale,
+                                      kv_start=kv_start)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -135,8 +146,10 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the last dimension of q, k and v must be contiguous")
-    if kv_len.shape != (B,):
-        raise ValueError(f"kv_len must be ({B},), got {tuple(kv_len.shape)}")
+    if kv_len.shape != (B,) or (kv_start is not None
+                                and kv_start.shape != (B,)):
+        raise ValueError(f"kv_len and kv_start must be ({B},), got "
+                         f"{tuple(kv_len.shape)}")
     if D not in HEAD_DIMS[q.dtype]:
         raise ValueError(f"head_dim {D} is not built into the kernel "
                          f"({HEAD_DIMS[q.dtype]} for {q.dtype})")
@@ -152,6 +165,8 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         raise ValueError(f"G={G} exceeds the kernel's "
                          f"{lib.decode_attention_max_group()}")
     kv_len = kv_len.to(torch.int32).contiguous()
+    if kv_start is not None:
+        kv_start = kv_start.to(torch.int32).contiguous()
     chunk, n_split = split_plan(B, Hkv, L, D, esize)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
     m_part = l_part = acc_part = counters = None
@@ -165,7 +180,8 @@ def decode_attention(q, k, v, kv_len, *, scale=None):
         counters = _counters(dev, B * Hkv).data_ptr()
     status = lib.decode_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), m_part, l_part, acc_part,
+        kv_len.data_ptr(), 0 if kv_start is None else kv_start.data_ptr(),
+        out.data_ptr(), m_part, l_part, acc_part,
         counters, B, H, G, L, D, chunk, n_split,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), _scale(D, scale),

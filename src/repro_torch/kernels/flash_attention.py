@@ -1,10 +1,23 @@
-"""Flash attention (forward): causal, windowed or full, with GQA.
+"""Flash attention, forward and backward: causal, windowed or full, by index
+or by given positions, with GQA.
 
 Port of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).  The CUDA
-kernel is ``csrc/flash_attention.cu``; ``flash_attention_plain`` beside it is
-its plain PyTorch version.  ``flash_attention`` runs the plain version for
-tensors on the CPU and launches the kernel for tensors on a card; there is no
-fallback from one to the other.
+kernels are ``csrc/flash_attention*.cu``; ``flash_attention_plain`` beside
+them is the forward's plain PyTorch version and ``flash_attention_bwd_plain``
+the backward's.  ``flash_attention`` runs the plain version for tensors on
+the CPU (autograd differentiates it there) and launches a kernel for tensors
+on a card; there is no fallback from one to the other.  Where a gradient is
+wanted on a card it goes through ``FlashAttentionFn``, whose backward pass
+is the kernel of ``csrc/flash_attention_bwd.cu``: the TPU kernel has no
+backward, and the reference trains through plain ``jnp``
+(``repro.models.attention._attend_chunk``) differentiated by XLA, whose
+gradient the kernel computes.
+
+Positions (``q_pos``, ``k_pos``: (B, S) integers, either may be None for the
+row index) replace the indices in the masks: key j is kept for query i when
+k_pos[b, j] <= q_pos[b, i] (causal) and k_pos[b, j] > q_pos[b, i] - window,
+the reference's ``_attend_chunk`` mask; a query row with no kept key gives
+0 and has zero gradient, as the reference's clamped softmax gives them.
 
 The signature keeps the TPU kernel's, q (B, H, S, D) -> (B, H, S, D), and
 adds grouped-query attention: k and v are (B, Hkv, S, D) and query head h
@@ -18,17 +31,22 @@ v's dtype before P.V as the reference rounds it, and the output is cast to
 q's dtype.  Any S is taken: the TPU kernel's S % block == 0 is a TPU tiling
 rule.
 
-On a card the kernel is a pure function of (dtype, D), ``route``:
+On a card the forward kernel is a pure function of (dtype, D, whether
+positions are given), ``route``:
 
 * ``fa_wgmma`` (``csrc/flash_attention_wgmma.cu``) for bf16 at D in
   ``WGMMA_DIMS`` (64 and 128, every attention config of the port):
   warp-specialised, TMA loads and ``wgmma`` products;
 * ``fa_mma`` (``csrc/flash_attention.cu``) for bf16 at the other head dims
-  of ``HEAD_DIMS``: ``mma.sync`` with 16-byte loads;
+  of ``HEAD_DIMS``, and for bf16 with positions: ``mma.sync`` with 16-byte
+  loads;
 * ``fa_fwd`` (``csrc/flash_attention.cu``) for f32, on the CUDA cores, at any
   strides.
 
-Both bf16 kernels read 16 bytes at a time (TMA needs 16-byte aligned data and
+The backward kernel runs ``mma.sync`` for bf16 and the CUDA cores for f32,
+at every head dim of ``HEAD_DIMS``, with the same masks.
+
+The bf16 kernels read 16 bytes at a time (TMA needs 16-byte aligned data and
 strides): their inputs' strides must be multiples of 8 elements, as the
 model's projections are, and anything else is refused.
 """
@@ -48,8 +66,10 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 #: the bf16 head dims ``fa_wgmma`` takes
 WGMMA_DIMS = (64, 128)
 
-#: kernel launches so far (plain-version calls are not counted)
+#: kernel launches so far (plain-version calls are not counted): the
+#: forward, and the backward (one per call of its two kernels)
 launches = 0
+bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -60,34 +80,87 @@ def _scale(D: int, scale):
         if scale is None else float(scale)
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None):
+def _positions(pos, B, S, device):
+    """(B, S) int64 positions, or the row index where ``pos`` is None."""
+    if pos is None:
+        return torch.arange(S, device=device).expand(B, S)
+    return torch.as_tensor(pos, device=device).long().expand(B, S)
+
+
+def _keep(q_pos, k_pos, B, S, causal, window, device):
+    """(B, 1, 1, S, S) bool: key j is kept for query i, the reference's
+    ``_attend_chunk`` mask over positions (the row index where none are
+    given)."""
+    qp = _positions(q_pos, B, S, device)[:, :, None]
+    kp = _positions(k_pos, B, S, device)[:, None, :]
+    keep = torch.ones((B, S, S), dtype=torch.bool, device=device)
+    if causal:
+        keep &= kp <= qp
+    if window:
+        keep &= kp > qp - window
+    return keep[:, None, None]
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, scale=None,
+                          q_pos=None, k_pos=None):
     """Plain PyTorch version, in the kernel's numerics: f32 scores masked
-    with -1e30, f32 softmax, p rounded to v's dtype, f32 P.V sums, output in
-    q's dtype."""
+    with -1e30, the softmax of the reference (max clamped at -1e30 / 2, sum
+    at 1e-30, so a row with no kept key gives 0), p rounded to v's dtype,
+    f32 P.V sums, output in q's dtype.  Differentiable: autograd through it
+    is the reference's gradient."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
     qf = q.float().reshape(B, Hkv, G, S, D)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k.float()) * _scale(D, scale)
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    keep = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= ki <= qi
-    if window:
-        keep &= ki > qi - window
+    keep = _keep(q_pos, k_pos, B, S, causal, window, q.device)
     s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF / 2).detach()
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
-def route(dtype: torch.dtype, D: int) -> str:
-    """The kernel that runs a call on the card, from its dtype and head dim."""
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal=True, window=0,
+                              scale=None, q_pos=None, k_pos=None):
+    """Plain PyTorch version of the backward kernel, in its numerics: P =
+    exp(S * scale - L) from the row's log-sum-exp L over kept keys (0 where
+    masked), dV = P^T dO with P rounded to v's dtype, dP = dO V^T, dS = P *
+    (dP - Delta) with Delta = rowsum(dO * O) from the forward's output O,
+    dS rounded to q's dtype before dQ = dS K * scale and dK = dS^T Q *
+    scale; dK and dV summed over each KV group in f32.  Returns (dq, dk,
+    dv) in the inputs' dtypes and shapes."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    sc = _scale(D, scale)
+    qf = q.float().reshape(B, Hkv, G, S, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Hkv, G, S, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * sc
+    keep = _keep(q_pos, k_pos, B, S, causal, window, q.device)
+    s = torch.where(keep, s, torch.full_like(s, -math.inf))
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(s - lse)  # exp(-inf) = 0 where masked
+    delta = (dof * o.float().reshape(B, Hkv, G, S, D)).sum(-1, keepdim=True)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p.to(v.dtype).float(), dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sc
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * sc
+    return (dq.reshape(B, H, S, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def route(dtype: torch.dtype, D: int, positions: bool = False) -> str:
+    """The forward kernel that runs a call on the card, from its dtype, head
+    dim and whether it has positions (``fa_wgmma`` masks by index only)."""
     if dtype == torch.float32:
         return "fa_fwd"
     if dtype == torch.bfloat16:
-        return "fa_wgmma" if D in WGMMA_DIMS else "fa_mma"
+        return "fa_wgmma" if D in WGMMA_DIMS and not positions else "fa_mma"
     raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}")
 
 
@@ -102,23 +175,17 @@ def _strides(t):
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "flash_attention": {"flash_attention_launch": (
-        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I)},
+        [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P, _P, _P],
+        _I)},
     "flash_attention_wgmma": {"flash_attention_wgmma_launch": (
         [_P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I)},
+    "flash_attention_bwd": {"flash_attention_bwd_launch": (
+        [_I] + [_P] * 12 + [_I] * 5 + [_P, _F, _I, _I, _P], _I)},
 }
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
-    """q: (B, H, S, D); k, v: (B, Hkv, S, D), any strides with the last one
-    1.  Returns (B, H, S, D) in q's dtype (on a card, a view of a
-    (B, S, H, D) tensor)."""
-    global launches
-    dev = _build.device_of(q, k, v)
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+def _check(q, k, v, window):
+    """The shared checks of a call on the card; returns (B, H, Hkv, S, D)."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,S,D) and k, v (B,Hkv,S,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -136,25 +203,138 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None):
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} is not built into the kernel "
                          f"({HEAD_DIMS})")
-    strides = [_strides(t) for t in (q, k, v)]
-    if q.dtype == torch.bfloat16 and not (
-            all(st % 8 == 0 for sts in strides for st in sts)
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+    return B, H, Hkv, S, D
+
+
+def _aligned(tensors):
+    """bf16 kernels read 16 bytes at a time: strides in multiples of 8
+    elements and 16-byte aligned data."""
+    return all(st % 8 == 0 for t in tensors for st in _strides(t)) and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pos_arg(pos, B, S, dev):
+    """(tensor kept alive, pointer) of (B, S) int32 positions, or None, 0."""
+    if pos is None:
+        return None, 0
+    pos = torch.as_tensor(pos, device=dev).to(torch.int32).expand(B, S)
+    pos = pos.contiguous()
+    return pos, pos.data_ptr()
+
+
+def _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos):
+    """One launch of the forward kernel that ``route`` names."""
+    global launches
+    dev = q.device
+    B, H, Hkv, S, D = _check(q, k, v, window)
+    if q.dtype == torch.bfloat16 and not _aligned((q, k, v)):
         raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
                          "elements and 16-byte aligned data")
-    (qsb, qsh, qss), (ksb, ksh, kss), (vsb, vsh, vss) = strides
+    qp, qp_ptr = _pos_arg(q_pos, B, S, dev)
+    kp, kp_ptr = _pos_arg(k_pos, B, S, dev)
+    (qsb, qsh, qss), (ksb, ksh, kss), (vsb, vsh, vss) = map(_strides,
+                                                            (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             H // Hkv, S, D, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss,
             out.stride(0), out.stride(2), out.stride(1), _scale(D, scale),
-            int(bool(causal)), int(window), _build.stream_ptr(dev))
-    if route(q.dtype, D) == "fa_wgmma":
+            int(bool(causal)), int(window))
+    if route(q.dtype, D, qp is not None or kp is not None) == "fa_wgmma":
         lib = _build.library("flash_attention_wgmma",
                              _SIGNATURES["flash_attention_wgmma"])
-        status = lib.flash_attention_wgmma_launch(*args)
+        status = lib.flash_attention_wgmma_launch(*args,
+                                                  _build.stream_ptr(dev))
     else:
         lib = _build.library("flash_attention", _SIGNATURES["flash_attention"])
-        status = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], *args)
+        status = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], *args,
+                                            qp_ptr, kp_ptr,
+                                            _build.stream_ptr(dev))
     _build.check_status("flash_attention", status)
     launches += 1
     return out.permute(0, 2, 1, 3)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
+                        q_pos=None, k_pos=None):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) for tensors on
+    a card: (dq, dk, dv) of the forward's output o and its gradient do, in
+    the shapes and dtypes of q, k and v (views of (B, S, heads, D) tensors).
+    Two kernels, one launch counted."""
+    global bwd_launches
+    dev = _build.device_of(q, k, v, o, do)
+    if dev.type != "cuda":
+        raise ValueError(f"the backward kernel runs on cuda, not {dev}")
+    B, H, Hkv, S, D = _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"be q's {tuple(q.shape)}")
+    # the gradient arrives in any layout: the kernel reads (B, S, H, D) rows
+    o, do = (t.to(q.dtype).permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+             if t.stride(3) != 1 or t.dtype != q.dtype or not _aligned((t,))
+             else t for t in (o, do))
+    if q.dtype == torch.bfloat16 and not _aligned((q, k, v, o, do)):
+        raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
+                         "elements and 16-byte aligned data")
+    qp, qp_ptr = _pos_arg(q_pos, B, S, dev)
+    kp, kp_ptr = _pos_arg(k_pos, B, S, dev)
+    dq = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, S, Hkv, D), dtype=q.dtype, device=dev)
+    dq, dk, dv = (t.permute(0, 2, 1, 3) for t in (dq, dk, dv))
+    # each (b, h, row)'s log-sum-exp and Delta, from the first kernel to the
+    # second
+    stats = torch.empty((2, B, H, S), dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 24)(*(
+        st for t in (q, k, v, o, do, dq, dk, dv) for st in _strides(t)))
+    lib = _build.library("flash_attention_bwd",
+                         _SIGNATURES["flash_attention_bwd"])
+    status = lib.flash_attention_bwd_launch(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(), qp_ptr,
+        kp_ptr,
+        B, H, H // Hkv, S, D, strides, _scale(D, scale), int(bool(causal)),
+        int(window), _build.stream_ptr(dev))
+    _build.check_status("flash_attention_bwd", status)
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient (tensors
+    on a card only; on the CPU autograd runs through the plain version)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale):
+        out = _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos)
+        ctx.save_for_backward(q, k, v, out, q_pos, k_pos)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, q_pos, k_pos = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, do, causal=causal, window=window, scale=scale,
+            q_pos=q_pos, k_pos=k_pos)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                    q_pos=None, k_pos=None):
+    """q: (B, H, S, D); k, v: (B, Hkv, S, D), any strides with the last one
+    1; q_pos, k_pos: optional (B, S) integer positions that the masks
+    compare in place of the row index.  Returns (B, H, S, D) in q's dtype
+    (on a card, a view of a (B, S, H, D) tensor).  Where a gradient is
+    wanted on a card, the call goes through ``FlashAttentionFn``."""
+    dev = _build.device_of(q, k, v)
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_pos=q_pos, k_pos=k_pos)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window,
+                                      scale)
+    return _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos)

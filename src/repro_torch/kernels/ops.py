@@ -18,15 +18,21 @@ flash_attention = _fa.flash_attention
 lags_select = _lags.lags_select
 ssm_scan = _ssm.ssm_scan
 
-_MODULES = {"lags_select": _lags, "decode_attention": _dec,
-            "flash_attention": _fa, "ssm_scan": _ssm}
+#: {kernel name: (module, counter attribute)}; the backward kernels count
+#: beside their forwards
+_COUNTERS = {"lags_select": (_lags, "launches"),
+             "decode_attention": (_dec, "launches"),
+             "flash_attention": (_fa, "launches"),
+             "ssm_scan": (_ssm, "launches"),
+             "flash_attention_bwd": (_fa, "bwd_launches"),
+             "ssm_scan_bwd": (_ssm, "bwd_launches")}
 
 
 def launch_counts() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)

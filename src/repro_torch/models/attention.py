@@ -21,11 +21,24 @@ reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
   batch shares cache_len, so they are the cache's rows r0..cache_len with
   r0 = max(0, cache_len + 1 - window), and the kernel reads a view that
   starts at row r0, with kv_len cut by r0.  Nothing is copied.
+* Given positions (``pos``, stream 0 of ``batch["positions"]``, (B, S)):
+  the reference's mask compares key positions with the query's stream 0
+  (attention.py:122-129).  With a cache the keys' positions are the cache
+  rows, so prefill hands the kernel q_pos = pos over the row index, and
+  decode attends over rows [max(0, pos - window + 1), min(cache_len + 1,
+  pos + 1)) of the whole cache (``kv_start``, ``kv_len`` per row).  Without
+  a cache (training, the encoder-only forward) the keys' positions are the
+  given ones: q_pos = k_pos = pos.
+* Training calls ``prefill_attention`` with no cache and gradients on: on a
+  card ``flash_attention`` runs its forward kernel with the backward kernel
+  as its gradient.
 
 The reference casts p to the value dtype before P.V; the flash kernel does
 the same, the decode kernel keeps p in f32.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -56,8 +69,9 @@ def _out(params: dict, out, x):
 
 
 def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
-                      window=None):
-    """x: (B, S, M); rope: (cos, sin) of (B, S, D/2) or None.  Writes k, v
+                      window=None, pos=None):
+    """x: (B, S, M); rope: (cos, sin) of (B, S, D/2) or None; pos: (B, S)
+    int32 positions of the mask, or None for the row index.  Writes k, v
     into ``cache`` at [:, :S] (unless it is None) and returns y (B, S, M)."""
     S = x.shape[1]
     q, k, v = _qkv(params, x, cfg, rope)
@@ -66,25 +80,35 @@ def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
         cache["v"][:, :S] = v.to(cache["v"].dtype)
     out = ops.flash_attention(
         q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-        causal=cfg.causal, window=window or 0)  # (B, H, S, D)
+        causal=cfg.causal, window=window or 0, q_pos=pos,
+        k_pos=pos if cache is None else None)  # (B, H, S, D)
     return _out(params, out.permute(0, 2, 1, 3), x)
 
 
 def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
-                     cache_len: int, kv_len, window=None):
+                     cache_len: int, kv_len, window=None, pos=None):
     """x: (B, 1, M); rope: (cos, sin) of (B, 1, D/2) or None; kv_len: (B,)
-    int32 = cache_len + 1.  Writes the new k, v into ``cache`` at
-    ``cache_len`` and returns y (B, 1, M)."""
+    int32 = cache_len + 1; pos: (B, 1) int32 positions of the mask, or None
+    for the row index.  Writes the new k, v into ``cache`` at ``cache_len``
+    and returns y (B, 1, M)."""
     if x.shape[1] != 1:
         raise NotImplementedError("decode takes one token a step (S = 1)")
     q, k, v = _qkv(params, x, cfg, rope)
     ck, cv = cache["k"], cache["v"]
     ck[:, cache_len] = k[:, 0].to(ck.dtype)
     cv[:, cache_len] = v[:, 0].to(cv.dtype)
-    r0 = max(0, cache_len + 1 - window) if window else 0
-    if r0:
+    kv_start = None
+    if pos is not None:
+        qp = pos[:, 0].to(kv_len.dtype)
+        if cfg.causal:
+            kv_len = torch.minimum(kv_len, qp + 1)
+        if window:
+            kv_start = (qp - window + 1).clamp_min(0)
+    elif window:
+        r0 = max(0, cache_len + 1 - window)
         ck, cv, kv_len = ck[:, r0:], cv[:, r0:], kv_len - r0
     out = ops.decode_attention(
         q[:, 0], ck.to(x.dtype).permute(0, 2, 1, 3),
-        cv.to(x.dtype).permute(0, 2, 1, 3), kv_len)  # (B, H, D)
+        cv.to(x.dtype).permute(0, 2, 1, 3), kv_len,
+        kv_start=kv_start)  # (B, H, D)
     return _out(params, out[:, None], x)

@@ -5,7 +5,9 @@ statistics and ``apply_rope`` in the GPT-NeoX convention, with cos/sin cast
 to the activation dtype as the reference casts them.  The reference's
 ``apply_rope`` computes its angles inside; the port splits them out
 (``rope_angles``, M-RoPE's sections included) so that a forward computes
-them once for every layer.  The loss comes with a later slice.
+them once for every layer.  ``softmax_cross_entropy`` is the reference's
+loss, the ratio of ``masked_nll``'s (sum, count), which the chunked loss
+sums over its chunks.
 """
 from __future__ import annotations
 
@@ -65,3 +67,22 @@ def apply_rope(x, cos, sin):
     sin = sin[:, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def masked_nll(logits, labels, mask=None):
+    """(sum of the NLL over masked positions, sum of the mask), f32; logits
+    (..., V) promoted to f32.  No mask counts every position."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
+    mask = mask.float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean CE over masked positions.  logits: (..., V) promoted to f32."""
+    total, count = masked_nll(logits, labels, mask)
+    return total / count.clamp_min(1.0)

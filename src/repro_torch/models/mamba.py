@@ -13,7 +13,11 @@ and B = 4); the last chunk may be shorter, so any S is taken.  Decode
 The reference rounds ``xc``, ``Bm`` and ``Cm`` to the activation dtype
 before casting them to f32; the port keeps those casts in the same places.
 The cache {"h": (B, I, N) f32, "conv": (B, W-1, I)} is updated in place
-(the reference returns a new one).
+(the reference returns a new one).  Without a cache (training, as the
+reference's ``cache`` None) the state starts at zero, the conv is padded
+with zeros, and nothing is written, so autograd sees no in-place update; on
+a card each chunk's scan then runs ``ssm_scan``'s forward kernel with its
+backward kernel as the gradient, the chunks chained through h0's gradient.
 """
 from __future__ import annotations
 
@@ -54,16 +58,19 @@ def _conv_shift(x_pad, w, b, S: int):
     return y + b
 
 
-def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict):
+def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     """x: (B, S, M) -> y (B, S, M); ``cache`` = {"h", "conv"} is read as the
-    initial state and overwritten with the final one."""
+    initial state and overwritten with the final one; None starts from zero
+    and keeps nothing."""
     B, S, M = x.shape
     I, N, R, W = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved, cfg.d_conv
     dt_ = x.dtype
 
     xz = x @ params["in_proj"].to(dt_)
     xin, z = xz[..., :I], xz[..., I:]
-    x_pad = torch.cat([cache["conv"].to(dt_), xin], dim=1)
+    conv0 = (torch.zeros((B, W - 1, I), dtype=dt_, device=x.device)
+             if cache is None else cache["conv"].to(dt_))
+    x_pad = torch.cat([conv0, xin], dim=1)
     new_conv = x_pad[:, -(W - 1):, :]
     xc = F.silu(_conv_shift(x_pad, params["conv_w"].to(dt_),
                             params["conv_b"].to(dt_), S))
@@ -74,7 +81,8 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict):
                     + params["dt_bias"])  # (B, S, I) f32
     A = -torch.exp(params["A_log"])  # (I, N) f32
     Bm32, Cm32, xc32 = Bm.float(), Cm.float(), xc.float()
-    h0 = cache["h"].float()
+    h0 = (torch.zeros((B, I, N), dtype=torch.float32, device=x.device)
+          if cache is None else cache["h"].float())
 
     if S == 1:  # decode: a single recurrence step
         dA = torch.exp(dt[:, 0, :, None] * A)  # (B, I, N)
@@ -96,6 +104,7 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict):
 
     y = (y + xc32 * params["D"]).to(dt_) * F.silu(z)
     out = y @ params["out_proj"].to(dt_)
-    cache["h"].copy_(h_last)
-    cache["conv"].copy_(new_conv)
+    if cache is not None:
+        cache["h"].copy_(h_last)
+        cache["conv"].copy_(new_conv)
     return out

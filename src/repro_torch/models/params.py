@@ -173,6 +173,27 @@ def from_jax_params(cfg: ModelConfig, tree: dict, device=None) -> dict:
     return params
 
 
+def reference_ndims(cfg: ModelConfig, params: dict) -> dict:
+    """A tree of ``params``' structure holding each leaf's number of
+    dimensions in the reference's tree: one more for a layer inside the
+    scanned stack (stacked over n_rep), where the reference's AdamW reads
+    it to decide weight decay (optimizer.py: ``p.ndim >= 2``), so the
+    stack's norms and Mamba vectors are decayed and ``final_norm`` is not."""
+    n_stacked = cfg.n_layers // scan_period(cfg) * scan_period(cfg)
+
+    def walk(node, extra):
+        if isinstance(node, torch.Tensor):
+            return node.dim() + extra
+        if isinstance(node, dict):
+            return {k: walk(v, extra) for k, v in node.items()}
+        return [walk(v, extra) for v in node]
+
+    out = {k: walk(v, 0) for k, v in params.items() if k != "layers"}
+    out["layers"] = [walk(layer, int(i < n_stacked))
+                     for i, layer in enumerate(params["layers"])]
+    return out
+
+
 def count_params(params: dict) -> int:
     total = 0
     stack = [params]

@@ -321,19 +321,98 @@ def test_vision_prefill_then_decode_matches_longer_prefill():
 
 
 def test_positions_off_the_row_index_raise():
-    """Stream 0 must be the row index: the reference's mask reads it, the
-    port's kernels mask by index."""
-    _, cfg, _, params = _model("qwen2-vl")
-    batch = _torch_batch(_batch(cfg, S))
-    batch["positions"][1, 5, 0] += 1
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.prefill(params, cfg, batch, device="cpu")
-    cache = model.init_cache(cfg, B, S + 1, device="cpu")
-    pos = torch.from_numpy(_positions(3, 1, 0))
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.decode_step(params, cfg, {"tokens": batch["tokens"][:, :1],
-                                        "positions": pos}, cache, 0,
-                          device="cpu")
+    """Stream 0 off the row index (the name is the test's from when the
+    port refused it): qwen2-vl's prefill with a gap in row 1's positions,
+    a decode step at a position below the cache length, and the training
+    loss equal the reference's, which masks keys by stream 0."""
+    jcfg, cfg, jparams, params = _model("qwen2-vl")
+    batch = _batch(cfg, S)
+    batch["positions"][1, 5:, 0] += 3
+    batch["positions"][0, :, 0] += 2
+    jlogits, jcache = jax.jit(lambda p, b: jax_model.prefill(
+        p, jcfg, b, max_len=S + 1))(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    logits, cache = model.prefill(params, cfg, _torch_batch(batch),
+                                  max_len=S + 1, device="cpu")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    pos = _positions(S, 1, 0)
+    pos[0, 0, 0] = 20  # row 0 masks cache rows 21..
+    db = {"tokens": batch["tokens"][:, :1], "positions": pos}
+    jd, _ = jax.jit(lambda p, b, c: jax_model.decode_step(p, jcfg, b, c, S))(
+        jparams, {k: jnp.asarray(v) for k, v in db.items()}, jcache)
+    d, _ = model.decode_step(params, cfg, _torch_batch(db), cache, S,
+                             device="cpu")
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TOL)
+    _assert_train_loss(jcfg, cfg, jparams, dict(
+        batch, targets=_batch(cfg, S, seed=9)["tokens"]))
+
+
+def _assert_train_loss(jcfg, cfg, jparams, batch):
+    """train_loss and the gradients of the embedding and of layer 0's
+    attention projections against the reference's: within 1e-4 of each
+    leaf's scale, or 4x the reference's own move under 1e-7 relative noise
+    on its embeddings where that is larger (tests/test_torch_train.py:
+    qwen2-vl's reduced embedding gradient moves by ~2e-4 of its scale)."""
+    f = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_model.train_loss(p, jcfg, b), has_aux=True))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = f(jparams, jb)
+    moved = None
+    for seed in range(2):
+        noisy = dict(jparams)
+        noisy["embed"] = jparams["embed"] * (1 + 1e-7 * jax.random.normal(
+            jax.random.PRNGKey(seed), jparams["embed"].shape))
+        d = jax.tree_util.tree_map(lambda a, b: jnp.abs(a - b),
+                                   f(noisy, jb)[1], jgrads)
+        moved = d if moved is None else jax.tree_util.tree_map(
+            jnp.maximum, moved, d)
+    tree = lambda t: from_jax_params(  # noqa: E731
+        cfg, jax.tree_util.tree_map(np.asarray, t), device="cpu")
+    tparams, want, move = tree(jparams), tree(jgrads), tree(moved)
+    pick = lambda t: [t["embed"]] + [t["layers"][0]["attn"][k]  # noqa: E731
+                                     for k in ("wq", "wk", "wv")]
+    for t in pick(tparams):
+        t.requires_grad_(True)
+    loss, _ = model.train_loss(tparams, cfg, _torch_batch(batch), device="cpu")
+    got = torch.autograd.grad(loss, pick(tparams))
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)
+    for g, w, m in zip(got, pick(want), pick(move)):
+        w = w.numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=max(
+            1e-4 * np.abs(w).max(), 4 * float(m.max())))
+
+
+def test_windowed_decode_and_train_with_positions():
+    """gemma3 (window 16) with positions off the row index: prefill of 32
+    rows whose positions skip ahead, then decode steps whose window, cut
+    by position, starts inside the cache (``kv_start``), and the training
+    loss, against the reference."""
+    jcfg, cfg, jparams, params = _model("gemma3")
+    batch = _batch(cfg, S)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32) * 2, (B, S)).copy()
+    pos[1] = np.arange(S) + 7
+    batch["positions"] = pos
+    max_len = S + 3
+    jlogits, jcache = jax.jit(lambda p, b: jax_model.prefill(
+        p, jcfg, b, max_len=max_len))(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    logits, cache = model.prefill(params, cfg, _torch_batch(batch),
+                                  max_len=max_len, device="cpu")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    jdecode = jax.jit(lambda p, b, c, n: jax_model.decode_step(p, jcfg, b, c,
+                                                               n))
+    for n, (p0, p1) in zip(range(S, max_len), ((64, 40), (20, 3), (70, 0))):
+        db = {"tokens": batch["tokens"][:, :1],
+              "positions": np.array([[p0], [p1]], np.int32)}
+        jd, jcache = jdecode(jparams, {k: jnp.asarray(v)
+                                       for k, v in db.items()}, jcache,
+                             jnp.asarray(n))
+        d, cache = model.decode_step(params, cfg, _torch_batch(db), cache, n,
+                                     device="cpu")
+        np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TOL,
+                                   err_msg=f"decode at {n}")
+    _assert_train_loss(jcfg, cfg, jparams, dict(
+        batch, targets=_batch(cfg, S, seed=9)["tokens"]))
 
 
 def test_too_many_vision_embeddings_raise():

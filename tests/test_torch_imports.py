@@ -164,6 +164,47 @@ def test_wrappers_do_not_fall_back_to_the_plain_version(monkeypatch):
                          torch.zeros(1, 32, 16))
 
 
+def test_backward_wrappers_run_only_on_cuda(monkeypatch):
+    """The backward kernels' wrappers take tensors on a card: a tensor on
+    the CPU or elsewhere raises, and never reaches the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd_plain", boom)
+    monkeypatch.setattr(ssm_mod, "ssm_scan_bwd_plain", boom)
+    for dev in ("cpu", "meta"):
+        t = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
+        with pytest.raises(ValueError, match="runs on cuda"):
+            fa_mod.flash_attention_bwd(t(1, 2, 8, 16), t(1, 2, 8, 16),
+                                       t(1, 2, 8, 16), t(1, 2, 8, 16),
+                                       t(1, 2, 8, 16))
+        with pytest.raises(ValueError, match="runs on cuda"):
+            ssm_mod.ssm_scan_bwd(t(1, 4, 32, 16), t(1, 4, 32, 16),
+                                 t(1, 4, 16), t(1, 32, 16), t(1, 4, 32),
+                                 None)
+
+
+def test_train_entry_points_raise_without_card_unless_cpu(no_card, capsys):
+    from repro_torch.launch import train
+    from repro_torch.train import train_loop
+    from repro_torch.train.data import TokenStream
+
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_loop.init_state(cfg, torch.Generator())
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    batch = TokenStream(cfg, 2, 8).batch_at(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.train_loss(params, cfg, batch)
+    loss, _ = model.train_loss(params, cfg, batch, device="cpu")
+    assert torch.isfinite(loss)
+    argv = ["--reduced", "--steps", "1", "--batch", "2", "--seq", "8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(argv)
+    assert len(train.main(argv + ["--device", "cpu"])["losses"]) == 1
+    assert "step 0: loss" in capsys.readouterr().out
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

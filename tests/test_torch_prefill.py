@@ -28,7 +28,7 @@ from repro.configs.base import scan_period
 from repro.models import model as jax_model
 from repro_torch.configs.base import get_config, list_configs, reduced
 from repro_torch.models import model
-from repro_torch.models.params import from_jax_params, init_params
+from repro_torch.models.params import from_jax_params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TOL_DECODE_VS_PREFILL = dict(rtol=2e-3, atol=2e-3)
@@ -184,17 +184,59 @@ def test_window_and_non_causal_prefill_match_reference():
 
 
 def test_given_positions_raise():
-    """The reference reads batch["positions"] when it is given; the port does
-    not take it yet and says so rather than ignore it."""
-    cfg = reduced(get_config("qwen3-8b"), n_layers=1)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    pos = torch.arange(4, dtype=torch.int32)[None] + 3
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.prefill(params, cfg, {"tokens": toks, "positions": pos},
-                      device="cpu")
-    cache = model.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="positions"):
-        model.decode_step(params, cfg, {"tokens": toks[:, :1],
-                                        "positions": pos[:, :1]}, cache, 0,
-                          device="cpu")
+    """Given positions whose stream 0 is off the row index (the name is the
+    test's from when the port refused them): prefill, decode and the
+    training loss equal the reference's, which masks keys by position.
+    Reduced Qwen3-8B at G = 2; row 0 at positions 3..6, row 1 at 0, 0, 1, 5
+    (a repeat and a gap); then a decode step at cache row 4 with positions
+    2 (below the cache length: rows 3.. masked) and 9."""
+    jcfg, cfg, jparams, params = _model("qwen3-8b", {"n_kv_heads": 2})
+    S = 4
+    toks = _tokens(cfg, S, seed=3)
+    pos = np.array([[3, 4, 5, 6], [0, 0, 1, 5]], np.int32)
+    jbatch = {"tokens": jnp.asarray(toks), "positions": jnp.asarray(pos)}
+    jlogits, jcache = jax.jit(lambda p, b: jax_model.prefill(
+        p, jcfg, b, max_len=S + 1))(jparams, jbatch)
+    logits, cache = model.prefill(
+        params, cfg, {"tokens": torch.from_numpy(toks),
+                      "positions": torch.from_numpy(pos)},
+        max_len=S + 1, device="cpu")
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
+    for i, layer in enumerate(cache):
+        for leaf, got in layer.items():
+            np.testing.assert_allclose(got.numpy(), _ref_layer(jcache, cfg, i)
+                                       [leaf], **TOL)
+    dpos = np.array([[2], [9]], np.int32)
+    jd, _ = jax.jit(lambda p, b, c: jax_model.decode_step(p, jcfg, b, c, S))(
+        jparams, {"tokens": jnp.asarray(toks[:, :1]),
+                  "positions": jnp.asarray(dpos)}, jcache)
+    d, _ = model.decode_step(params, cfg, {
+        "tokens": torch.from_numpy(toks[:, :1]),
+        "positions": torch.from_numpy(dpos)}, cache, S, device="cpu")
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), **TOL)
+
+    batch = {"tokens": toks, "targets": _tokens(cfg, S, seed=4),
+             "positions": pos}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_model.train_loss(p, jcfg, b), has_aux=True))(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tparams = from_jax_params(cfg, jax.tree_util.tree_map(np.asarray,
+                                                          jparams),
+                              device="cpu")
+    leaves = [tparams["embed"], tparams["layers"][0]["attn"]["wq"],
+              tparams["layers"][1]["attn"]["wk"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = model.train_loss(tparams, cfg, {k: torch.from_numpy(v) for k, v
+                                              in batch.items()}, device="cpu")
+    got = torch.autograd.grad(loss, leaves)
+    assert float(loss.detach()) == pytest.approx(float(jloss), rel=1e-5)
+    want = from_jax_params(cfg, jax.tree_util.tree_map(np.asarray, jgrads),
+                           device="cpu")
+    for g, w in zip(got, [want["embed"], want["layers"][0]["attn"]["wq"],
+                          want["layers"][1]["attn"]["wk"]]):
+        w = w.numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max())
+
+
