@@ -6,7 +6,7 @@
 Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 
 1. card: name and power limit from ``nvidia-smi``;
-2. build: the seven CUDA sources from ``src/repro_torch/kernels/csrc``, in
+2. build: the eight CUDA sources from ``src/repro_torch/kernels/csrc``, in
    parallel, with the compiler's register, shared memory and spill report
    for each kernel;
 3. ``lags_select`` against its plain PyTorch version: random cases at T
@@ -123,7 +123,12 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     the reference's test shapes, GQA, windows, non-causal D=80, S=1, ragged
     S, positions with repeats and gaps, and the qwen3-8b and stablelm-1.6b
     training shapes (f32 at TOL, bf16 at TOL and at a relative error of
-    1e-2 over each 64-row tile, printed in the kernels line);
+    1e-2 over each 64-row tile, printed in the kernels line); the wgmma
+    backward (``fa_bwd_wgmma``) at D 64 and 128, causal, window 128 and
+    non-causal, G 1, 2, 4, 8 and 16, S 1, 77, 300 and 2048: the forward's L
+    against its plain version (its output bit-equal to the no-gradient
+    build's), dq, dk, dv from that L as above; at the two training shapes
+    the ``mma`` route too, and two wgmma calls at stablelm's bit-equal;
     ``decode_attention`` over rows [kv_start,
     kv_len) at G=4 and G=16, an empty range giving 0; ``ssm_scan_bwd`` at
     the reference's shapes, without dy or dh_last, and one falcon-mamba
@@ -131,7 +136,8 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 23. the backward kernels' times at the training shapes beside their plain
     versions, their bounds (five products for attention) and, for
     attention, autograd of ``scaled_dot_product_attention`` as a yardstick
-    the port never calls;
+    the port never calls; attention's wgmma and ``mma`` routes timed in
+    turns (wgmma, mma, mma, wgmma), and the forward with and without L;
 24. the reduced stablelm, qwen3-8b (G=2), falcon-mamba, gemma3 and
     qwen2-vl in f32, the card (forward and backward kernels, remat on)
     against the CPU (plain versions): loss and every gradient leaf of
@@ -140,14 +146,15 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 25. stablelm-1.6b at full width and depth (24 layers, 1.645 B params,
     bf16) trains 10 steps at B=8, S=2048 through
     ``repro_torch.launch.train.main``: finite losses whose last three
-    average below the first, 24 x 10 backward and 2 x 24 x 10 forward
-    attention launches (remat recomputes each layer), step time, tokens/s,
-    peak memory, and a profile of one step with the backward kernels'
-    share;
+    average below the first, 24 x 10 backward launches, all on the wgmma
+    route, and 2 x 24 x 10 forward attention launches (remat recomputes
+    each layer), step time, tokens/s, peak memory, and a profile of one
+    step with the backward kernels' share;
 26. qwen3-8b (its first 4 of 36 layers, B=4, S=2048) and falcon-mamba-7b
     (its first 8 of 64, B=2, S=1024; full depth needs ~112 GB of training
-    state) train 5 steps each at full width: finite losses, launch counts,
-    step time and a profile;
+    state) train 5 steps each at full width: finite losses, launch counts
+    (qwen3-8b's 4 x 5 backward launches on the wgmma route), step time and
+    a profile;
 27. checkpoint, kill and resume on the card: the reduced stablelm through
     the train CLI in two child processes, the first dying after step 5
     (exit code 17), the second resuming from the verified step-6
@@ -156,7 +163,8 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16``; the two backward kernels at the stablelm-1.6b and falcon-mamba
-    training shapes), then ``{"ok": true, "device": {...}}`` last.
+    training shapes, attention's ``mma`` route under ``mma``), then
+    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
 It exits nonzero at once where no card is present.
@@ -1866,20 +1874,23 @@ def tile_rel(got, want, tile=64, floor=TILE_FLOOR):
     return float((d.norm(dim=-1) / den).max())
 
 
-def close_kernel(got, want, dtype, name):
+def close_kernel(got, want, dtype, name, quiet=False):
     """f32 at TOL; bf16 at TOL and at BF16_TILE_REL over each 64-row tile of
-    each (b, head).  Returns (max abs error, tile error; 0 for f32)."""
+    each (b, head).  Returns (max abs error, tile error; 0 for f32); prints
+    them unless ``quiet``."""
     ok, err, bad = within(got, want, TOL[dtype])
     require(ok, f"{name}: {bad} values outside {TOL[dtype]}, max err {err}")
     if dtype != "bfloat16":
-        print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}")
+        if not quiet:
+            print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}")
         return err, 0.0
     r = tile_rel(got, want)
     require(r <= BF16_TILE_REL, f"{name}: a 64-row tile's error {r:.3e} > "
             f"{BF16_TILE_REL} (max abs err {err:.3e})")
-    print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}; 64-row tile "
-          f"error {r:.3e} <= {BF16_TILE_REL} (without the floor "
-          f"{tile_rel(got, want, floor=0.0):.3e})")
+    if not quiet:
+        print(f"{name}: max_abs_err={err:.3e} within {TOL[dtype]}; 64-row "
+              f"tile error {r:.3e} <= {BF16_TILE_REL} (without the floor "
+              f"{tile_rel(got, want, floor=0.0):.3e})")
     return err, r
 
 
@@ -1892,13 +1903,14 @@ def train_positions(torch, gen, B, S):
 
 def check_flash_train(torch, fa):
     """Phase 22, attention: the positioned forward (fa_mma, fa_fwd) and the
-    backward kernel against their plain versions.  Returns (max abs error,
-    tile error) of dq, dk and dv by case."""
+    backward kernels, each call on its route (bf16 at D 64 and 128 without
+    positions on the wgmma route, given no L: the wrapper runs the forward
+    for it), against their plain versions."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     # (B, H, Hkv, S, D, causal, window, positions, dtypes): the reference's
     # test shapes at G=1, GQA, S=1, ragged S, D=80 non-causal, positions
-    # with and without a window, then the qwen3-8b and stablelm-1.6b
-    # training shapes
+    # with and without a window (the training shapes are in
+    # check_flash_bwd_wgmma)
     both = ("float32", "bfloat16")
     cases = [(1, 1, 1, 128, 64, True, 0, False, both),
              (2, 2, 2, 256, 128, True, 128, False, both),
@@ -1909,10 +1921,7 @@ def check_flash_train(torch, fa):
              (2, 4, 4, 200, 80, False, 0, False, both),
              (2, 4, 2, 100, 64, True, 0, True, both),
              (1, 4, 1, 90, 32, False, 30, True, both),
-             (2, 8, 2, 300, 128, True, 64, True, both),
-             tuple(QWEN_TRAIN.values()) + (True, 0, False, ("bfloat16",)),
-             tuple(STABLELM_TRAIN.values()) + (True, 0, False, ("bfloat16",))]
-    errs = {}
+             (2, 8, 2, 300, 128, True, 64, True, both)]
     for B, H, Hkv, S, D, causal, window, posn, dtypes in cases:
         for dtype in dtypes:
             q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
@@ -1932,12 +1941,93 @@ def check_flash_train(torch, fa):
             want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
             torch.cuda.synchronize()
             require(fa.bwd_launches == before + 1, "one backward launch")
-            res = [close_kernel(g, w, dtype, f"flash_attention_bwd d{t} "
-                                f"{name}") for t, g, w in zip("qkv", got, want)]
-            errs[(dtype, B, H, Hkv, S, D, causal, window, posn)] = (
-                max(e for e, _ in res), max(r for _, r in res))
+            for t, g, w in zip("qkv", got, want):
+                close_kernel(g, w, dtype, f"flash_attention_bwd "
+                             f"{fa.bwd_route(q.dtype, D, posn)} d{t} {name}")
             del got, want, o, o_p
     torch.cuda.empty_cache()
+
+
+# the wgmma backward's grid in phase 22
+BWD_WGMMA_MASKS = [(True, 0), (True, 128), (False, 0)]
+BWD_WGMMA_GROUPS = (1, 2, 4, 8, 16)
+BWD_WGMMA_S = (1, 77, 300, 2048)
+
+
+def check_flash_bwd_wgmma(torch, fa):
+    """Phase 22, the wgmma backward route: at D 64 and 128, each mask of
+    ``BWD_WGMMA_MASKS``, G in ``BWD_WGMMA_GROUPS`` and S in ``BWD_WGMMA_S``
+    (B=2 and two KV heads below S=2048, one of each at it), the forward's L
+    against ``flash_attention_lse_plain`` at f32 TOL with its output
+    bit-equal to the no-gradient build's, then dq, dk, dv from that L
+    against ``flash_attention_bwd_plain`` as ``close_kernel`` holds them.
+    At the two training shapes both routes (``mma`` by name), and two
+    wgmma calls at stablelm's must give equal bits.  Returns {(shape,
+    route): (max abs error, tile error)} of the training shapes."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+
+    def one(B, H, Hkv, S, D, causal, window, route=None, twice=False):
+        q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, "bfloat16")
+        do = flash_inputs(torch, gen, B, H, H, S, D, "bfloat16")[0]
+        kw = dict(causal=causal, window=window)
+        name = (f"flash_attention_bwd {route or 'fa_bwd_wgmma'} B={B} H={H} "
+                f"Hkv={Hkv} S={S} D={D} causal={causal} window={window}")
+        o0 = fa.flash_attention(q, k, v, **kw)
+        o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+        lse_err = within(lse, fa.flash_attention_lse_plain(q, k, **kw),
+                         TOL["float32"])
+        n0 = ops.launch_counts()
+        if route is None:
+            got = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        else:
+            got = fa.flash_attention_bwd(q, k, v, o, do, route=route, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        require(torch.equal(o, o0), f"{name}: the L-writing forward's output "
+                "differs from the no-gradient build's")
+        require(lse_err[0], f"{name}: L has {lse_err[2]} values outside "
+                f"{TOL['float32']} of the plain L, max err {lse_err[1]}")
+        n1 = ops.launch_counts()
+        r = route or "fa_bwd_wgmma"
+        require(n1[r] == n0[r] + 1 and n1["flash_attention_bwd"]
+                == n0["flash_attention_bwd"] + 1, f"{name}: backward launches "
+                f"{ {k: n1[k] - n0[k] for k in fa.BWD_ROUTES} }, want one {r}")
+        res = [close_kernel(g, w, "bfloat16", f"{name} d{t}", quiet=True)
+               for t, g, w in zip("qkv", got, want)]
+        err, tile = max(e for e, _ in res), max(r for _, r in res)
+        same = ""
+        if twice:
+            again = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{name}: two calls differ")
+            same = "; a second call bit-equal"
+        print(f"{name}: L max err {lse_err[1]:.3e}, out bit-equal to the "
+              f"no-gradient build's; dq, dk, dv max_abs_err={err:.3e} within "
+              f"{TOL['bfloat16']}, 64-row tile error {tile:.3e} <= "
+              f"{BF16_TILE_REL}{same}")
+        return err, tile
+
+    t0 = time.perf_counter()
+    n_cases = 0
+    for D in fa.WGMMA_DIMS:
+        for causal, window in BWD_WGMMA_MASKS:
+            for G in BWD_WGMMA_GROUPS:
+                for S in BWD_WGMMA_S:
+                    B, Hkv = (2, 2) if S < 2048 else (1, 1)
+                    one(B, G * Hkv, Hkv, S, D, causal, window)
+                    n_cases += 1
+    errs = {}
+    for shape in (STABLELM_TRAIN, QWEN_TRAIN):
+        for route in (None, "fa_bwd_mma"):
+            errs[(tuple(shape.values()), route or "fa_bwd_wgmma")] = one(
+                *shape.values(), True, 0, route=route,
+                twice=route is None and shape is STABLELM_TRAIN)
+    torch.cuda.empty_cache()
+    print(f"phase 22 wgmma backward: {n_cases} grid cases and the training "
+          f"shapes, {time.perf_counter() - t0:.1f} s wall")
     return errs
 
 
@@ -2000,16 +2090,29 @@ def check_ssm_train(torch, ssm):
 
 
 def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
-    """Phase 23: the backward kernel beside its plain version and, as a
-    yardstick the port never calls, the backward of
-    ``scaled_dot_product_attention`` (autograd of one SDPA call)."""
+    """Phase 23: the backward kernels of the wgmma route (given the
+    forward's L, as training runs them) and of the ``mma`` route (PR 18's,
+    by name), timed in turns on one card (wgmma, mma, mma, wgmma; each the
+    mean of its two), beside their plain version and, as a yardstick the
+    port never calls, the backward of ``scaled_dot_product_attention``
+    (autograd of one SDPA call); then the forward with and without L."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, dtype)
     do = flash_inputs(torch, gen, B, H, H, S, D, dtype)[0]
-    o = fa.flash_attention(q, k, v)
-    ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), iters=10)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    runs = {}
+    for route in ("fa_bwd_wgmma", "fa_bwd_mma", "fa_bwd_mma", "fa_bwd_wgmma"):
+        kw = dict(lse=lse) if route == "fa_bwd_wgmma" else dict(route=route)
+        runs.setdefault(route, []).append(timer.ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw), iters=10))
+    fwd = {}
+    for label, fn in (("no L", lambda: fa.flash_attention(q, k, v)),
+                      ("with L", lambda: fa.flash_attention_with_lse(q, k, v)),
+                      ("with L", lambda: fa.flash_attention_with_lse(q, k, v)),
+                      ("no L", lambda: fa.flash_attention(q, k, v))):
+        fwd.setdefault(label, []).append(timer.ms(fn, iters=10))
     plain_ms = timer.ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, do),
                         iters=3, warmup=1)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -2028,8 +2131,47 @@ def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
     b, by = bound_ms(n_bytes, n_ops, dtype)
     del out, qs, ks, vs
     torch.cuda.empty_cache()
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
-                bound_by=by)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return dict(ms=mean(runs["fa_bwd_wgmma"]), plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b, bound_by=by,
+                runs_ms=runs["fa_bwd_wgmma"],
+                mma=dict(ms=mean(runs["fa_bwd_mma"]), plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=b, bound_by=by,
+                         runs_ms=runs["fa_bwd_mma"]),
+                forward_ms={k: mean(v) for k, v in fwd.items()})
+
+
+def backward_times(torch, fa, ssm, card):
+    """Phase 23: ``time_flash_bwd`` at stablelm-1.6b's and qwen3-8b's
+    training shapes and ``time_ssm_bwd`` at falcon-mamba's chunk, printed
+    with their ratios; the wgmma route must beat the ``mma`` route at both
+    attention shapes.  Returns the three timings."""
+    timer = Timer(torch)
+    stablelm = time_flash_bwd(torch, fa, timer, **STABLELM_TRAIN)
+    qwen3 = time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
+    scan = time_ssm_bwd(torch, ssm, timer, **MAMBA_TRAIN_CHUNK)
+    del timer
+    rows = []
+    for shape, t in (("B=8 H=32 Hkv=32 S=2048 D=64", stablelm),
+                     ("B=4 H=32 Hkv=8 S=2048 D=128", qwen3)):
+        rows += [(f"flash_attention_bwd fa_bwd_wgmma bf16 causal {shape}", t),
+                 (f"flash_attention_bwd fa_bwd_mma bf16 causal {shape}",
+                  t["mma"])]
+        print(f"time flash_attention forward bf16 causal {shape}: " + ", ".join(
+            f"{k} {v:.6g} ms" for k, v in t["forward_ms"].items())
+            + f" (each the mean of two, in turns) [{card}]")
+    for name, t in rows + [("ssm_scan_bwd f32 B=2 S=256 I=8192 N=16", scan)]:
+        ratio = (f" x_library={t['ms'] / t['library_ms']:.3f}"
+                 if t["library_ms"] else "")
+        print(f"time {name}: " + " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in t.items() if k not in ("mma", "forward_ms"))
+            + f" x_bound={t['ms'] / t['bound_ms']:.3f}" + ratio + f" [{card}]")
+    for shape, t in ((STABLELM_TRAIN, stablelm), (QWEN_TRAIN, qwen3)):
+        require(t["ms"] < t["mma"]["ms"], f"flash_attention_bwd at {shape}: "
+                f"the wgmma route's {t['ms']:.4f} ms is not below the mma "
+                f"route's {t['mma']['ms']:.4f} ms")
+    return stablelm, qwen3, scan
 
 
 def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
@@ -2049,6 +2191,44 @@ def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
     # no one PyTorch call computes a selective scan or its gradient
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
                 bound_by=by)
+
+
+def bwd_entry(fa, counts, errs, stablelm, qwen3):
+    """The kernels line's ``flash_attention_bwd``: the wgmma route that
+    training runs, at stablelm-1.6b's shape and (``qwen3``) qwen3-8b's,
+    with PR 18's ``mma`` route under ``mma``."""
+    shapes = {"stablelm": (STABLELM_TRAIN, stablelm),
+              "qwen3": (QWEN_TRAIN, qwen3)}
+
+    def numbers(route, which):
+        shape, t = shapes[which]
+        t = t if route == "fa_bwd_wgmma" else t["mma"]
+        err, tile = errs[(tuple(shape.values()), route)]
+        B, H, Hkv, S, D = shape.values()
+        return dict(shape=f"B={B} H={H} Hkv={Hkv} S={S} D={D} causal bf16",
+                    max_abs_err=err, max_tile_rel_err=tile, **{
+                        k: v for k, v in t.items()
+                        if k not in ("mma", "forward_ms")})
+
+    return dict(
+        name="flash_attention_bwd", route="cuda",
+        kernel="fa_bwd_dq_wgmma + fa_bwd_dkdv_wgmma",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention.py:77",
+        replaces_note=("the TPU kernel has no backward: the reference "
+                       "differentiates src/repro/models/attention.py:46 "
+                       "(_attend_chunk) with XLA"),
+        launches=counts["fa_bwd_wgmma"],
+        launches_by_route={r: counts[r] for r in fa.BWD_ROUTES},
+        **numbers("fa_bwd_wgmma", "stablelm"),
+        qwen3=numbers("fa_bwd_wgmma", "qwen3"),
+        mma=dict(kernel=("fa_bwd_dq_mma + fa_bwd_dkdv_mma (bf16 with "
+                         "positions or other head dims; f32: fa_bwd_dq_f32 "
+                         "+ fa_bwd_dkdv_f32)"),
+                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                 launches=counts["fa_bwd_mma"],
+                 **numbers("fa_bwd_mma", "stablelm"),
+                 qwen3=numbers("fa_bwd_mma", "qwen3")))
 
 
 def check_train_small(torch):
@@ -2189,6 +2369,7 @@ def train_stablelm(torch, ops, steps=10, B=8, S=2048):
     check_losses(cfg.name, losses)
     n_attn = cfg.n_layers
     want = {"flash_attention_bwd": n_attn * steps,
+            "fa_bwd_wgmma": n_attn * steps, "fa_bwd_mma": 0, "fa_bwd_f32": 0,
             # remat runs each layer's forward again in the backward pass
             "flash_attention": 2 * n_attn * steps}
     for kernel, w in want.items():
@@ -2238,6 +2419,7 @@ def train_cut_depth(torch, ops, name, n_layers, B, S, steps=5):
     n_mamba = n_layers - n_attn
     chunks = -(-S // 256)
     want = {"flash_attention_bwd": n_attn * steps,
+            "fa_bwd_wgmma": n_attn * steps, "fa_bwd_mma": 0, "fa_bwd_f32": 0,
             "flash_attention": 2 * n_attn * steps,
             "ssm_scan_bwd": n_mamba * chunks * steps,
             "ssm_scan": 2 * n_mamba * chunks * steps}
@@ -2327,7 +2509,12 @@ def main():
           f"({', '.join(f'{k} {v:.1f} s' for k, v in built.items())})")
     for name in _build.SOURCES:
         log = (_build.BUILD_DIR / f"{name}.log")
-        rows = ptxas_report(log.read_text() if log.exists() else "")
+        text = log.read_text() if log.exists() else ""
+        rows = ptxas_report(text)
+        # ptxas says where it had to serialize wgmma products
+        for line in text.splitlines():
+            if "Potential Performance Loss" in line:
+                print(f"  {name}: ptxas: {line.split('Loss: ')[-1][:200]}")
         for fn, used, spill in rows:
             # the f32 decode kernel is built for six head dims: shown only
             # where it spills
@@ -2341,13 +2528,20 @@ def main():
                   f"{max(int(r[1].split()[1]) for r in quiet)} registers")
     fa_lib = _build.library("flash_attention_wgmma", {
         "flash_attention_wgmma_smem": ([ctypes.c_int], ctypes.c_int)})
+    bwd_lib = _build.library("flash_attention_bwd_wgmma", {
+        "flash_attention_bwd_wgmma_smem": ([ctypes.c_int, ctypes.c_int],
+                                           ctypes.c_int)})
     dec_lib = _build.library("decode_attention", {
         "decode_attention_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
     print("  dynamic shared memory a block: fa_wgmma D=64 "
           f"{fa_lib.flash_attention_wgmma_smem(64)} B, D=128 "
           f"{fa_lib.flash_attention_wgmma_smem(128)} B; dec_mma (bf16) D=128 "
           f"{dec_lib.decode_attention_smem(1, 128)} B, dec_split (f32) D=128 "
-          f"{dec_lib.decode_attention_smem(0, 128)} B")
+          f"{dec_lib.decode_attention_smem(0, 128)} B; fa_bwd_dq_wgmma D=64 "
+          f"{bwd_lib.flash_attention_bwd_wgmma_smem(64, 0)} B, D=128 "
+          f"{bwd_lib.flash_attention_bwd_wgmma_smem(128, 0)} B; "
+          f"fa_bwd_dkdv_wgmma D=64 {bwd_lib.flash_attention_bwd_wgmma_smem(64, 1)}"
+          f" B, D=128 {bwd_lib.flash_attention_bwd_wgmma_smem(128, 1)} B")
 
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
@@ -2438,34 +2632,14 @@ def main():
     families_full(torch, ops, counts)
 
     # phase 22: the training kernels against their plain versions
-    fa_bwd_err = check_flash_train(torch, fa)
-    fa_bwd_stablelm = fa_bwd_err[("bfloat16", *STABLELM_TRAIN.values(), True,
-                                  0, False)]
-    fa_bwd_qwen_err = fa_bwd_err[("bfloat16", *QWEN_TRAIN.values(), True, 0,
-                                  False)]
+    check_flash_train(torch, fa)
+    fa_bwd_err = check_flash_bwd_wgmma(torch, fa)
     check_decode_positions(torch, dec)
     ssm_bwd_err = check_ssm_train(torch, ssm)
 
     # phase 23: the backward kernels' times at the training shapes
-    timer = Timer(torch)
-    times["flash_attention_bwd"] = time_flash_bwd(torch, fa, timer,
-                                                  **STABLELM_TRAIN)
-    fa_bwd_qwen = time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
-    times["ssm_scan_bwd"] = time_ssm_bwd(torch, ssm, timer,
-                                         **MAMBA_TRAIN_CHUNK)
-    del timer
-    for name, t in (("flash_attention_bwd bf16 causal B=8 H=32 Hkv=32 S=2048 "
-                     "D=64", times["flash_attention_bwd"]),
-                    ("flash_attention_bwd bf16 causal B=4 H=32 Hkv=8 S=2048 "
-                     "D=128", fa_bwd_qwen),
-                    ("ssm_scan_bwd f32 B=2 S=256 I=8192 N=16",
-                     times["ssm_scan_bwd"])):
-        ratio = (f" x_library={t['ms'] / t['library_ms']:.3f}"
-                 if t["library_ms"] else "")
-        print(f"time {name}: " + " ".join(
-            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in t.items()) + f" x_bound={t['ms'] / t['bound_ms']:.3f}"
-            + ratio + f" [{card}]")
+    (times["flash_attention_bwd"], fa_bwd_qwen,
+     times["ssm_scan_bwd"]) = backward_times(torch, fa, ssm, card)
 
     # phase 24: reduced train steps, card against CPU
     t0 = time.perf_counter()
@@ -2515,22 +2689,8 @@ def main():
              launches=counts["ssm_scan"],
              max_abs_err=ssm_err[tuple(MAMBA_CHUNK.values())],
              **times["ssm_scan"]),
-        dict(name="flash_attention_bwd", route="cuda",
-             kernel=("fa_bwd_dq_mma + fa_bwd_dkdv_mma (bf16), fa_bwd_dq_f32 "
-                     "+ fa_bwd_dkdv_f32"),
-             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-             replaces="src/repro/kernels/flash_attention.py:77",
-             replaces_note=("the TPU kernel has no backward: the reference "
-                            "differentiates src/repro/models/attention.py:46 "
-                            "(_attend_chunk) with XLA"),
-             launches=counts["flash_attention_bwd"],
-             max_abs_err=fa_bwd_stablelm[0],
-             max_tile_rel_err=fa_bwd_stablelm[1],
-             shape="B=8 H=32 Hkv=32 S=2048 D=64 causal bf16",
-             **times["flash_attention_bwd"],
-             qwen3=dict(shape="B=4 H=32 Hkv=8 S=2048 D=128 causal bf16",
-                        max_abs_err=fa_bwd_qwen_err[0],
-                        max_tile_rel_err=fa_bwd_qwen_err[1], **fa_bwd_qwen)),
+        bwd_entry(fa, counts, fa_bwd_err, times["flash_attention_bwd"],
+                  fa_bwd_qwen),
         dict(name="ssm_scan_bwd", route="cuda",
              kernel="ssm_bwd_ckpt + ssm_bwd + ssm_bwd_dc",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",

@@ -4,8 +4,9 @@ Each source ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into its own shared library under
 ``kernels/build/`` and loaded with ``ctypes``.  ``build()`` starts one
 ``nvcc`` for every source that is not built yet, all at once, and waits for
-them.  A library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and a stale library is never loaded.  The compiler's
+them.  A library's file name carries a hash of its source, the shared
+headers ``csrc/*.cuh`` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  The compiler's
 output (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
 library as ``<name>.log``.
 
@@ -29,7 +30,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 SOURCES = ("lags_select", "decode_attention", "flash_attention",
            "flash_attention_wgmma", "ssm_scan", "flash_attention_bwd",
-           "ssm_scan_bwd")
+           "ssm_scan_bwd", "flash_attention_bwd_wgmma")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
          "-v")
@@ -60,6 +61,9 @@ def _flags(name: str):
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # a source may include any header: each is hashed, so none is stale
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.name.encode() + header.read_bytes()
     tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:16]}.so"
 

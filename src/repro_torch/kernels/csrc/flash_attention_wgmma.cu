@@ -40,12 +40,16 @@
 //   tile keeps its l and acc.
 // - O is scaled by 1/l, rounded to bf16, staged through the warpgroup's own
 //   Q rows in shared memory and written with 16-byte stores.
+// - A second build (LSE = true), which the training forward runs, also
+//   writes each row's log-sum-exp in log2 units, L = m + log2 l (0 for a row
+//   with no kept key), for the backward kernels of
+//   flash_attention_bwd_wgmma.cu: f32 (B, H, SP) with SP = 128 ceil(S /
+//   128), rows past S not written.  The build without it (every prefill)
+//   is the same code as before it existed.
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -68,132 +72,6 @@ template <int D> struct Cfg {
   // D = 128, within the 232,448 a block may have
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * NST);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// wait until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// 4-D TMA load of one box into shared memory, completing on ``bar``
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(bar)
-      : "memory");
-}
-
-// the map's coordinates for (d, s, h, b): the host sorted the three outer
-// dimensions by stride; perm holds the position (1..3) of s, h and b
-__device__ __forceinline__ void tma_load_sbh(uint32_t dst, const CUtensorMap* map,
-                                             uint32_t bar, int d, int s, int h,
-                                             int b, int perm) {
-  const int ps = perm & 3, ph = (perm >> 2) & 3;
-  auto at = [&](int i) { return ps == i ? s : ph == i ? h : b; };
-  tma_load(dst, map, bar, d, at(1), at(2), at(3));
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator accesses across a wgmma wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_O8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_O32 WG_O8(0), WG_O8(8), WG_O8(16), WG_O8(24)
-#define WG_O64 WG_O32, WG_O8(32), WG_O8(40), WG_O8(48), WG_O8(56)
-#define WG_D32                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WG_D64                                                              \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
-  "%58, %59, %60, %61, %62, %63}"
-
-// S (64 x 128) (+)= A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_O64
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// O (64 x 128) += P (64 x 16, registers) V (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
-      : WG_O64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-// O (64 x 64) += P (64 x 16, registers) V (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
-      : WG_O32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // S (64 x 128) = Q K^T for a warpgroup's 64 rows: D / 16 steps over the
 // head dim, 4 a 64-column box
@@ -286,18 +164,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&o)[D /
   }
 }
 
-__device__ __forceinline__ void named_bar(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-template <int D>
+template <int D, bool LSE>
 __global__ void __launch_bounds__(NTH, 1)
 fa_wgmma(const __grid_constant__ CUtensorMap tmq,
          const __grid_constant__ CUtensorMap tmk,
          const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ out,
-         int H, int G, int S, int n_q, long long osb, long long osh,
-         long long oss, float scale_log2, int causal, int window, int perm_q,
-         int perm_k, int perm_v) {
+         float* __restrict__ lse, int H, int G, int S, int n_q, long long osb,
+         long long osh, long long oss, float scale_log2, int causal, int window,
+         int perm_q, int perm_k, int perm_v) {
   using C = Cfg<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -401,6 +275,14 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
   // epilogue: O / l in bf16, staged through this warpgroup's Q rows (the
   // 128-byte rows of each half, 16-byte chunks swizzled by row), then
   // written with 16-byte stores, rows past S dropped
+  if constexpr (LSE) {
+    if ((lane & 3) == 0)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (row + 8 * hf < S)
+          lse[(long long)bh * n_q * BQ + row + 8 * hf] =
+              l[hf] > 0.f ? m[hf] + log2f(l[hf]) : 0.f;
+  }
   named_bar(1 + wg, 128);  // every warp of the warpgroup is done with Q
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
   auto stage_addr = [&](int r, int c) {  // row r of 64, 16-byte chunk c
@@ -432,82 +314,28 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the CUDA driver API's cuTensorMapEncodeTiled, found through the runtime,
-// so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over a strided (B, heads, S, D) bf16 view whose last dimension is
-// contiguous: dimension 0 is D in boxes of 64, the other three are (S, heads,
-// B) sorted by stride; boxes are 128 rows of S.  perm gets the positions of
-// s, h and b among dimensions 1..3.  Returns 0 or the CUresult.
-int make_map(CUtensorMap* map, int* perm, const void* base, int D, int S,
-             int heads, int B, long long ss, long long sh, long long sb) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
-  struct Dim { cuuint64_t size, stride; cuuint32_t box; int which; };
-  Dim d[3] = {{(cuuint64_t)S, (cuuint64_t)ss * 2, (cuuint32_t)BQ, 0},
-              {(cuuint64_t)heads, (cuuint64_t)sh * 2, 1, 1},
-              {(cuuint64_t)B, (cuuint64_t)sb * 2, 1, 2}};
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j + 1 < 3 - i; ++j)
-      if (d[j].stride > d[j + 1].stride) { Dim t = d[j]; d[j] = d[j + 1]; d[j + 1] = t; }
-  int pos[3];
-  for (int i = 0; i < 3; ++i) pos[d[i].which] = i + 1;
-  *perm = pos[0] | (pos[1] << 2) | (pos[2] << 4);
-  const cuuint64_t dims[4] = {(cuuint64_t)D, d[0].size, d[1].size, d[2].size};
-  const cuuint64_t strides[3] = {d[0].stride, d[1].stride, d[2].stride};
-  const cuuint32_t box[4] = {64, d[0].box, d[1].box, d[2].box};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                   dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return static_cast<int>(r);
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
-           int G, int S, long long qsb, long long qsh, long long qss,
-           long long ksb, long long ksh, long long kss, long long vsb,
-           long long vsh, long long vss, long long osb, long long osh,
-           long long oss, float scale, int causal, int window, cudaStream_t st) {
+template <int D, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int H, int G, int S, long long qsb, long long qsh,
+           long long qss, long long ksb, long long ksh, long long kss,
+           long long vsb, long long vsh, long long vss, long long osb,
+           long long osh, long long oss, float scale, int causal, int window,
+           cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   int pq, pk, pv, r;
-  if ((r = make_map(&tq, &pq, q, D, S, H, B, qss, qsh, qsb)) != 0) return 1000 + r;
-  if ((r = make_map(&tk, &pk, k, D, S, H / G, B, kss, ksh, ksb)) != 0) return 1000 + r;
-  if ((r = make_map(&tv, &pv, v, D, S, H / G, B, vss, vsh, vsb)) != 0) return 1000 + r;
+  if ((r = make_map(&tq, &pq, q, D, S, H, B, qss, qsh, qsb, BQ)) != 0) return 1000 + r;
+  if ((r = make_map(&tk, &pk, k, D, S, H / G, B, kss, ksh, ksb, BK)) != 0) return 1000 + r;
+  if ((r = make_map(&tv, &pv, v, D, S, H / G, B, vss, vsh, vsb, BK)) != 0) return 1000 + r;
   const int smem = Cfg<D>::SMEM;
   // above 48 KB a block's dynamic shared memory must be asked for, or the
   // launch is refused
   cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_q = (S + BQ - 1) / BQ;
-  fa_wgmma<D><<<dim3(B * H, n_q), NTH, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), H, G, S, n_q, osb, osh, oss,
-      scale * LOG2E, causal, window, pq, pk, pv);
+  fa_wgmma<D, LSE><<<dim3(B * H, n_q), NTH, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, G, S, n_q, osb, osh,
+      oss, scale * LOG2E, causal, window, pq, pk, pv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -515,21 +343,23 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int H,
 
 // bf16 q, k, v at head dim 64 or 128: 16-byte aligned data and every stride of
 // a dimension longer than 1 a multiple of 8 elements, which the caller
-// checks.  Returns a cudaError_t, or 1000 + the CUresult of a tensor map
+// checks.  lse: null for the plain build, or f32 (B, H, SP), SP = 128 ceil(S
+// / 128), for the build that also writes each row's log-sum-exp (log2
+// units).  Returns a cudaError_t, or 1000 + the CUresult of a tensor map
 // that the CUDA driver refused.
 extern "C" int flash_attention_wgmma_launch(
-    const void* q, const void* k, const void* v, void* out, int B, int H,
-    int G, int S, int D, long long qsb, long long qsh, long long qss,
+    const void* q, const void* k, const void* v, void* out, float* lse, int B,
+    int H, int G, int S, int D, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
     int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb, ksh, kss,
-                      vsb, vsh, vss, osb, osh, oss, scale, causal, window, st);
-  if (D == 128)
-    return launch<128>(q, k, v, out, B, H, G, S, qsb, qsh, qss, ksb, ksh, kss,
-                       vsb, vsh, vss, osb, osh, oss, scale, causal, window, st);
+#define FA_LAUNCH(DIM, LSE)                                                     \
+  launch<DIM, LSE>(q, k, v, out, lse, B, H, G, S, qsb, qsh, qss, ksb, ksh, kss, \
+                   vsb, vsh, vss, osb, osh, oss, scale, causal, window, st)
+  if (D == 64) return lse == nullptr ? FA_LAUNCH(64, false) : FA_LAUNCH(64, true);
+  if (D == 128) return lse == nullptr ? FA_LAUNCH(128, false) : FA_LAUNCH(128, true);
+#undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,13 +19,17 @@ lags_select = _lags.lags_select
 ssm_scan = _ssm.ssm_scan
 
 #: {kernel name: (module, counter attribute)}; the backward kernels count
-#: beside their forwards
+#: beside their forwards, attention's also by route (``fa_bwd_*``, whose sum
+#: is ``flash_attention_bwd``)
 _COUNTERS = {"lags_select": (_lags, "launches"),
              "decode_attention": (_dec, "launches"),
              "flash_attention": (_fa, "launches"),
              "ssm_scan": (_ssm, "launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),
-             "ssm_scan_bwd": (_ssm, "bwd_launches")}
+             "ssm_scan_bwd": (_ssm, "bwd_launches"),
+             "fa_bwd_wgmma": (_fa, "bwd_wgmma_launches"),
+             "fa_bwd_mma": (_fa, "bwd_mma_launches"),
+             "fa_bwd_f32": (_fa, "bwd_f32_launches")}
 
 
 def launch_counts() -> dict:

@@ -15,6 +15,12 @@ At bf16 the kernel's Delta is rowsum(dO * O) of the rounded output O,
 where the reference's is the sum of p * dP over keys (it rounds p before
 P.V): the two differ by bf16 rounding, so bf16 is held only on the card,
 against the plain version (tests/test_torch_cuda.py).
+
+The log-sum-exp L that the training forward saves for the wgmma backward
+(``flash_attention_lse_plain``) is held to the reference's own: the masked
+scores of ``_attend_chunk`` captured as it runs, reduced with
+``jax.nn.logsumexp``.  The plain backward given that L equals the plain
+backward that recomputes it, and ``jax.vjp`` of the reference.
 """
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 from repro.kernels import ref
+from repro.models import attention as ref_attention
 from repro.models.attention import _attend_chunk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssm_scan as ssm
@@ -236,3 +243,150 @@ def test_ssm_bwd_chains_through_chunks():
         torch.testing.assert_close(torch.cat([early[i], late[i]], dim=1),
                                    whole[i], **TOL)
     torch.testing.assert_close(early[3], whole[3], **TOL)
+
+
+# -- the log-sum-exp kept from the forward, and the backward's routes ------
+
+
+class _ScoreCapture:
+    """Stands in for ``jnp`` inside ``repro.models.attention`` while
+    ``_attend_chunk`` runs: its first ``where`` is the masking of the scores
+    (attention.py:59), whose result is kept."""
+
+    def __init__(self):
+        self.scores = None
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+    def where(self, *args):
+        out = jnp.where(*args)
+        if self.scores is None:
+            self.scores = out
+        return out
+
+
+def _ref_lse(monkeypatch, q, k, v, causal, window, q_pos, k_pos):
+    """(B, H, S) log-sum-exp of the reference's masked scores in log2 units,
+    0 for a row that keeps no key (the reference clamps such a row's max at
+    NEG_INF / 2 and gives it 0)."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+
+    @jax.jit
+    def lse(q, k, v, q_pos, k_pos):
+        cap = _ScoreCapture()
+        monkeypatch.setattr(ref_attention, "jnp", cap)
+        qg = q.reshape(B, Hkv, H // Hkv, S, D).transpose(0, 3, 1, 2, 4)
+        _attend_chunk(qg, k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3),
+                      q_pos, k_pos,
+                      jnp.full((B, 1), np.iinfo(np.int32).max, jnp.int32),
+                      causal, window or None)
+        monkeypatch.undo()
+        s = cap.scores  # (B, Hkv, G, S, S), NEG_INF where masked
+        kept = jnp.max(s, axis=-1) > ref_attention.NEG_INF / 2
+        return jnp.where(kept, jax.nn.logsumexp(s, axis=-1), 0.0) * fa.LOG2E
+
+    return np.asarray(lse(q, k, v, q_pos, k_pos)).reshape(B, H, S)
+
+
+@pytest.mark.parametrize("H,Hkv,causal,window,positions", [
+    (2, 2, True, 0, False), (2, 2, True, 9, False), (2, 2, False, 0, False),
+    (2, 2, False, 7, False), (8, 2, True, 0, False), (4, 1, True, 5, False),
+    (4, 2, True, 0, True), (4, 2, False, 6, True)])
+def test_lse_plain_matches_reference_scores(monkeypatch, H, Hkv, causal,
+                                            window, positions):
+    """L of index masks (causal, window, non-causal, G > 1) and of given
+    positions in which the first query rows keep no key (L = 0 there)."""
+    B, S, D = 2, 40, 16
+    q, k, v, _ = _attn_inputs(H + window, B, H, Hkv, S, D)
+    idx = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    q_pos, k_pos = (_positions(B, S, H, -4), idx) if positions else (idx, idx)
+    kw = dict(q_pos=torch.from_numpy(q_pos),
+              k_pos=torch.from_numpy(k_pos)) if positions else {}
+    got = fa.flash_attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                       causal=causal, window=window, **kw)
+    want = _ref_lse(monkeypatch, q, k, v, causal, window, q_pos, k_pos)
+    assert got.dtype == torch.float32 and got.shape == (B, H, S)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if positions and causal:
+        empty = q_pos[:, :, None] < k_pos[:, None, :].min(-1, keepdims=True)
+        assert empty.any()  # rows that keep no key: L = 0
+        assert not np.any(got.numpy()[np.broadcast_to(empty[:, None, :, 0],
+                                                      got.shape)])
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
+    (1, 2, 2, 64, 16, True, 0), (2, 2, 2, 96, 32, True, 24),
+    (1, 2, 2, 80, 16, False, 0), (2, 8, 2, 64, 16, True, 0),
+    (1, 4, 1, 50, 32, False, 16)])
+def test_flash_bwd_plain_given_lse(B, H, Hkv, S, D, causal, window):
+    """The plain backward reading the forward's L (log2 units, as the wgmma
+    route does) equals the one that recomputes it, and the reference's
+    ``jax.vjp``."""
+    q, k, v, do = _attn_inputs(S * D, B, H, Hkv, S, D)
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    kw = dict(causal=causal, window=window)
+    out, lse = fa.flash_attention_with_lse(*t[:3], **kw)
+    torch.testing.assert_close(out, fa.flash_attention(*t[:3], **kw), rtol=0,
+                               atol=0)
+    given = fa.flash_attention_bwd_plain(*t[:3], out, t[3], lse=lse, **kw)
+    recomputed = fa.flash_attention_bwd_plain(*t[:3], out, t[3], **kw)
+    want = _ref_vjp(q, k, v, do, causal, window)
+    for name, g, r, w in zip("qkv", given, recomputed, want):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), **TOL,
+                                   err_msg=f"d{name} given L vs recomputed")
+        np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=f"d{name}")
+
+
+def test_flash_bwd_plain_given_lse_of_fully_masked_rows():
+    """Given positions whose first rows keep no key: their L is 0, and the
+    plain backward given it leaves their gradient 0, as recomputing does."""
+    B, H, S, D = 1, 2, 24, 16
+    q, k, v, do = map(torch.from_numpy, _attn_inputs(9, B, H, H, S, D))
+    kw = dict(q_pos=torch.arange(S, dtype=torch.int32)[None] - 5,
+              k_pos=torch.arange(S, dtype=torch.int32)[None])
+    lse = fa.flash_attention_lse_plain(q, k, **kw)
+    assert torch.count_nonzero(lse[:, :, :5]) == 0
+    out = fa.flash_attention(q, k, v, **kw)
+    given = fa.flash_attention_bwd_plain(q, k, v, out, do, lse=lse, **kw)
+    recomputed = fa.flash_attention_bwd_plain(q, k, v, out, do, **kw)
+    assert torch.count_nonzero(given[0][:, :, :5]) == 0
+    for g, r in zip(given, recomputed):
+        torch.testing.assert_close(g, r, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("positions", [False, True])
+def test_bwd_route(dtype, D, positions):
+    """The wgmma backward exactly where the forward is fa_wgmma (bf16, D of
+    WGMMA_DIMS, no positions); mma.sync for the other bf16 calls, the CUDA
+    cores for f32."""
+    want = ("fa_bwd_f32" if dtype == torch.float32 else
+            "fa_bwd_wgmma" if D in (64, 128) and not positions else
+            "fa_bwd_mma")
+    assert fa.bwd_route(dtype, D, positions) == want
+    assert (want == "fa_bwd_wgmma") == (fa.route(dtype, D, positions)
+                                        == "fa_wgmma")
+
+
+def test_bwd_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.bwd_route(torch.float16, 64)
+
+
+def test_lse_arg_layout():
+    """The wgmma route reads L with S rounded up to 128 rows a (b, head):
+    the forward's padded view is taken as it is, any other (B, H, S) tensor
+    is copied into that layout, a wrong shape is refused."""
+    B, H, S = 2, 3, 77
+    padded = torch.randn(B, H, fa._lse_rows(S))
+    view = padded[..., :S]
+    assert fa._lse_arg(view, B, H, S).data_ptr() == padded.data_ptr()
+    dense = view.contiguous()
+    got = fa._lse_arg(dense, B, H, S)
+    assert got.shape == (B, H, 128) and got.data_ptr() != dense.data_ptr()
+    torch.testing.assert_close(got[..., :S], dense, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="must be"):
+        fa._lse_arg(dense[:, :, :10], B, H, S)

@@ -474,6 +474,94 @@ def test_flash_attention_autograd_runs_the_kernels(card):
         torch.testing.assert_close(g, w, **TOL[torch.float32])
 
 
+# the wgmma backward's grid: D x masks x G x S (chip_smoke.py phase 22)
+BWD_WGMMA_GRID = [(D, causal, window, G, S) for D in (64, 128)
+                  for causal, window in ((True, 0), (True, 128), (False, 0))
+                  for G in (1, 2, 4, 8, 16) for S in (1, 77, 300, 2048)]
+
+
+def _bwd_inputs(gen, B, H, Hkv, S, D):
+    n = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(  # noqa: E731
+        torch.bfloat16)
+    q, k, v = (n(B, S, h, D).permute(0, 2, 1, 3) for h in (H, Hkv, Hkv))
+    return q, k, v, n(B, S, H, D).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("D,causal,window,G,S", BWD_WGMMA_GRID)
+def test_flash_attention_bwd_wgmma_matches_plain(card, D, causal, window, G,
+                                                 S):
+    """The wgmma route from the forward's L: the L against the plain L (f32
+    TOL), the forward's output bit-equal to the no-gradient build's, and
+    dq, dk, dv against the plain backward (TOL and the 64-row tile
+    limit)."""
+    B, Hkv = (2, 2) if S < 2048 else (1, 1)
+    q, k, v, do = _bwd_inputs(card, B, G * Hkv, Hkv, S, D)
+    kw = dict(causal=causal, window=window)
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    assert torch.equal(o, fa.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, **kw),
+                               **TOL[torch.float32])
+    before = (fa.bwd_wgmma_launches, fa.bwd_mma_launches)
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    assert (fa.bwd_wgmma_launches, fa.bwd_mma_launches) == (before[0] + 1,
+                                                            before[1])
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _assert_kernel_close(g, w, torch.bfloat16, f"d{name}")
+
+
+def test_flash_attention_bwd_wgmma_is_deterministic(card):
+    """No atomics: two calls give the same bits."""
+    q, k, v, do = _bwd_inputs(card, 2, 8, 2, 2048, 64)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    b = fa.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_bwd_routes_on_card(card):
+    """A direct call without L gets it from one forward launch; L is refused
+    where the route recomputes it; a route is run by name only where it can
+    run the call."""
+    q, k, v, do = _bwd_inputs(card, 1, 4, 2, 300, 128)
+    o, lse = fa.flash_attention_with_lse(q, k, v)
+    f0 = fa.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do)
+    assert fa.launches == f0 + 1
+    want = fa.flash_attention_bwd(q, k, v, o, do, lse=lse.contiguous())
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    m0 = fa.bwd_mma_launches
+    mma = fa.flash_attention_bwd(q, k, v, o, do, route="fa_bwd_mma")
+    assert fa.bwd_mma_launches == m0 + 1
+    for g, w in zip(mma, fa.flash_attention_bwd_plain(q, k, v, o, do)):
+        _assert_kernel_close(g, w, torch.bfloat16, "mma route")
+    with pytest.raises(ValueError, match="recomputes L"):
+        fa.flash_attention_bwd(q, k, v, o, do, lse=lse, route="fa_bwd_mma")
+    with pytest.raises(ValueError, match="cannot run"):
+        fa.flash_attention_bwd(q, k, v, o, do, route="fa_bwd_f32")
+    pos = torch.arange(300, device="cuda", dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="only fa_wgmma writes L"):
+        fa._forward_kernel(q, k, v, True, 0, None, pos, pos, with_lse=True)
+
+
+def test_flash_attention_autograd_runs_the_wgmma_route(card):
+    """bf16 at D=64 under autograd: the L-writing forward, then one launch
+    of the wgmma backward and none of the mma route; gradients against the
+    plain backward."""
+    q, k, v, do = _bwd_inputs(card, 2, 8, 2, 256, 64)
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    n0 = (fa.launches, fa.bwd_wgmma_launches, fa.bwd_mma_launches)
+    out = fa.flash_attention(q, k, v, window=100)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (fa.launches, fa.bwd_wgmma_launches, fa.bwd_mma_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2])
+    want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        out.detach(), do, window=100)
+    for g, w in zip(got, want):
+        _assert_kernel_close(g, w, torch.bfloat16, "autograd")
+
+
 def test_flash_attention_fully_masked_rows_on_card(card):
     B, H, S, D = 1, 2, 70, 64
     q, k, v, do = (torch.randn(B, H, S, D, generator=card, device="cuda")
