@@ -62,8 +62,8 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
    similarity >= 0.99);
 10. falcon-mamba-7b prefill at full width and depth (64 layers, bf16, random
     weights from seed 0): B=4, S=1024 in chunks of 256, 64 x 4
-    ``ssm_scan`` launches, then 32 decode steps, with the same numbers and
-    checks as phase 9;
+    ``ssm_scan`` launches (none of its checkpoint-writing build), then 32
+    decode steps, with the same numbers and checks as phase 9;
 11. the tick simulator (``repro_torch.core.simkernel_torch``) at Fig. 11's
     size (120 functions x 4 threads, 12 cores, 30 s = 7500 ticks) on the
     card for all seven policy codes: completions, percentiles, busy and
@@ -130,14 +130,24 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     build's), dq, dk, dv from that L as above; at the two training shapes
     the ``mma`` route too, and two wgmma calls at stablelm's bit-equal;
     ``decode_attention`` over rows [kv_start,
-    kv_len) at G=4 and G=16, an empty range giving 0; ``ssm_scan_bwd`` at
-    the reference's shapes, without dy or dh_last, and one falcon-mamba
-    training chunk, at 1e-4;
+    kv_len) at G=4 and G=16, an empty range giving 0; ``ssm_scan_bwd`` fed
+    by the checkpoints of ``ssm_scan``'s checkpoint-writing build (its y
+    and h_last bit-equal to the plain build's, its checkpoints within 1e-4
+    of the plain version's) at the reference's shapes, ragged S (37, 17, 5,
+    1), without dy or dh_last, and one falcon-mamba training chunk, at
+    1e-4, two calls there bit-equal;
 23. the backward kernels' times at the training shapes beside their plain
     versions, their bounds (five products for attention) and, for
     attention, autograd of ``scaled_dot_product_attention`` as a yardstick
     the port never calls; attention's wgmma and ``mma`` routes timed in
     turns (wgmma, mma, mma, wgmma), and the forward with and without L;
+    ``ssm_scan_bwd`` given the forward's checkpoints, below the time of
+    the two-pass kernel it replaced, in turns with the scan's forward with
+    and without checkpoints, with what each timed call saw (its ms, the
+    host's time to queue it, whether the card reached it first, the SM
+    clock, Python's collections) and what ``nvidia-smi`` read of the card
+    before each loop; ``--ssm-bwd-timing RUNS`` runs only this scan
+    timing, RUNS times over, and stops;
 24. the reduced stablelm, qwen3-8b (G=2), falcon-mamba, gemma3 and
     qwen2-vl in f32, the card (forward and backward kernels, remat on)
     against the CPU (plain versions): loss and every gradient leaf of
@@ -153,8 +163,9 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 26. qwen3-8b (its first 4 of 36 layers, B=4, S=2048) and falcon-mamba-7b
     (its first 8 of 64, B=2, S=1024; full depth needs ~112 GB of training
     state) train 5 steps each at full width: finite losses, launch counts
-    (qwen3-8b's 4 x 5 backward launches on the wgmma route), step time and
-    a profile;
+    (qwen3-8b's 4 x 5 backward launches on the wgmma route; falcon-mamba's
+    scan forwards all on the checkpoint-writing build), step time and a
+    profile with the scan's backward and forward shares;
 27. checkpoint, kill and resume on the card: the reduced stablelm through
     the train CLI in two child processes, the first dying after step 5
     (exit code 17), the second resuming from the verified step-6
@@ -171,8 +182,10 @@ It exits nonzero at once where no card is present.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import subprocess
@@ -207,7 +220,8 @@ class Timer:
     a 256 MB write that evicts the 50 MB L2, as the engine's step (16 GB of
     weights) leaves it cold.  A device-side wait after the write keeps the
     card busy until the host has queued the call, so the time between the
-    two events is the call's work on the card, not the host's Python."""
+    two events is the call's work on the card, not the host's Python;
+    ``Timer.last`` says where that did not hold (``late``)."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -217,22 +231,53 @@ class Timer:
         self.ms(lambda: None)
 
     def ms(self, fn, iters=20, warmup=3):
+        """The mean; ``self.last`` keeps what each call of the timed loop
+        saw: its ms, the host's ms to queue it, whether the card had
+        already reached its start event when the host had queued it
+        (``late``: the card may have waited on the host), the SM clock the
+        wait ran at, and the ms of Python's collections in the loop."""
         torch = self.torch
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        pairs = []
-        for _ in range(iters):
-            self.flush.zero_()
-            torch.cuda._sleep(SLEEP_CYCLES)
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            pairs.append((s, e))
+        ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+        calls, gc_ms, gc_start = [], [], [0.0]
+
+        def collections(phase, info):
+            if phase == "start":
+                gc_start[0] = time.perf_counter()
+            else:
+                gc_ms.append((time.perf_counter() - gc_start[0]) * 1e3)
+
+        gc.callbacks.append(collections)
+        # a longer wait first: the card is idle after the synchronize, and
+        # the first call would otherwise have only one wait and one flush
+        # for the host to queue it in; from there the host stays ahead
+        torch.cuda._sleep(10 * SLEEP_CYCLES)
+        try:
+            for _ in range(iters):
+                self.flush.zero_()
+                w, s, e = ev(), ev(), ev()
+                w.record()
+                torch.cuda._sleep(SLEEP_CYCLES)
+                s.record()
+                t0 = time.perf_counter()
+                fn()
+                host = (time.perf_counter() - t0) * 1e3
+                late = s.query()
+                e.record()
+                calls.append((w, s, e, host, late))
+        finally:
+            gc.callbacks.remove(collections)
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        ms = [s.elapsed_time(e) for _, s, e, _, _ in calls]
+        self.last = dict(
+            calls_ms=ms, host_ms=[c[3] for c in calls],
+            late=[i for i, c in enumerate(calls) if c[4]],
+            clock_mhz=[SLEEP_CYCLES / 1e3 / w.elapsed_time(s)
+                       for w, s, _, _, _ in calls],
+            gc_ms=gc_ms)
+        return sum(ms) / iters
 
 
 def ptxas_report(log):
@@ -1132,7 +1177,8 @@ def mamba_full(torch, ops):
     residual_growth(torch, cfg, params)
     B, S = 4, 1024
     return prefill_full(torch, ops, cfg, params, token_batch(torch, cfg, B, S),
-                        32, {"ssm_scan": cfg.n_layers * -(-S // CHUNK)})
+                        32, {"ssm_scan": cfg.n_layers * -(-S // CHUNK),
+                             "ssm_scan_ckpt": 0})
 
 
 def residual_growth(torch, cfg, params, B=1, S=256):
@@ -2059,12 +2105,17 @@ def check_decode_positions(torch, dec):
 
 
 def check_ssm_train(torch, ssm):
-    """Phase 22, the scan's backward kernel against its plain version at
-    the reference's shapes, a ragged S, without dy or dh_last, and one
-    chunk of the falcon-mamba training step."""
+    """Phase 22, the scan's backward kernels fed by the forward's
+    checkpoints, against the plain backward (which recomputes every state
+    from h0), at the reference's shapes, ragged S, without dy or dh_last,
+    and one chunk of the falcon-mamba training step.  The checkpoint-writing
+    forward's y and h_last must equal the plain build's bit for bit, its
+    checkpoints the plain version's within SSM_TOL; at the training chunk
+    two backward calls must give the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     cases = [(1, 128, 256, 8, True, True), (2, 256, 512, 16, True, True),
              (2, 37, 64, 16, True, False), (1, 5, 32, 4, False, True),
+             (2, 17, 48, 16, True, True), (1, 1, 64, 16, True, True),
              tuple(MAMBA_TRAIN_CHUNK.values()) + (True, True)]
     errs = {}
     for B, S, I, N, with_dy, with_dh in cases:
@@ -2073,10 +2124,19 @@ def check_ssm_train(torch, ssm):
               if with_dy else None)
         dh = (torch.randn(B, I, N, generator=gen, device="cuda")
               if with_dh else None)
-        got = ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh)
+        name = f"ssm_scan_bwd float32 B={B} S={S} I={I} N={N}"
+        y, h_last, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+        y0, h_last0 = ssm.ssm_scan(dA, dBx, C, h0)
+        require(torch.equal(y, y0) and torch.equal(h_last, h_last0),
+                f"{name}: the checkpoint-writing forward is not bit-equal "
+                f"to the plain build")
+        ok, err_ck, bad = within(hck, ssm.ssm_scan_ckpt_plain(dA, dBx, h0),
+                                 SSM_TOL)
+        require(ok, f"{name} checkpoints: {bad} values outside {SSM_TOL}, "
+                f"max err {err_ck}")
+        got = ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh, hck)
         want = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh)
         torch.cuda.synchronize()
-        name = f"ssm_scan_bwd float32 B={B} S={S} I={I} N={N}"
         worst = 0.0
         for t, g, w in zip(("dA", "dBx", "C", "h0"), got, want):
             ok, err, bad = within(g, w, SSM_TOL)
@@ -2084,8 +2144,15 @@ def check_ssm_train(torch, ssm):
                     f"err {err}")
             worst = max(worst, err)
         errs[(B, S, I, N)] = worst
+        again = ""
+        if (B, S, I, N) == tuple(MAMBA_TRAIN_CHUNK.values()):
+            second = ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh, hck)
+            require(all(torch.equal(a, b) for a, b in zip(got, second)),
+                    f"{name}: two backward calls differ")
+            again = "; two calls bit-equal"
         print(f"{name} dy={with_dy} dh_last={with_dh}: max_abs_err="
-              f"{worst:.3e} within {SSM_TOL}")
+              f"{worst:.3e} within {SSM_TOL}, checkpoints {err_ck:.3e}, "
+              f"forward builds bit-equal" + again)
     return errs
 
 
@@ -2165,21 +2232,83 @@ def backward_times(torch, fa, ssm, card):
                  if t["library_ms"] else "")
         print(f"time {name}: " + " ".join(
             f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in t.items() if k not in ("mma", "forward_ms"))
+            for k, v in t.items() if k not in ("mma", "forward_ms", "timer"))
             + f" x_bound={t['ms'] / t['bound_ms']:.3f}" + ratio + f" [{card}]")
+    print_ssm_timing(ssm, scan, MAMBA_TRAIN_CHUNK, card)
     for shape, t in ((STABLELM_TRAIN, stablelm), (QWEN_TRAIN, qwen3)):
         require(t["ms"] < t["mma"]["ms"], f"flash_attention_bwd at {shape}: "
                 f"the wgmma route's {t['ms']:.4f} ms is not below the mma "
                 f"route's {t['mma']['ms']:.4f} ms")
+    require(scan["ms"] < SSM_BWD_TWO_PASS_MS, f"ssm_scan_bwd at "
+            f"{MAMBA_TRAIN_CHUNK}: {scan['ms']:.4f} ms is not below the "
+            f"two-pass kernel's {SSM_BWD_TWO_PASS_MS} ms")
     return stablelm, qwen3, scan
 
 
+def card_state():
+    """What ``nvidia-smi`` reads of the card now: power, GPU and memory
+    temperatures, SM and memory clocks, active throttle reasons."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.draw,temperature.gpu,"
+         "temperature.memory,clocks.sm,clocks.mem,"
+         "clocks_throttle_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+
+
+def print_ssm_timing(ssm, scan, shape, card):
+    """Phase 23's scan lines: the forward's two builds, the backward beside
+    the two-pass kernel it replaced and the checkpoints the forward writes
+    for it, and what each timed call saw (``Timer.last``)."""
+    B, S, I, N = shape.values()
+    f = scan["forward_ms"]
+    ckpt_bytes = 4 * B * -(-S // ssm.SEG) * I * N
+    print(f"time ssm_scan forward f32 B={B} S={S} I={I} N={N}: plain "
+          f"{f['plain']:.6g} ms, with checkpoints {f['ckpt']:.6g} ms "
+          f"({100 * (f['ckpt'] / f['plain'] - 1):+.2f}%; each the mean of "
+          f"two, in turns; the checkpoints {ckpt_bytes / 1e6:.6g} MB, "
+          f"{ckpt_bytes / HBM_BYTES_PER_S * 1e3:.6g} ms at the card's "
+          f"rate); the backward {scan['ms']:.6g} ms against the two-pass "
+          f"kernel's {SSM_BWD_TWO_PASS_MS} ms "
+          f"({scan['ms'] / SSM_BWD_TWO_PASS_MS:.3f}x) [{card}]")
+    for label, seen in scan["timer"]:
+        ms = seen["calls_ms"]
+        print(f"  timer {label}: calls ms [{', '.join(f'{x:.6g}' for x in ms)}]"
+              f" min {min(ms):.6g} max {max(ms):.6g}; host ms max "
+              f"{max(seen['host_ms']):.4g}; late calls {seen['late']}; SM "
+              f"clock {min(seen['clock_mhz']):.0f}-"
+              f"{max(seen['clock_mhz']):.0f} MHz; collections "
+              f"{len(seen['gc_ms'])} ({sum(seen['gc_ms']):.3g} ms); card "
+              f"before (power, temperatures, clocks, throttle reasons): "
+              f"{seen['card_before']}")
+
+
+# ms of the two-pass ``ssm_scan_bwd`` that the single-pass kernel replaced
+# (ssm_bwd_ckpt + ssm_bwd + ssm_bwd_dc, which read dA and dBx twice), at
+# MAMBA_TRAIN_CHUNK on an NVIDIA H100 80GB HBM3 at 700.00 W by this script's
+# phase 23 (PERF.md): phase 23 requires the kernel to beat it
+SSM_BWD_TWO_PASS_MS = 0.818613
+
+
 def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
+    """Phase 23: the backward kernels given the forward's checkpoints, as
+    training runs them, beside their plain version and bound, and the
+    forward's plain and checkpoint-writing builds, all in turns (backward,
+    plain, ckpt, ckpt, plain, backward; each the mean of its two, the
+    backward's two under ``runs_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N)
     dy = torch.randn(B, S, I, generator=gen, device="cuda")
     dh = torch.randn(B, I, N, generator=gen, device="cuda")
-    ms = timer.ms(lambda: ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh))
+    hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)[2]
+    bwd = lambda: ssm.ssm_scan_bwd(dA, dBx, C, h0, dy, dh, hck)  # noqa: E731
+    plain = lambda: ssm.ssm_scan(dA, dBx, C, h0)  # noqa: E731
+    ckpt = lambda: ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)  # noqa: E731
+    runs, seen = {}, []
+    for label, fn in (("bwd", bwd), ("plain", plain), ("ckpt", ckpt),
+                      ("ckpt", ckpt), ("plain", plain), ("bwd", bwd)):
+        state = card_state()
+        runs.setdefault(label, []).append(timer.ms(fn, iters=10))
+        seen.append((label, dict(timer.last, card_before=state)))
     plain_ms = timer.ms(lambda: ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy,
                                                        dh), iters=3, warmup=1)
     # f32: dA, dBx, C, h0, dy, dh_last in; d(dA), d(dBx), dC, dh0 out
@@ -2188,9 +2317,12 @@ def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
     # dh (multiply-add), d(dA), the carried dA * dh, dC (multiply-add)
     n_ops = 6 * B * S * I * N
     b, by = bound_ms(n_bytes, n_ops, "float32")
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     # no one PyTorch call computes a selective scan or its gradient
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
-                bound_by=by)
+    return dict(ms=mean(runs["bwd"]), plain_ms=plain_ms, library_ms=None,
+                bound_ms=b, bound_by=by, runs_ms=runs["bwd"],
+                forward_ms={k: mean(runs[k]) for k in ("plain", "ckpt")},
+                timer=seen)
 
 
 def bwd_entry(fa, counts, errs, stablelm, qwen3):
@@ -2331,9 +2463,11 @@ def train_profile(torch, cfg, B, S, label):
                       rows_out=rows)
     fa_ms = sum(r[0] for r in rows if "fa_bwd" in r[2])
     ssm_ms = sum(r[0] for r in rows if "ssm_bwd" in r[2])
+    fwd_ms = sum(r[0] for r in rows if "ssm_fwd" in r[2])
     print(f"profile {label}: flash_attention_bwd {fa_ms:.3f} ms "
           f"({100 * fa_ms / busy:.1f}% of kernel time), ssm_scan_bwd "
-          f"{ssm_ms:.3f} ms ({100 * ssm_ms / busy:.1f}%)")
+          f"{ssm_ms:.3f} ms ({100 * ssm_ms / busy:.1f}%), ssm_scan forward "
+          f"{fwd_ms:.3f} ms ({100 * fwd_ms / busy:.1f}%)")
     del state
     torch.cuda.empty_cache()
 
@@ -2422,7 +2556,9 @@ def train_cut_depth(torch, ops, name, n_layers, B, S, steps=5):
             "fa_bwd_wgmma": n_attn * steps, "fa_bwd_mma": 0, "fa_bwd_f32": 0,
             "flash_attention": 2 * n_attn * steps,
             "ssm_scan_bwd": n_mamba * chunks * steps,
-            "ssm_scan": 2 * n_mamba * chunks * steps}
+            # remat runs each forward twice, both on the checkpoint build
+            "ssm_scan": 2 * n_mamba * chunks * steps,
+            "ssm_scan_ckpt": 2 * n_mamba * chunks * steps}
     for kernel, w in want.items():
         require(n[kernel] == w, f"{name}: {kernel} launches {n[kernel]} != "
                 f"{w}")
@@ -2477,6 +2613,12 @@ def resume_on_card():
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--ssm-bwd-timing", type=int, metavar="RUNS",
+        help="time only phase 23's scan (the backward and the forward's two "
+             "builds) RUNS times over in a fresh process, and stop")
+    args = parser.parse_args()
     import torch
 
     t_start = time.perf_counter()
@@ -2501,6 +2643,20 @@ def main():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+
+    if args.ssm_bwd_timing:
+        # odd runs after phase 23's attention timing at qwen3-8b's shape,
+        # as the full run times the scan
+        timer = Timer(torch)
+        for run in range(args.ssm_bwd_timing):
+            if run % 2:
+                time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
+            scan = time_ssm_bwd(torch, ssm, timer, **MAMBA_TRAIN_CHUNK)
+            print(f"run {run}{' after attention' if run % 2 else ''}: "
+                  f"ssm_scan_bwd {scan['ms']:.6g} ms (two runs "
+                  f"{scan['runs_ms']})")
+            print_ssm_timing(ssm, scan, MAMBA_TRAIN_CHUNK, card)
+        return
 
     # phase 2: build every kernel, one nvcc each, in parallel
     t0 = time.perf_counter()
@@ -2531,6 +2687,8 @@ def main():
     bwd_lib = _build.library("flash_attention_bwd_wgmma", {
         "flash_attention_bwd_wgmma_smem": ([ctypes.c_int, ctypes.c_int],
                                            ctypes.c_int)})
+    ssm_lib = _build.library("ssm_scan_bwd", {
+        "ssm_scan_bwd_smem": ([ctypes.c_int], ctypes.c_int)})
     dec_lib = _build.library("decode_attention", {
         "decode_attention_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
     print("  dynamic shared memory a block: fa_wgmma D=64 "
@@ -2541,7 +2699,8 @@ def main():
           f"{bwd_lib.flash_attention_bwd_wgmma_smem(64, 0)} B, D=128 "
           f"{bwd_lib.flash_attention_bwd_wgmma_smem(128, 0)} B; "
           f"fa_bwd_dkdv_wgmma D=64 {bwd_lib.flash_attention_bwd_wgmma_smem(64, 1)}"
-          f" B, D=128 {bwd_lib.flash_attention_bwd_wgmma_smem(128, 1)} B")
+          f" B, D=128 {bwd_lib.flash_attention_bwd_wgmma_smem(128, 1)} B; "
+          f"ssm_bwd_tma N=16 {ssm_lib.ssm_scan_bwd_smem(16)} B")
 
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
@@ -2683,16 +2842,22 @@ def main():
              launches=counts["flash_attention"],
              max_abs_err=fa_err[("bfloat16", *QWEN_PREFILL.values(), True, 0)],
              **times["flash_attention"]),
-        dict(name="ssm_scan", route="cuda",
+        dict(name="ssm_scan", route="cuda", kernel="ssm_fwd<false>",
              source="src/repro_torch/kernels/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:51",
              launches=counts["ssm_scan"],
              max_abs_err=ssm_err[tuple(MAMBA_CHUNK.values())],
-             **times["ssm_scan"]),
+             **times["ssm_scan"],
+             ckpt=dict(kernel="ssm_fwd<true>",
+                       launches=counts["ssm_scan_ckpt"],
+                       shape="B=2 S=256 I=8192 N=16 f32",
+                       ms=times["ssm_scan_bwd"]["forward_ms"]["ckpt"],
+                       plain_build_ms=times["ssm_scan_bwd"]["forward_ms"][
+                           "plain"])),
         bwd_entry(fa, counts, fa_bwd_err, times["flash_attention_bwd"],
                   fa_bwd_qwen),
         dict(name="ssm_scan_bwd", route="cuda",
-             kernel="ssm_bwd_ckpt + ssm_bwd + ssm_bwd_dc",
+             kernel="ssm_bwd_tma + ssm_bwd_dc",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
              replaces="src/repro/kernels/ssm_scan.py:51",
              replaces_note=("the TPU kernel has no backward: the reference "
@@ -2701,7 +2866,8 @@ def main():
              launches=counts["ssm_scan_bwd"],
              max_abs_err=ssm_bwd_err[tuple(MAMBA_TRAIN_CHUNK.values())],
              shape="B=2 S=256 I=8192 N=16 f32",
-             **times["ssm_scan_bwd"]),
+             **{k: v for k, v in times["ssm_scan_bwd"].items()
+                if k not in ("forward_ms", "timer")}),
     ]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall [{card}]")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma attention kernels
-// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu): mbarriers, TMA
-// loads, wgmma descriptors and products, and the host's tensor maps.
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu) and the scan's
+// backward (ssm_scan_bwd.cu): mbarriers, TMA loads, wgmma descriptors and
+// products, and the host's tensor maps.
 //
 // Layout they assume: a bf16 (rows, D) tile in shared memory is stored as
 // D / 64 "halves" of (rows, 64) with the 128-byte swizzle that TMA writes
@@ -57,6 +58,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(bar)
+      : "memory");
+}
+
+// 3-D TMA load of one box into shared memory, completing on ``bar``
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
 

@@ -19,6 +19,16 @@
 // At falcon-mamba's I = 8192, N = 16 that is B * 4096 warps, enough to fill
 // the card.  The latency of the loads is hidden by reading U = 8 steps ahead
 // into registers before the recurrence consumes them.  N must divide 32.
+//
+// Two builds.  ssm_fwd<false> serves prefill and the no-gradient calls.
+// ssm_fwd<true>, the forward of training, also stores the state at the
+// start of every segment of SEG = 16 steps into hck (B, ceil(S / 16), I, N),
+// hck[:, 0] = h0: the checkpoints from which ssm_scan_bwd.cu recomputes
+// each segment's states (17 MB at falcon-mamba's training chunk, B = 2,
+// S = 256, against 0.55 GB read).  The recurrence is the same fmaf in both
+// builds and in the backward's recomputation, so y and h_last are equal
+// bit for bit across the builds and the backward's states are the ones
+// this kernel had.
 
 #include <cuda_runtime.h>
 
@@ -26,12 +36,15 @@ namespace {
 
 constexpr int NT = 256;  // threads per block: 8 warps
 constexpr int U = 8;     // steps loaded ahead
+constexpr int SEG = 16;  // steps a checkpointed segment: ssm_scan_bwd.cu's
 
+template <bool CKPT>
 __global__ void __launch_bounds__(NT)
 ssm_fwd(const float* __restrict__ dA, const float* __restrict__ dBx,
         const float* __restrict__ C, const float* __restrict__ h0,
-        float* __restrict__ y, float* __restrict__ h_last, int B, int S,
-        int I, int N) {
+        float* __restrict__ y, float* __restrict__ h_last,
+        float* __restrict__ hck, int B, int S, int I, int N) {
+  static_assert(SEG % U == 0, "a segment starts at a step of the U loop");
   const int lane = threadIdx.x & 31;
   const long long warp = (long long)blockIdx.x * (NT / 32) + (threadIdx.x >> 5);
   const int cpw = 32 / N;                  // channels per warp
@@ -48,7 +61,10 @@ ssm_fwd(const float* __restrict__ dA, const float* __restrict__ dBx,
   const long long ybase = (long long)b * S * I + i;
 
   float h = h0[(long long)b * IN + (long long)i * N + n];
+  const int nseg = (S + SEG - 1) / SEG;
   for (int t0 = 0; t0 < S; t0 += U) {
+    if (CKPT && t0 % SEG == 0)
+      hck[((long long)b * nseg + t0 / SEG) * IN + (long long)i * N + n] = h;
     float a[U], bx[U], c[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -63,7 +79,7 @@ ssm_fwd(const float* __restrict__ dA, const float* __restrict__ dBx,
     for (int u = 0; u < U; ++u) {
       const int t = t0 + u;
       if (t >= S) break;  // uniform across the warp
-      h = a[u] * h + bx[u];
+      h = fmaf(a[u], h, bx[u]);
       float yv = h * c[u];
       for (int off = N / 2; off > 0; off >>= 1)
         yv += __shfl_xor_sync(0xffffffffu, yv, off);
@@ -75,16 +91,22 @@ ssm_fwd(const float* __restrict__ dA, const float* __restrict__ dBx,
 
 }  // namespace
 
-// N must divide 32 and 32 / N divide I.
+// N must divide 32 and 32 / N divide I.  hck: null for the plain build, or
+// f32 (B, ceil(S / 16), I, N) for the build that writes the checkpoints.
 extern "C" int ssm_scan_launch(const float* dA, const float* dBx,
                                const float* C, const float* h0, float* y,
-                               float* h_last, int B, int S, int I, int N,
-                               void* stream) {
+                               float* h_last, float* hck, int B, int S, int I,
+                               int N, void* stream) {
   if (N < 1 || 32 % N != 0 || I % (32 / N) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_warps = (long long)B * I / (32 / N);
   const long long blocks = (n_warps + NT / 32 - 1) / (NT / 32);
-  ssm_fwd<<<(unsigned)blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      dA, dBx, C, h0, y, h_last, B, S, I, N);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hck == nullptr)
+    ssm_fwd<false><<<(unsigned)blocks, NT, 0, st>>>(dA, dBx, C, h0, y, h_last,
+                                                   nullptr, B, S, I, N);
+  else
+    ssm_fwd<true><<<(unsigned)blocks, NT, 0, st>>>(dA, dBx, C, h0, y, h_last,
+                                                  hck, B, S, I, N);
   return static_cast<int>(cudaGetLastError());
 }

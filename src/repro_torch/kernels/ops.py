@@ -20,11 +20,13 @@ ssm_scan = _ssm.ssm_scan
 
 #: {kernel name: (module, counter attribute)}; the backward kernels count
 #: beside their forwards, attention's also by route (``fa_bwd_*``, whose sum
-#: is ``flash_attention_bwd``)
+#: is ``flash_attention_bwd``); ``ssm_scan_ckpt`` counts the launches of
+#: ``ssm_scan``'s checkpoint-writing build among ``ssm_scan``'s
 _COUNTERS = {"lags_select": (_lags, "launches"),
              "decode_attention": (_dec, "launches"),
              "flash_attention": (_fa, "launches"),
              "ssm_scan": (_ssm, "launches"),
+             "ssm_scan_ckpt": (_ssm, "ckpt_launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),
              "ssm_scan_bwd": (_ssm, "bwd_launches"),
              "fa_bwd_wgmma": (_fa, "bwd_wgmma_launches"),

@@ -16,8 +16,9 @@ The cache {"h": (B, I, N) f32, "conv": (B, W-1, I)} is updated in place
 (the reference returns a new one).  Without a cache (training, as the
 reference's ``cache`` None) the state starts at zero, the conv is padded
 with zeros, and nothing is written, so autograd sees no in-place update; on
-a card each chunk's scan then runs ``ssm_scan``'s forward kernel with its
-backward kernel as the gradient, the chunks chained through h0's gradient.
+a card each chunk's scan then runs ``ssm_scan``'s forward kernel (its build
+that keeps a state every 16 steps) with its backward kernel as the gradient,
+the chunks chained through h0's gradient.
 """
 from __future__ import annotations
 

@@ -11,6 +11,14 @@ scan: with and without h0, and split into chunks that chain through h0's
 gradient, as the Mamba mixer runs it.  Inputs are made with numpy from a
 seed; the cotangents too.
 
+The scan's forward keeps the state before every ``SEG``-th step for its
+backward (``ssm_scan_ckpt_plain``): held to the per-step states of the
+reference's ``_ssm_chunk`` and the final state of ``ref.ssm_scan_ref``
+over each prefix.  The plain backward given those checkpoints is held to
+``jax.vjp`` at ragged S (1, 5, 17, 37), with and without dy or dh_last,
+to the backward that recomputes from h0 (bit for bit), and through chained
+chunks, each with its own checkpoints.
+
 At bf16 the kernel's Delta is rowsum(dO * O) of the rounded output O,
 where the reference's is the sum of p * dP over keys (it rounds p before
 P.V): the two differ by bf16 rounding, so bf16 is held only on the card,
@@ -31,6 +39,7 @@ import torch
 from repro.kernels import ref
 from repro.models import attention as ref_attention
 from repro.models.attention import _attend_chunk
+from repro.models.mamba import _ssm_chunk
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssm_scan as ssm
 
@@ -239,6 +248,115 @@ def test_ssm_bwd_chains_through_chunks():
     early = ssm.ssm_scan_bwd_plain(T(dA[:, :cut]), T(dBx[:, :cut]),
                                    T(C[:, :cut]), T(h0), T(dy[:, :cut]),
                                    late[3])
+    for i in range(3):
+        torch.testing.assert_close(torch.cat([early[i], late[i]], dim=1),
+                                   whole[i], **TOL)
+    torch.testing.assert_close(early[3], whole[3], **TOL)
+
+
+# -- the scan's checkpoints, kept by the forward for the backward ----------
+
+# (B, S, I, N, h0_scale): the cases above and a ragged S of 5
+SSM_CKPT_CASES = [(1, 32, 16, 8, 0.0), (2, 37, 8, 16, 1.0), (1, 1, 4, 8, 1.0),
+                  (2, 17, 32, 4, 0.5), (1, 5, 32, 4, 1.0)]
+SEG = ssm.SEG
+
+
+def _t(*arrays):
+    return [torch.from_numpy(x) for x in arrays]
+
+
+@pytest.mark.parametrize("B,S,I,N,h0_scale", SSM_CKPT_CASES)
+def test_ssm_ckpt_plain_matches_reference_states(B, S, I, N, h0_scale):
+    dA, dBx, C, h0, _, _ = _ssm_inputs(S + 1, B, S, I, N, h0_scale)
+    hck = ssm.ssm_scan_ckpt_plain(*_t(dA, dBx, h0)).numpy()
+    n_seg = -(-S // SEG)
+    assert hck.shape == (B, n_seg, I, N) and hck.dtype == np.float32
+    hs, _ = _ssm_chunk(jnp.asarray(dA), jnp.asarray(dBx), jnp.asarray(h0))
+    hs = np.asarray(hs)  # (B, S, I, N): the state after each step
+    np.testing.assert_array_equal(hck[:, 0], h0)
+    for s in range(1, n_seg):
+        t = s * SEG
+        np.testing.assert_allclose(hck[:, s], hs[:, t - 1], **TOL)
+        _, h_prefix = ref.ssm_scan_ref(*(jnp.asarray(x[:, :t])
+                                         for x in (dA, dBx, C)),
+                                       jnp.asarray(h0))
+        np.testing.assert_allclose(hck[:, s], np.asarray(h_prefix), **TOL)
+
+
+@pytest.mark.parametrize("B,S,I,N,h0_scale", SSM_CKPT_CASES)
+@pytest.mark.parametrize("with_dy,with_dh", [(True, True), (False, True),
+                                             (True, False)])
+def test_ssm_bwd_plain_with_ckpt_matches_reference_vjp(B, S, I, N, h0_scale,
+                                                       with_dy, with_dh):
+    dA, dBx, C, h0, dy, dh = _ssm_inputs(S, B, S, I, N, h0_scale)
+    dy = dy if with_dy else np.zeros_like(dy)
+    dh = dh if with_dh else np.zeros_like(dh)
+    _, vjp = jax.vjp(ref.ssm_scan_ref,
+                     *(jnp.asarray(x) for x in (dA, dBx, C, h0)))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    hck = ssm.ssm_scan_ckpt_plain(*_t(dA, dBx, h0))
+    got = ssm.ssm_scan_bwd_plain(*_t(dA, dBx, C, h0),
+                                 _t(dy)[0] if with_dy else None,
+                                 _t(dh)[0] if with_dh else None, hck)
+    for name, g, w in zip(("dA", "dBx", "C", "h0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,S,I,N,h0_scale", SSM_CKPT_CASES)
+def test_ssm_bwd_plain_given_its_ckpt_equals_the_recomputed(B, S, I, N,
+                                                            h0_scale):
+    """Checkpoints equal to the scan's own states change no bit: the
+    backward from them is the backward that runs from h0."""
+    dA, dBx, C, h0, dy, dh = _t(*_ssm_inputs(2 * S, B, S, I, N, h0_scale))
+    hck = ssm.ssm_scan_ckpt_plain(dA, dBx, h0)
+    got = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh, hck)
+    want = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_ssm_bwd_plain_uses_the_ckpt_as_given():
+    """A segment's states run from its checkpoint, not from the state the
+    segment before ends in: a zero checkpoint zeroes d(dA) at its step."""
+    dA, dBx, C, h0, dy, dh = _t(*_ssm_inputs(7, 1, 40, 8, 4, 1.0))
+    hck = ssm.ssm_scan_ckpt_plain(dA, dBx, h0)
+    hck[:, 1] = 0.0
+    d_dA = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh, hck)[0]
+    assert int(torch.count_nonzero(d_dA[:, SEG])) == 0
+    assert int(torch.count_nonzero(d_dA[:, SEG - 1])) > 0
+
+
+def test_ssm_scan_with_ckpt_on_cpu_is_the_plain_versions():
+    dA, dBx, C, h0, _, _ = _t(*_ssm_inputs(3, 2, 37, 16, 8, 1.0))
+    y, h_last, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+    y_p, h_p = ssm.ssm_scan(dA, dBx, C, h0)
+    torch.testing.assert_close(y, y_p, rtol=0, atol=0)
+    torch.testing.assert_close(h_last, h_p, rtol=0, atol=0)
+    torch.testing.assert_close(hck, ssm.ssm_scan_ckpt_plain(dA, dBx, h0),
+                               rtol=0, atol=0)
+    m = torch.empty(2, 37, 16, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ssm.ssm_scan_with_ckpt(m, m, m[..., 0, :], m[:, 0])
+
+
+def test_ssm_bwd_with_ckpt_chains_through_chunks():
+    """The mixer scans in chunks, h_last of one the h0 of the next, and
+    each chunk's forward keeps its own checkpoints: the chunks' backward
+    passes, each given them and chained through h0's gradient, give the
+    gradient of one scan over the whole sequence."""
+    dA, dBx, C, h0, dy, dh = _t(*_ssm_inputs(5, 2, 40, 16, 8, 1.0))
+    whole = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy, dh,
+                                   ssm.ssm_scan_ckpt_plain(dA, dBx, h0))
+    cut = 24  # not a multiple of SEG: the second chunk's segments shift
+    early_in = [x[:, :cut] for x in (dA, dBx, C)]
+    late_in = [x[:, cut:] for x in (dA, dBx, C)]
+    _, h_mid, hck_early = ssm.ssm_scan_with_ckpt(*early_in, h0)
+    _, _, hck_late = ssm.ssm_scan_with_ckpt(*late_in, h_mid)
+    late = ssm.ssm_scan_bwd_plain(*late_in, h_mid, dy[:, cut:], dh, hck_late)
+    early = ssm.ssm_scan_bwd_plain(*early_in, h0, dy[:, :cut], late[3],
+                                   hck_early)
     for i in range(3):
         torch.testing.assert_close(torch.cat([early[i], late[i]], dim=1),
                                    whole[i], **TOL)

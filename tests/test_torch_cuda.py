@@ -579,24 +579,89 @@ def test_flash_attention_fully_masked_rows_on_card(card):
         torch.testing.assert_close(g, w, **TOL[torch.float32])
 
 
-@pytest.mark.parametrize("B,S,I,N,dy,dh", [
-    (1, 128, 256, 8, True, True), (2, 256, 512, 16, True, True),
-    (2, 37, 64, 16, True, False), (1, 5, 32, 4, False, True),
-    (2, 17, 48, 16, True, True)])
-def test_ssm_scan_bwd_kernel_matches_plain(card, B, S, I, N, dy, dh):
-    u = lambda *s: torch.rand(*s, generator=card, device="cuda")  # noqa: E731
+SSM_BWD_CASES = [(1, 128, 256, 8, True, True), (2, 256, 512, 16, True, True),
+                 (2, 37, 64, 16, True, False), (1, 5, 32, 4, False, True),
+                 (2, 17, 48, 16, True, True)]
+
+
+def _ssm_bwd_inputs(gen, B, S, I, N, dy, dh):
+    u = lambda *s: torch.rand(*s, generator=gen, device="cuda")  # noqa: E731
     dA = 0.5 + 0.49 * u(B, S, I, N)
     dBx = (u(B, S, I, N) - 0.5) * 0.1
     C = u(B, S, N) * 2 - 1
     h0 = u(B, I, N) * 2 - 1
     g_y = u(B, S, I) - 0.5 if dy else None
     g_h = u(B, I, N) - 0.5 if dh else None
+    return dA, dBx, C, h0, g_y, g_h
+
+
+@pytest.mark.parametrize("B,S,I,N,dy,dh", SSM_BWD_CASES)
+def test_ssm_scan_bwd_kernel_matches_plain(card, B, S, I, N, dy, dh):
+    """The backward kernels given the forward's checkpoints, against the
+    plain backward that recomputes every state from h0."""
+    dA, dBx, C, h0, g_y, g_h = _ssm_bwd_inputs(card, B, S, I, N, dy, dh)
+    _, _, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+    torch.testing.assert_close(hck, ssm.ssm_scan_ckpt_plain(dA, dBx, h0),
+                               rtol=1e-4, atol=1e-4)
     before = ssm.bwd_launches
-    got = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h)
+    got = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h, hck)
     assert ssm.bwd_launches == before + 1
     want = ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, g_y, g_h)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,I,N", [c[:4] for c in SSM_BWD_CASES])
+def test_ssm_scan_ckpt_build_is_bit_equal(card, B, S, I, N):
+    """The checkpoint-writing build's y and h_last are the plain build's,
+    bit for bit, and it counts as one forward launch of each kind."""
+    dA, dBx, C, h0, _, _ = _ssm_bwd_inputs(card, B, S, I, N, False, False)
+    y, h = ssm.ssm_scan(dA, dBx, C, h0)
+    n, n_ckpt = ssm.launches, ssm.ckpt_launches
+    y_c, h_c, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+    assert (ssm.launches, ssm.ckpt_launches) == (n + 1, n_ckpt + 1)
+    assert hck.shape == (B, -(-S // ssm.SEG), I, N)
+    assert torch.equal(y_c, y) and torch.equal(h_c, h)
+    assert torch.equal(hck[:, 0], h0)
+
+
+def test_ssm_scan_bwd_is_deterministic(card):
+    """No atomics: two backward calls give the same bits."""
+    dA, dBx, C, h0, g_y, g_h = _ssm_bwd_inputs(card, 2, 256, 512, 16, True,
+                                               True)
+    _, _, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+    first = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h, hck)
+    second = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h, hck)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ssm_scan_bwd_without_ckpt_runs_the_ckpt_forward(card):
+    """A caller without checkpoints gets them from one launch of the
+    checkpoint-writing build: the same bits as the call given them."""
+    dA, dBx, C, h0, g_y, g_h = _ssm_bwd_inputs(card, 2, 37, 64, 16, True,
+                                               True)
+    _, _, hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)
+    want = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h, hck)
+    n = (ssm.launches, ssm.ckpt_launches, ssm.bwd_launches)
+    got = ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h)
+    assert (ssm.launches, ssm.ckpt_launches, ssm.bwd_launches) == (
+        n[0] + 1, n[1] + 1, n[2] + 1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="hck"):
+        ssm.ssm_scan_bwd(dA, dBx, C, h0, g_y, g_h, hck[:, :1])
+
+
+def test_ssm_scan_bwd_refuses_unaligned_inputs(card):
+    """TMA reads dA and dBx: data that is not 16-byte aligned is refused,
+    not copied."""
+    dA, dBx, C, h0, g_y, g_h = _ssm_bwd_inputs(card, 1, 5, 32, 4, True, True)
+    hck = ssm.ssm_scan_with_ckpt(dA, dBx, C, h0)[2]
+    shifted = torch.empty(dA.numel() + 1, device="cuda")[1:].view(dA.shape)
+    shifted.copy_(dA)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssm.ssm_scan_bwd(shifted, dBx, C, h0, g_y, g_h, hck)
 
 
 def test_ssm_scan_autograd_runs_the_kernels(card):
@@ -610,6 +675,34 @@ def test_ssm_scan_autograd_runs_the_kernels(card):
     got = torch.autograd.grad((y * gy).sum() + h.sum(), ins)
     y_p, h_p = ssm.ssm_scan_plain(*ins)
     want = torch.autograd.grad((y_p * gy).sum() + h_p.sum(), ins)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_ssm_scan_autograd_under_remat(card):
+    """``SSMScanFn`` under a non-reentrant activation checkpoint, as the
+    model's remat runs it: the plain autograd's gradients; the forward (its
+    checkpoint-writing build) runs twice, once more in the backward pass,
+    and the backward once."""
+    from torch.utils.checkpoint import checkpoint
+
+    dA, dBx = (torch.rand(2, 45, 64, 16, generator=card, device="cuda") * 0.9
+               for _ in range(2))
+    C = torch.randn(2, 45, 16, generator=card, device="cuda")
+    h0 = torch.randn(2, 64, 16, generator=card, device="cuda")
+    gy = torch.randn(2, 45, 64, generator=card, device="cuda")
+    ins = [t.requires_grad_(True) for t in (dA, dBx, C, h0)]
+
+    def loss(scan, *xs):
+        y, h = scan(*xs)
+        return (y * gy).sum() + (h * h).sum()
+
+    n = (ssm.launches, ssm.ckpt_launches, ssm.bwd_launches)
+    out = checkpoint(loss, ssm.ssm_scan, *ins, use_reentrant=False)
+    got = torch.autograd.grad(out, ins)
+    assert (ssm.launches, ssm.ckpt_launches, ssm.bwd_launches) == (
+        n[0] + 2, n[1] + 2, n[2] + 1)
+    want = torch.autograd.grad(loss(ssm.ssm_scan_plain, *ins), ins)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
