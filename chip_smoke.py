@@ -170,7 +170,25 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     the train CLI in two child processes, the first dying after step 5
     (exit code 17), the second resuming from the verified step-6
     checkpoint;
-28. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+28. the multi-device layer on a world-1 NCCL group
+    (``launch.mesh.make_local_mesh(1, 1)``): (a) ``compressed_psum`` and
+    ``sparse_psum`` on seeded f32 gradients of every stablelm-1.6b leaf
+    shape, bit-equal to the in-step pair and to the top-k pair at frac
+    0.01, with their ms on the 100352 x 2048 embedding (median of 10) and
+    bytes on the wire; (b) ``ep_a2a.moe_ep_a2a_local`` at qwen2-moe-a2.7b's
+    expert widths (E=60, top-4, M=2048, F=1408): T=4096 in bf16 routed by
+    ``moe.route``, the NCCL exchange bit-equal to ``group=None``, ms and
+    the dropped share, then T=256 in f32 at capacity factors 1.25 and 0.5,
+    the card against the CPU within 1e-5 with identical src, eid and
+    counts; (c) stablelm-1.6b at full width and depth: ``state_pspecs``
+    under ``TRAIN_RULES``, ``checkpoint.save`` and ``restore(...,
+    sharding_tree=)`` into DTensors with those placements, bit-equal to
+    the saved leaves, then one train step (B=4, S=2048) under
+    ``sharding_ctx`` from the restored state and one without: loss,
+    params, mu and nu bit-equal, the attention backward on
+    ``fa_bwd_wgmma``; ``--only-distributed`` builds the kernels, runs only
+    this phase and stops;
+29. the script's wall seconds, a ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16``; the two backward kernels at the stablelm-1.6b and falcon-mamba
@@ -2612,12 +2630,282 @@ def resume_on_card():
           f"s wall")
 
 
+# -- phase 28: the multi-device layer ------------------------------------
+
+
+def median_ms(torch, fn, iters=10):
+    """The median of ``iters`` calls' device times after one untimed call
+    (CUDA events around each call on the current stream, which waits for
+    the NCCL stream of a blocking collective)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ms.append(s.elapsed_time(e))
+    return sorted(ms)[iters // 2]
+
+
+def collectives_on_card(torch, mesh, card):
+    """Phase 28(a): ``compressed_psum`` and ``sparse_psum`` over the
+    world-1 NCCL group of ``mesh`` on seeded f32 gradients of every
+    stablelm-1.6b leaf shape: the first bit-equal to the in-step pair
+    ``decompress(compress(g))``, the second to
+    ``topk_decompress(*topk_compress(g))`` at frac 0.01; then each one's ms
+    on the 100352 x 2048 embedding and its bytes on the wire."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import grad_compress as gc
+    from repro_torch.models.params import param_specs
+    from repro_torch.train.tree import flatten_with_path
+
+    cfg = get_config("stablelm-1.6b")
+    grp = mesh.get_group("data")
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    t0 = time.perf_counter()
+    n_leaves = n_values = 0
+    for path, spec in flatten_with_path(param_specs(cfg)):
+        g = torch.randn(spec.shape, generator=gen, device="cuda")
+        where = "/".join(map(str, path))
+        require(torch.equal(gc.compressed_psum(g, grp),
+                            gc.decompress(*gc.compress(g))),
+                f"compressed_psum differs from the in-step pair on {where}")
+        v, i = gc.topk_compress(g, 0.01)
+        require(torch.equal(gc.sparse_psum(g, grp, 0.01),
+                            gc.topk_decompress(v, i, g.shape)),
+                f"sparse_psum differs from the top-k pair on {where}")
+        n_leaves += 1
+        n_values += g.numel()
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    g = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                    device="cuda")
+    n = g.numel()
+    k = max(1, int(n * 0.01))
+    out = {
+        "compressed_psum_ms": median_ms(
+            torch, lambda: gc.compressed_psum(g, grp)),
+        "sparse_psum_ms": median_ms(torch, lambda: gc.sparse_psum(g, grp)),
+        # one rank's share of each collective: the f32 absmax and the int32
+        # payload; the top-k values (f32) and indices (int64)
+        "compressed_wire_bytes": 4 + 4 * n,
+        "reference_int16_wire_bytes": 4 + 2 * n,
+        "f32_all_reduce_bytes": 4 * n,
+        "sparse_wire_bytes": 12 * k,
+    }
+    print(f"phase 28(a) collectives on a world-1 NCCL group: {n_leaves} "
+          f"stablelm-1.6b leaf shapes ({n_values} values), compressed_psum "
+          f"bit-equal to decompress(compress(g)) and sparse_psum (frac 0.01) "
+          f"to topk_decompress(topk_compress(g)) on every one, "
+          f"{check_s:.1f} s; on the {cfg.vocab_size} x {cfg.d_model} "
+          f"embedding (median of 10): "
+          + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in out.items()) + f" [{card}]")
+    del g
+    return out
+
+
+def expert_parallel_on_card(torch, mesh, card):
+    """Phase 28(b): qwen2-moe-a2.7b's expert layer (E=60, top-4, M=2048,
+    F=1408) through ``ep_a2a.moe_ep_a2a_local``: T=4096 tokens in bf16
+    routed by ``moe.route`` on seeded weights, the exchange over the
+    world-1 NCCL group bit-equal to ``group=None``, with ms per call and
+    the share of (token, k) pairs that never reach the combine; then T=256
+    in f32 at capacity factors 1.25 and 0.5 (the second overflows the
+    bucket), the card against the CPU within 1e-5 with identical src, eid
+    and counts from ``bucket_by_peer``."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import ep_a2a
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen2-moe-a2.7b")
+    E, K, M, F = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert
+    grp = mesh.get_group("model")
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    w_router = randn(M, E) / math.sqrt(M)
+    w32 = [randn(E, M, F) / math.sqrt(M), randn(E, M, F) / math.sqrt(M),
+           randn(E, F, M) / math.sqrt(F)]
+    out = {}
+    for T, dt in ((4096, torch.bfloat16), (256, torch.float32)):
+        x = randn(1, T, M).to(dt)
+        _, _, gate, ids, _, _, _ = moe.route({"w_router": w_router}, x, cfg)
+        x, ids, gate = x[0], ids.reshape(T, K), gate.reshape(T, K)
+        ws = [w.to(dt) for w in w32]
+        if dt == torch.bfloat16:
+            local = ep_a2a.moe_ep_a2a_local(x, ids, gate, *ws)
+            grouped = ep_a2a.moe_ep_a2a_local(x, ids, gate, *ws, group=grp)
+            require(torch.equal(local, grouped) and bool(
+                torch.isfinite(local).all()), "the exchange over NCCL is not "
+                "bit-equal to the single-shard path")
+            cap = int(T * K * 1.25)
+            _, src, _, _, counts = ep_a2a.bucket_by_peer(x, ids, gate, 1, cap)
+            out["bf16_T4096"] = dict(
+                local_ms=median_ms(torch, lambda: ep_a2a.moe_ep_a2a_local(
+                    x, ids, gate, *ws)),
+                nccl_ms=median_ms(torch, lambda: ep_a2a.moe_ep_a2a_local(
+                    x, ids, gate, *ws, group=grp)),
+                dropped_share=1 - int((src >= 0).sum()) / (T * K),
+                counts=counts.tolist())
+            continue
+        cpu = [t.cpu() for t in (x, ids, gate, *ws)]
+        for factor in (1.25, 0.5):
+            cap = max(1, int(T * K * factor))
+            on_card = ep_a2a.bucket_by_peer(x, ids, gate, 1, cap)
+            on_cpu = ep_a2a.bucket_by_peer(*cpu[:3], 1, cap)
+            for name, a, b in zip(("src", "eid", "counts"),
+                                  (on_card[1], on_card[2], on_card[4]),
+                                  (on_cpu[1], on_cpu[2], on_cpu[4])):
+                require(torch.equal(a.cpu(), b), f"T={T} factor {factor}: "
+                        f"{name} differs between the card and the CPU")
+            got = ep_a2a.moe_ep_a2a_local(x, ids, gate, *ws, group=grp,
+                                          capacity_factor=factor).cpu()
+            want = ep_a2a.moe_ep_a2a_local(*cpu, capacity_factor=factor)
+            err = float((got - want).abs().max())
+            require(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+                    f"T={T} f32 factor {factor}: card against CPU max abs "
+                    f"error {err}")
+            out[f"f32_T256_factor{factor}"] = dict(
+                max_abs_err=err,
+                dropped_share=1 - int((on_card[1] >= 0).sum()) / (T * K))
+    print(f"phase 28(b) expert parallelism, qwen2-moe-a2.7b's expert layer "
+          f"(E={E}, top-{K}, M={M}, F={F}): {json.dumps(out)} [{card}]")
+    return out
+
+
+def sharded_restore_and_step(torch, ops, mesh, card, B=4, S=2048):
+    """Phase 28(c): stablelm-1.6b at full width and depth: the train
+    state's specs under ``TRAIN_RULES`` on the (1, 1) cuda mesh; the state
+    saved by ``checkpoint.save`` and restored with ``sharding_tree``, every
+    leaf a DTensor with the resolved placements whose ``full_tensor()`` is
+    bit-equal to the saved leaf; then one train step under
+    ``sharding_ctx(mesh, TRAIN_RULES)`` from the restored state's local
+    tensors and one without the mesh from the saved state: loss, params, mu
+    and nu bit-equal, every attention backward on ``fa_bwd_wgmma``.
+    Returns the mesh step's launch counts."""
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed.sharding import (TRAIN_RULES, NamedSharding,
+                                                  sharding_ctx)
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.tree import flatten_with_path, leaves, map_tree
+
+    cfg = get_config("stablelm-1.6b")
+    torch.cuda.reset_peak_memory_stats()
+    state = train_loop.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    pspecs = train_loop.state_pspecs(cfg, rules=TRAIN_RULES, mesh=mesh)
+    shardings = map_tree(lambda p: NamedSharding(mesh, p), pspecs)
+    step = train_loop.make_train_step(cfg, train_loop.TrainConfig(
+        opt=optimizer.OptConfig(lr=1e-3, warmup_steps=0)))
+    batch = TokenStream(cfg, B, S, DataConfig()).batch_at(0)
+
+    def sub(a, b):
+        return float((a.detach().float() - b.detach().float()).abs().max())
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, 0, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = ckpt.restore(d, 0, state, sharding_tree=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        for (path, got), (_, want), (_, ns) in zip(
+                flatten_with_path(restored), flatten_with_path(state),
+                flatten_with_path(shardings), strict=True):
+            where = "/".join(map(str, path))
+            require(isinstance(got, DTensor)
+                    and got.placements == ns.placements,
+                    f"{where} restored as {type(got)}, want a DTensor with "
+                    f"{ns.placements}")
+            require(torch.equal(got.full_tensor(), want.detach()),
+                    f"{where}: the restored leaf differs from the saved one")
+        local = map_tree(lambda t: t.to_local().detach().requires_grad_(
+            t.requires_grad), restored)
+        del restored
+        ops.reset_launch_counts()
+        with sharding_ctx(mesh, TRAIN_RULES):
+            t0 = time.perf_counter()
+            meshed, m1 = step(local, batch)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t0
+        n = ops.launch_counts()
+        want = {"flash_attention_bwd": cfg.n_layers,
+                "fa_bwd_wgmma": cfg.n_layers, "fa_bwd_mma": 0,
+                "fa_bwd_f32": 0, "flash_attention": 2 * cfg.n_layers}
+        for kernel, w in want.items():
+            require(n[kernel] == w, f"the step under the mesh launched "
+                    f"{kernel} {n[kernel]} times, want {w}")
+        t0 = time.perf_counter()
+        plain, m0 = step(state, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        require(torch.equal(m1["loss"], m0["loss"]), f"loss "
+                f"{float(m1['loss'])} under the mesh, {float(m0['loss'])} "
+                f"without")
+        for (path, a), (_, b) in zip(flatten_with_path(meshed),
+                                     flatten_with_path(plain), strict=True):
+            if not torch.equal(a.detach(), b.detach()):
+                require(False, f"after the step {'/'.join(map(str, path))} "
+                        f"differs by {sub(a, b)} between the mesh and none")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 28(c) {cfg.name} (full width and depth) on the (1, 1) cuda "
+          f"mesh: {len(leaves(state))} state leaves saved in {save_s:.1f} s, "
+          f"restored as DTensors with the TRAIN_RULES placements in "
+          f"{restore_s:.1f} s, bit-equal to the saved leaves; one train step "
+          f"(B={B}, S={S}) under sharding_ctx in {mesh_s * 1e3:.1f} ms and "
+          f"one without in {plain_s * 1e3:.1f} ms: loss "
+          f"{float(m1['loss']):.6f} / {float(m0['loss']):.6f}, params, mu, "
+          f"nu and loss bit-equal; peak {peak:.2f} GB; launches {n} [{card}]")
+    del state, plain
+    torch.cuda.empty_cache()
+    return n
+
+
+def distributed_on_card(torch, ops, card):
+    """Phase 28: the collectives, expert parallelism and the sharded
+    restore and step on a world-1 NCCL group; the group is destroyed at
+    the end."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh(1, 1)
+    require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    coll = collectives_on_card(torch, mesh, card)
+    ep = expert_parallel_on_card(torch, mesh, card)
+    torch.cuda.empty_cache()
+    n = sharded_restore_and_step(torch, ops, mesh, card)
+    dist.destroy_process_group()
+    print(f"phase 28 the multi-device layer: {time.perf_counter() - t0:.1f} "
+          f"s wall")
+    return n, dict(collectives=coll, expert_parallel=ep)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--ssm-bwd-timing", type=int, metavar="RUNS",
         help="time only phase 23's scan (the backward and the forward's two "
              "builds) RUNS times over in a fresh process, and stop")
+    parser.add_argument(
+        "--only-distributed", action="store_true",
+        help="build the kernels, run only phase 28 (the multi-device "
+             "layer), and stop without the closing lines")
     args = parser.parse_args()
     import torch
 
@@ -2701,6 +2989,10 @@ def main():
           f"fa_bwd_dkdv_wgmma D=64 {bwd_lib.flash_attention_bwd_wgmma_smem(64, 1)}"
           f" B, D=128 {bwd_lib.flash_attention_bwd_wgmma_smem(128, 1)} B; "
           f"ssm_bwd_tma N=16 {ssm_lib.ssm_scan_bwd_smem(16)} B")
+
+    if args.only_distributed:
+        distributed_on_card(torch, ops, card)
+        return
 
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
@@ -2818,6 +3110,10 @@ def main():
 
     # phase 27: checkpoint, kill and resume on the card
     resume_on_card()
+
+    # phase 28: the multi-device layer on a world-1 NCCL group
+    n, _ = distributed_on_card(torch, ops, card)
+    add_counts(counts, n)
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",

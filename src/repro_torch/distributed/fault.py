@@ -18,8 +18,7 @@ logic is pure and unit-tested with virtual hosts:
     (debounced) and leaves only below the lower ``exit_ratio``;
   * preemption-safe training is provided by atomic checkpoints
     (``train.checkpoint``) + deterministic data (``train.data``):
-    restart = restore(latest) and continue at the stored step (in the
-    reference; the port's training modules are not written yet).
+    restart = restore(latest) and continue at the stored step.
 
 Copy of ``repro.distributed.fault``: the port imports nothing of ``repro``.
 """

@@ -35,14 +35,30 @@ reference's layout, {"k", "v"} of (B, L, Hkv, D), in place.
 
 The reference casts p to the value dtype before P.V; the flash kernel does
 the same, the decode kernel keeps p in f32.
+
+The sharding constraints sit at the reference's sites (attention.py:91-93,
+118-119, 149-151, 183) and do nothing without a mesh.  Its constraint on the
+decode scores (:66) has no tensor here: the kernel keeps the scores; and
+the keys and values are not repeated to H heads (:149-151), so only q
+takes that site's constraint.  The reference pads the heads to a multiple
+of the "model" axis where it does not divide them (:140-148); that belongs
+to running over several devices, which is not ported, and raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import active_mesh, axis_sizes, constrain
 from repro_torch.kernels import ops
 from repro_torch.models.common import apply_rope, rms_norm
+
+
+def _tp_size() -> int:
+    mesh = active_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return axis_sizes(mesh)["model"]
 
 
 def _qkv(params: dict, x, cfg: ModelConfig, rope):
@@ -52,6 +68,9 @@ def _qkv(params: dict, x, cfg: ModelConfig, rope):
     q = (x @ params["wq"].to(x.dtype).reshape(M, H * D)).view(B, S, H, D)
     k = (x @ params["wk"].to(x.dtype).reshape(M, Hkv * D)).view(B, S, Hkv, D)
     v = (x @ params["wv"].to(x.dtype).reshape(M, Hkv * D)).view(B, S, Hkv, D)
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
+    v = constrain(v, "batch", "seq", "kv_heads", None)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -64,8 +83,9 @@ def _qkv(params: dict, x, cfg: ModelConfig, rope):
 def _out(params: dict, out, x):
     """out: (B, S, H, D) -> y (B, S, M)."""
     B, S, H, D = out.shape
-    return out.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(
+    y = out.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(
         H * D, x.shape[-1])
+    return constrain(y, "batch", "seq_sp", None)
 
 
 def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
@@ -78,6 +98,15 @@ def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
     if cache is not None:
         cache["k"][:, :S] = k.to(cache["k"].dtype)
         cache["v"][:, :S] = v.to(cache["v"].dtype)
+        for name in ("k", "v"):
+            cache[name] = constrain(cache[name], "batch", "kv_seq",
+                                    "kv_heads", None)
+    if S > 1 and cfg.q_per_kv > 1:
+        if cfg.n_heads % _tp_size():
+            raise NotImplementedError(
+                f"{cfg.n_heads} heads over a model axis of {_tp_size()}: "
+                f"the reference's head padding is not ported")
+        q = constrain(q, "batch", "seq", "heads", None)
     out = ops.flash_attention(
         q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
         causal=cfg.causal, window=window or 0, q_pos=pos,
@@ -97,6 +126,8 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     ck, cv = cache["k"], cache["v"]
     ck[:, cache_len] = k[:, 0].to(ck.dtype)
     cv[:, cache_len] = v[:, 0].to(cv.dtype)
+    ck = cache["k"] = constrain(ck, "batch", "kv_seq", "kv_heads", None)
+    cv = cache["v"] = constrain(cv, "batch", "kv_seq", "kv_heads", None)
     kv_start = None
     if pos is not None:
         qp = pos[:, 0].to(kv_len.dtype)

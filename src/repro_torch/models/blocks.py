@@ -24,6 +24,7 @@ from __future__ import annotations
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_specs
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import rms_norm
 
@@ -50,7 +51,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params: dict, x, rope,
         y2, aux = moe.moe(params["moe"],
                           rms_norm(x, params["ln2"], cfg.norm_eps), cfg)
         x = x + y2
-    return x, aux
+    return constrain(x, "batch", "seq_sp", None), aux
 
 
 def apply_stack(cfg: ModelConfig, layers: list, x, rope, cache,

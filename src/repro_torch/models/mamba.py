@@ -26,26 +26,28 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 
 CHUNK = 256  # tokens per scan in prefill: the reference's chunk
 
 
 def mamba_specs(cfg: ModelConfig) -> dict:
-    """{leaf: (shape, init, dtype name)} of one layer, the reference's."""
+    """{leaf: (shape, init, dtype name, logical axes)} of one layer, the
+    reference's."""
     M, I, N, R, W = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                      cfg.dt_rank_resolved, cfg.d_conv)
     pd = cfg.param_dtype
     return {
-        "in_proj": ((M, 2 * I), "dense", pd),
-        "conv_w": ((W, I), "dense", pd),
-        "conv_b": ((I,), "zeros", pd),
-        "x_proj": ((I, R + 2 * N), "dense", pd),
-        "dt_proj": ((R, I), "dense", pd),
-        "dt_bias": ((I,), "zeros", "float32"),
-        "A_log": ((I, N), "ssm_a", "float32"),
-        "D": ((I,), "ones", "float32"),
-        "out_proj": ((I, M), "dense", pd),
+        "in_proj": ((M, 2 * I), "dense", pd, ("embed_p", "ssm_inner")),
+        "conv_w": ((W, I), "dense", pd, ("conv", "ssm_inner")),
+        "conv_b": ((I,), "zeros", pd, ("ssm_inner",)),
+        "x_proj": ((I, R + 2 * N), "dense", pd, ("ssm_inner", None)),
+        "dt_proj": ((R, I), "dense", pd, ("dt_rank", "ssm_inner")),
+        "dt_bias": ((I,), "zeros", "float32", ("ssm_inner",)),
+        "A_log": ((I, N), "ssm_a", "float32", ("ssm_inner", "ssm_state")),
+        "D": ((I,), "ones", "float32", ("ssm_inner",)),
+        "out_proj": ((I, M), "dense", pd, ("ssm_inner", "embed_p")),
     }
 
 
@@ -69,6 +71,7 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
 
     xz = x @ params["in_proj"].to(dt_)
     xin, z = xz[..., :I], xz[..., I:]
+    xin = constrain(xin, "batch", "seq", "ssm_inner")
     conv0 = (torch.zeros((B, W - 1, I), dtype=dt_, device=x.device)
              if cache is None else cache["conv"].to(dt_))
     x_pad = torch.cat([conv0, xin], dim=1)
@@ -108,4 +111,4 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     if cache is not None:
         cache["h"].copy_(h_last)
         cache["conv"].copy_(new_conv)
-    return out
+    return constrain(out, "batch", "seq", None)

@@ -26,6 +26,9 @@ updated in place (the reference returns a new one).
   ``kernels/ssm_scan.py``).  ``chunked_lm_loss`` takes the loss over
   chunks of 512 rows, each recomputed in the backward pass, so no (B, S, V)
   logits are kept.
+* The sharding constraints sit at the reference's sites (model.py:71, 102,
+  114, 146) and, like those of the layers, do nothing without a mesh
+  (``repro_torch.distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, layer_specs
 from repro_torch.device import resolve
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks
 from repro_torch.models.common import (dtype_of, masked_nll, rms_norm,
                                        rope_angles, softmax_cross_entropy)
@@ -82,7 +86,8 @@ def _embed(params, cfg: ModelConfig, batch: dict, dev):
     the vision embeddings over their first rows."""
     dt = dtype_of(cfg)
     if cfg.frontend == "audio_frames":
-        return torch.as_tensor(batch["frames"], device=dev).to(dt)
+        x = torch.as_tensor(batch["frames"], device=dev).to(dt)
+        return constrain(x, "batch", "seq", None)
     x = params["embed"][torch.as_tensor(batch["tokens"], device=dev)].to(dt)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         v = torch.as_tensor(batch["vision_embeds"], device=dev)
@@ -90,7 +95,7 @@ def _embed(params, cfg: ModelConfig, batch: dict, dev):
             raise ValueError(f"{v.shape[1]} vision embeddings do not fit "
                              f"{x.shape[1]} positions")
         x[:, :v.shape[1]] = v.to(dt)
-    return x
+    return constrain(x, "batch", "seq", None)
 
 
 def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev):
@@ -161,7 +166,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
 def _chunk_nll(xc, w, tc, mc):
     """``masked_nll`` of one chunk; its (B, chunk, V) logits in f32 live
     only inside this call."""
-    return masked_nll(xc @ w, tc, mc)
+    return masked_nll(constrain(xc @ w, "batch", "seq", "vocab"), tc, mc)
 
 
 def chunked_lm_loss(params, cfg: ModelConfig, x, targets, mask,
@@ -172,7 +177,8 @@ def chunked_lm_loss(params, cfg: ModelConfig, x, targets, mask,
     B, S, M = x.shape
     w = unembed_matrix(params, cfg).to(x.dtype)
     if S <= chunk:
-        return softmax_cross_entropy(x @ w, targets, mask)
+        return softmax_cross_entropy(
+            constrain(x @ w, "batch", "seq", "vocab"), targets, mask)
     if S % chunk:
         raise ValueError(f"S={S} must be a multiple of the loss chunk {chunk}")
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -197,7 +203,8 @@ def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     rope, pos = _rope(cfg, batch, B, S, 0, dev)
     x, aux = blocks.apply_stack(cfg, params["layers"], x, rope, None, pos=pos,
                                 remat=remat)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = constrain(rms_norm(x, params["final_norm"], cfg.norm_eps), "batch",
+                  "seq_sp", None)
     targets = torch.as_tensor(batch["targets"], device=dev)
     mask = (torch.as_tensor(batch["loss_mask"], device=dev)
             if "loss_mask" in batch

@@ -3,8 +3,8 @@
 Port of ``repro.models.moe`` (``moe_specs``, ``_capacity``, ``moe``), in the
 reference's literal one-hot form: the dispatch and combine are the same
 einsums over the same (groups, group size, experts, capacity) tensors, so
-the port keeps exactly the reference's (token, k) pairs.  ``constrain`` is
-left out: it does nothing without a mesh.
+the port keeps exactly the reference's (token, k) pairs, with its sharding
+constraints at the same sites (moe.py:60, 93-106; no-ops without a mesh).
 
 * Groups: the B * S tokens are flattened and cut into groups of
   ``min(group_size, S)`` (1 at decode), so a group may span two batch rows.
@@ -28,26 +28,30 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.mlp import mlp as dense_mlp
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
-    """{leaf: (shape, init, dtype name)} of one MoE MLP, the reference's;
-    ``shared`` is a dict of its own where the config has shared experts."""
+    """{leaf: (shape, init, dtype name, logical axes)} of one MoE MLP, the
+    reference's; ``shared`` is a dict of its own where the config has shared
+    experts."""
     M, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
     pd = cfg.param_dtype
+    ex = ("experts", "embed_p", "expert_mlp")
     specs = {
-        "w_router": ((M, E), "dense", "float32"),
-        "w_gate": ((E, M, F_), "dense", pd),
-        "w_up": ((E, M, F_), "dense", pd),
-        "w_down": ((E, F_, M), "dense", pd),
+        "w_router": ((M, E), "dense", "float32", ("embed_p", None)),
+        "w_gate": ((E, M, F_), "dense", pd, ex),
+        "w_up": ((E, M, F_), "dense", pd, ex),
+        "w_down": ((E, F_, M), "dense", pd,
+                   ("experts", "expert_mlp", "embed_p")),
     }
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * cfg.d_ff_expert
         specs["shared"] = {
-            "w_gate": ((M, Fs), "dense", pd),
-            "w_up": ((M, Fs), "dense", pd),
-            "w_down": ((Fs, M), "dense", pd),
+            "w_gate": ((M, Fs), "dense", pd, ("embed_p", "mlp")),
+            "w_up": ((M, Fs), "dense", pd, ("embed_p", "mlp")),
+            "w_down": ((Fs, M), "dense", pd, ("mlp", "embed_p")),
         }
     return specs
 
@@ -70,7 +74,7 @@ def route(params: dict, x, cfg: ModelConfig, group_size: int = 256):
         raise ValueError(f"B*S = {B * S} tokens do not fill groups of {gs}")
     gr = (B * S) // gs
     C = _capacity(gs, K, E)
-    xg = x.reshape(gr, gs, M)
+    xg = constrain(x.reshape(gr, gs, M), "batch", None, None)
 
     # bf16 operands, f32 product: the operands are rounded as the
     # reference rounds them, the product is not
@@ -107,13 +111,18 @@ def moe(params: dict, x, cfg: ModelConfig, group_size: int = 256):
     combine = torch.einsum("gske,gskc->gsec",
                            eh * (gate_w * keep).to(dt)[..., None], ch)
     dispatch = (combine > 0).to(dt)
+    combine = constrain(combine, "batch", None, "experts", None)
+    dispatch = constrain(dispatch, "batch", None, "experts", None)
 
     expert_in = torch.einsum("gsec,gsm->egcm", dispatch, xg)
+    expert_in = constrain(expert_in, "experts", "batch", None, None)
     g = torch.einsum("egcm,emf->egcf", expert_in, params["w_gate"].to(dt))
     u = torch.einsum("egcm,emf->egcf", expert_in, params["w_up"].to(dt))
     h = F.silu(g) * u
     eo = torch.einsum("egcf,efm->egcm", h, params["w_down"].to(dt))
-    y = torch.einsum("gsec,egcm->gsm", combine, eo).reshape(B, S, M)
+    eo = constrain(eo, "experts", "batch", None, None)
+    y = torch.einsum("gsec,egcm->gsm", combine, eo)
+    y = constrain(y.reshape(B, S, M), "batch", "seq_sp", None)
 
     if "shared" in params:
         y = y + dense_mlp(params["shared"], x)

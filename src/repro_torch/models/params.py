@@ -35,10 +35,20 @@ cut to fewer layers stacks fewer, so its std changes with the depth: the
 that its magnitudes match the reference's.  PyTorch cannot replay JAX's
 path-keyed random stream, so the values themselves differ; parity tests
 carry the reference's arrays over with ``from_jax_params``.
+
+``param_specs`` gives the same tree with a :class:`ParamSpec` (shape,
+dtype, logical axes) for each leaf, the reference's
+``abstract_params`` without the stacked layer axis: a per-layer leaf's
+logical axes are the stacked spec's minus its leading (None) entry, so it
+resolves to the stacked spec's partition minus its first entry.
+``spec_to_pspecs`` resolves such a tree under sharding rules and a mesh,
+and ``constrain_like`` applies each leaf's constraint to a tree of the same
+structure (a no-op without a mesh).
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -46,41 +56,60 @@ import torch
 from repro_torch.configs.base import (LayerSpec, ModelConfig, layer_specs,
                                       scan_period)
 from repro_torch.device import resolve
+from repro_torch.distributed.sharding import active_mesh, constrain, to_pspec
 from repro_torch.models.common import param_dtype_of
 from repro_torch.models.mamba import mamba_specs
 from repro_torch.models.moe import moe_specs
+from repro_torch.train.tree import map_tree
 
 
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    """{path: (shape, init, dtype)} of one layer, in a fixed order."""
+    """{path: (shape, init, dtype, logical axes)} of one layer, in a fixed
+    order; the logical axes are the reference's ``ParamSpec.logical``
+    (attention.py:36-43, blocks.py:31-40, mlp.py:17-19, and the Mamba and
+    MoE specs) without the stacked layer axis."""
     M, H, Hkv, D, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     pd = param_dtype_of(cfg)
-    shapes = {("ln1",): ((M,), "ones", torch.float32)}
+    f32 = torch.float32
+    shapes = {("ln1",): ((M,), "ones", f32, (None,))}
     if spec.kind == "mamba":
-        for name, (shape, init, dt) in mamba_specs(cfg).items():
-            shapes[("mamba", name)] = (shape, init, getattr(torch, dt))
+        for name, (shape, init, dt, lg) in mamba_specs(cfg).items():
+            shapes[("mamba", name)] = (shape, init, getattr(torch, dt), lg)
     else:
-        shapes[("attn", "wq")] = ((M, H, D), "dense", pd)
-        shapes[("attn", "wk")] = ((M, Hkv, D), "dense", pd)
-        shapes[("attn", "wv")] = ((M, Hkv, D), "dense", pd)
-        shapes[("attn", "wo")] = ((H, D, M), "dense", pd)
+        shapes[("attn", "wq")] = ((M, H, D), "dense", pd,
+                                  ("embed_p", "heads", None))
+        shapes[("attn", "wk")] = ((M, Hkv, D), "dense", pd,
+                                  ("embed_p", "kv_heads", None))
+        shapes[("attn", "wv")] = ((M, Hkv, D), "dense", pd,
+                                  ("embed_p", "kv_heads", None))
+        shapes[("attn", "wo")] = ((H, D, M), "dense", pd,
+                                  ("heads", None, "embed_p"))
         if cfg.qk_norm:
-            shapes[("attn", "q_norm")] = ((D,), "ones", torch.float32)
-            shapes[("attn", "k_norm")] = ((D,), "ones", torch.float32)
+            shapes[("attn", "q_norm")] = ((D,), "ones", f32, (None,))
+            shapes[("attn", "k_norm")] = ((D,), "ones", f32, (None,))
     if spec.mlp == "dense":
-        shapes[("ln2",)] = ((M,), "ones", torch.float32)
-        shapes[("mlp", "w_gate")] = ((M, F), "dense", pd)
-        shapes[("mlp", "w_up")] = ((M, F), "dense", pd)
-        shapes[("mlp", "w_down")] = ((F, M), "dense", pd)
+        shapes[("ln2",)] = ((M,), "ones", f32, (None,))
+        shapes[("mlp", "w_gate")] = ((M, F), "dense", pd, ("embed_p", "mlp"))
+        shapes[("mlp", "w_up")] = ((M, F), "dense", pd, ("embed_p", "mlp"))
+        shapes[("mlp", "w_down")] = ((F, M), "dense", pd, ("mlp", "embed_p"))
     elif spec.mlp == "moe":
-        shapes[("ln2",)] = ((M,), "ones", torch.float32)
+        shapes[("ln2",)] = ((M,), "ones", f32, (None,))
         for name, leaf in moe_specs(cfg).items():
-            for sub, (shape, init, dt) in (
+            for sub, (shape, init, dt, lg) in (
                     leaf.items() if name == "shared" else [(None, leaf)]):
                 path = ("moe", name) if sub is None else ("moe", name, sub)
-                shapes[path] = (shape, init, getattr(torch, dt))
+                shapes[path] = (shape, init, getattr(torch, dt), lg)
     return shapes
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    """A leaf's shape, dtype and logical axis names (a leaf of the port's
+    trees, where the reference's ``ParamSpec`` is a pytree node)."""
+    shape: tuple
+    dtype: torch.dtype
+    logical: tuple
 
 
 def _set(tree: dict, path, value):
@@ -118,7 +147,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
               "layers": []}
     for i, spec in enumerate(layer_specs(cfg)):
         layer: dict = {}
-        for path, (shape, init, dt) in _layer_shapes(cfg, spec).items():
+        for path, (shape, init, dt, _) in _layer_shapes(cfg, spec).items():
             fan_in = n_rep if i < n_stacked else shape[0]
             _set(layer, path, _draw(shape, init, dt, fan_in, generator, dev))
         params["layers"].append(layer)
@@ -206,3 +235,36 @@ def count_params(params: dict) -> int:
         else:
             stack.extend(node)
     return total
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The :class:`ParamSpec` tree of ``init_params``' output."""
+    pd = param_dtype_of(cfg)
+    M, V = cfg.d_model, cfg.vocab_size
+    out = {"embed": ParamSpec((V, M), pd, ("vocab", "embed_p")),
+           "layers": []}
+    for spec in layer_specs(cfg):
+        layer: dict = {}
+        for path, (shape, _, dt, lg) in _layer_shapes(cfg, spec).items():
+            _set(layer, path, ParamSpec(tuple(shape), dt, lg))
+        out["layers"].append(layer)
+    out["final_norm"] = ParamSpec((M,), torch.float32, (None,))
+    if not cfg.tie_embeddings:
+        out["unembed"] = ParamSpec((M, V), pd, ("embed_p", "vocab"))
+    return out
+
+
+def spec_to_pspecs(tree, rules=None, mesh=None):
+    """ParamSpec tree -> PartitionSpec tree."""
+    return map_tree(lambda s: to_pspec(s.logical, rules=rules, mesh=mesh,
+                                       shape=s.shape), tree)
+
+
+def constrain_like(tree, spec_tree):
+    """``constrain`` every leaf of ``tree`` by its ParamSpec's logical axes
+    (a no-op without an active sharding context): keeps gradients in the
+    parameters' layout."""
+    if active_mesh() is None:
+        return tree
+    return map_tree(lambda leaf, s: constrain(leaf, *s.logical), tree,
+                    spec_tree)

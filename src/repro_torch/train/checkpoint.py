@@ -9,10 +9,13 @@ Port of ``repro.train.checkpoint``:
     dtype, so a torn write is never visible as a valid checkpoint;
   * resume: ``latest_step`` finds the highest committed manifest, ``verify``
     checks its hashes, ``restore`` loads it into the structure and devices
-    of a given tree.
+    of a given tree, or re-shards each leaf for the current mesh
+    (``sharding_tree``: the elastic-rescale path).
 numpy has no bfloat16: a bf16 leaf is stored as its raw 16 bits (uint16)
-and the manifest names its dtype "bfloat16".  The reference's re-sharding
-on restore waits for the port's sharding.
+and the manifest names its dtype "bfloat16".  ``save`` writes and hashes
+the leaves on a pool of threads (numpy's writes and sha256 release the
+GIL: a 16.5 GB state is hashed at several times one core's rate), and
+``restore`` reads them so; the files and the manifest do not change.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -52,6 +56,19 @@ def _to_numpy(leaf):
     return arr, str(arr.dtype)
 
 
+def _pool():
+    return ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+
+def _write(tmp: str, key: str, leaf) -> dict:
+    arr, dtype = _to_numpy(leaf)
+    fname = key.replace("/", "__") + ".npy"
+    fpath = os.path.join(tmp, fname)
+    np.save(fpath, arr)
+    return {"file": fname, "sha256": _sha256(fpath),
+            "shape": list(arr.shape), "dtype": dtype}
+
+
 def save(ckpt_dir: str, step: int, tree: Any) -> str:
     """Atomically write a checkpoint; returns the committed directory."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -59,18 +76,10 @@ def save(ckpt_dir: str, step: int, tree: Any) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    manifest = {"step": step, "files": {}}
-    for key, leaf in _flatten(tree).items():
-        arr, dtype = _to_numpy(leaf)
-        fname = key.replace("/", "__") + ".npy"
-        fpath = os.path.join(tmp, fname)
-        np.save(fpath, arr)
-        manifest["files"][key] = {
-            "file": fname,
-            "sha256": _sha256(fpath),
-            "shape": list(arr.shape),
-            "dtype": dtype,
-        }
+    flat = _flatten(tree)
+    with _pool() as pool:
+        metas = pool.map(lambda kv: _write(tmp, *kv), flat.items())
+        manifest = {"step": step, "files": dict(zip(flat, metas))}
     with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -108,9 +117,29 @@ def verify(ckpt_dir: str, step: int) -> bool:
     return True
 
 
-def restore(ckpt_dir: str, step: int, like: Any):
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _read(path: str, dtype: str, device):
+    """A leaf's file as a tensor on ``device`` (None: where numpy put it)."""
+    t = torch.from_numpy(np.load(path))
+    if dtype == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t if device is None else t.to(device)
+
+
+def restore(ckpt_dir: str, step: int, like: Any, sharding_tree: Any = None):
     """Restore into the structure of ``like``: each tensor leaf comes back
-    on its ``like`` leaf's device, with its ``requires_grad``."""
+    on its ``like`` leaf's device, with its ``requires_grad``.
+
+    ``sharding_tree`` (optional, ``like``'s structure with a
+    ``distributed.sharding.NamedSharding`` or None at each leaf) re-shards
+    every leaf that has one for the current mesh: it comes back as
+    ``distribute_tensor(leaf, mesh, placements)`` on the mesh's devices.
+    """
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "MANIFEST.json")) as f:
         manifest = json.load(f)
@@ -118,15 +147,23 @@ def restore(ckpt_dir: str, step: int, like: Any):
     if set(flat_like) != set(manifest["files"]):
         raise ValueError(f"checkpoint/like mismatch: "
                          f"{set(flat_like) ^ set(manifest['files'])}")
-    out = []
+    flat_sh = _flatten(sharding_tree) if sharding_tree is not None else {}
+    jobs = []  # (file, dtype name, device the leaf is read onto)
     for key, ref in flat_like.items():
-        meta = manifest["files"][key]
-        arr = np.load(os.path.join(d, meta["file"]))
-        if meta["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr)
-        if torch.is_tensor(ref):
-            t = t.to(ref.device).requires_grad_(ref.requires_grad)
-        out.append(t)
+        meta, sh = manifest["files"][key], flat_sh.get(key)
+        dev = (_mesh_device(sh.mesh) if sh is not None
+               else ref.device if torch.is_tensor(ref) else None)
+        jobs.append((os.path.join(d, meta["file"]), meta["dtype"], dev))
+    out = []
+    with _pool() as pool:  # read ahead while the leaves are placed in order
+        for (key, ref), t in zip(flat_like.items(),
+                                 pool.map(lambda j: _read(*j), jobs)):
+            sh = flat_sh.get(key)
+            if sh is not None:
+                from torch.distributed.tensor import distribute_tensor
+
+                t = distribute_tensor(t, sh.mesh, sh.placements)
+            if torch.is_tensor(ref):
+                t.requires_grad_(ref.requires_grad)
+            out.append(t)
     return unflatten(like, out)

@@ -12,8 +12,10 @@ every layer of the scanned stack has one more (stacked) dimension
 (``models.params.reference_ndims``).  With ``accum_steps`` > 1 the batch's
 leading axis is cut into that many
 microbatches whose gradients are summed in f32 and divided, as the
-reference's scan does.  The reference's abstract state and partition specs
-serve its dry run and sharding, which are not ported yet.
+reference's scan does.  The step constrains the gradients to the
+parameters' logical axes (``params.constrain_like``, a no-op without a
+mesh), and ``state_pspecs`` resolves the state's partition specs under a
+rule table and a mesh, as the reference's do.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.distributed import grad_compress
+from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.models import model as model_lib
 from repro_torch.models import params as params_lib
 from repro_torch.train import optimizer as opt_lib
@@ -75,6 +78,15 @@ def state_from_jax(cfg: ModelConfig, jax_state, device=None) -> TrainState:
         nu=params_lib.from_jax_params(cfg, opt.nu, device=dev)))
 
 
+def state_pspecs(cfg: ModelConfig, rules=None, mesh=None) -> TrainState:
+    """The state's tree of PartitionSpecs: each parameter's, the same for
+    its two moments, and a replicated step."""
+    pp = params_lib.spec_to_pspecs(params_lib.param_specs(cfg), rules=rules,
+                                   mesh=mesh)
+    return TrainState(params=pp, opt=opt_lib.OptState(
+        step=PartitionSpec(), mu=pp, nu=pp))
+
+
 def _to_device(batch: dict, dev) -> dict:
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
                                device=dev) for k, v in batch.items()}
@@ -82,6 +94,7 @@ def _to_device(batch: dict, dev) -> dict:
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig):
     ndims = None  # the reference's number of dimensions of each leaf
+    param_specs = params_lib.param_specs(cfg)
 
     def loss_fn(params, batch):
         dev = leaves(params)[0].device
@@ -125,6 +138,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             ndims = params_lib.reference_ndims(cfg, state.params)
         dev = leaves(state.params)[0].device
         loss, metrics, grads = grads_of(state.params, _to_device(batch, dev))
+        # keep the gradients in the parameters' layout
+        grads = params_lib.constrain_like(grads, param_specs)
         if tc.compress_grads:
             grads = map_tree(lambda g: grad_compress.decompress(
                 *grad_compress.compress(g), dtype=g.dtype), grads)

@@ -3,7 +3,8 @@
 The reference walks its pytrees with ``jax.tree_util``; the port's trees are
 dicts (sorted by key, as ``jax.tree_util`` orders them), lists, tuples and
 NamedTuples of tensors, and these helpers walk them in that fixed order.
-A leaf is anything else (a tensor, a number, None).
+A leaf is anything else (a tensor, a number, None), a subclass of list or
+tuple too, as in ``jax.tree_util``: a ``PartitionSpec`` is a leaf.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ def _children(node):
         return [(k, node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         return [(f, getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
+    if type(node) in (list, tuple):
         return list(enumerate(node))
     return None
 

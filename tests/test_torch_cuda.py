@@ -888,3 +888,119 @@ def test_jamba_trains_on_card(card):
     assert n["flash_attention_bwd"] == n_attn > 0
     assert n["ssm_scan_bwd"] == cfg.n_layers - n_attn > 0
     assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-3)
+
+
+# -- the multi-device layer on a world-1 NCCL group (chip_smoke phase 28) ---
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A (1, 1) cuda mesh over a world-1 NCCL group, destroyed after the
+    module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the NCCL group runs on it")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    m = make_local_mesh(1, 1)
+    assert dist.get_backend() == "nccl"
+    yield m
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape", [(2048,), (2048, 5632), (1000, 37)])
+def test_collectives_on_nccl_equal_the_in_step_pairs(nccl_mesh, shape):
+    from repro_torch.distributed import grad_compress as gc
+
+    g = torch.randn(shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(1), device="cuda")
+    grp = nccl_mesh.get_group("data")
+    assert torch.equal(gc.compressed_psum(g, grp),
+                       gc.decompress(*gc.compress(g)))
+    v, i = gc.topk_compress(g, 0.01)
+    assert torch.equal(gc.sparse_psum(g, grp, 0.01),
+                       gc.topk_decompress(v, i, g.shape))
+
+
+def _ep_case(dt, T=256, K=4, E=8, M=256, F=128, seed=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    ids = torch.randint(0, E, (T, K), generator=gen, device="cuda")
+    gate = torch.rand(T, K, generator=gen, device="cuda")
+    return (r(T, M).to(dt), ids, gate, (r(E, M, F) / 16).to(dt),
+            (r(E, M, F) / 16).to(dt), (r(E, F, M) / 11).to(dt))
+
+
+def test_ep_a2a_over_nccl_equals_the_local_path(nccl_mesh):
+    from repro_torch.distributed import ep_a2a
+
+    args = _ep_case(torch.bfloat16)
+    local = ep_a2a.moe_ep_a2a_local(*args)
+    grouped = ep_a2a.moe_ep_a2a_local(*args,
+                                      group=nccl_mesh.get_group("model"))
+    assert torch.equal(local, grouped)
+    assert torch.equal(local, ep_a2a.moe_ep_a2a_local(*args))
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.5])
+def test_ep_a2a_on_card_equals_cpu(nccl_mesh, factor):
+    from repro_torch.distributed import ep_a2a
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ep_case(torch.float32)
+    cpu = [a.cpu() for a in args]
+    cap = int(256 * 4 * factor)
+    on_card = ep_a2a.bucket_by_peer(*args[:3], 1, cap)
+    on_cpu = ep_a2a.bucket_by_peer(*cpu[:3], 1, cap)
+    for a, b in zip(on_card[1:], on_cpu[1:]):
+        assert torch.equal(a.cpu(), b)
+    got = ep_a2a.moe_ep_a2a_local(*args, group=nccl_mesh.get_group("model"),
+                                  capacity_factor=factor)
+    want = ep_a2a.moe_ep_a2a_local(*cpu, capacity_factor=factor)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_restore_reshards_onto_the_cuda_mesh(nccl_mesh, tmp_path):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import TRAIN_RULES, NamedSharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_loop
+    from repro_torch.train.tree import flatten_with_path, map_tree
+
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=2)
+    state = train_loop.init_state(cfg, torch.Generator(device="cuda")
+                                  .manual_seed(0), device="cuda")
+    ckpt.save(str(tmp_path), 1, state)
+    shardings = map_tree(lambda p: NamedSharding(nccl_mesh, p),
+                         train_loop.state_pspecs(cfg, TRAIN_RULES, nccl_mesh))
+    out = ckpt.restore(str(tmp_path), 1, state, sharding_tree=shardings)
+    for (_, got), (_, want), (_, ns) in zip(
+            flatten_with_path(out), flatten_with_path(state),
+            flatten_with_path(shardings), strict=True):
+        assert isinstance(got, DTensor) and got.placements == ns.placements
+        assert got.device.type == "cuda"
+        assert torch.equal(got.full_tensor(), want.detach())
+
+
+def test_train_step_under_the_cuda_mesh_equals_the_step_without(nccl_mesh):
+    from repro_torch.distributed.sharding import TRAIN_RULES, sharding_ctx
+    from repro_torch.train import train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.tree import leaves
+
+    cfg = reduced(get_config("stablelm-1.6b"), n_layers=2)
+    batch = TokenStream(cfg, 2, 128, DataConfig()).batch_at(0)
+    step = train_loop.make_train_step(cfg, train_loop.TrainConfig(
+        opt=OptConfig(lr=1e-3, warmup_steps=0)))
+    states = [train_loop.init_state(cfg, torch.Generator(device="cuda")
+                                    .manual_seed(0), device="cuda")
+              for _ in range(2)]
+    plain, m0 = step(states[0], batch)
+    with sharding_ctx(nccl_mesh, TRAIN_RULES):
+        meshed, m1 = step(states[1], batch)
+    assert torch.equal(m0["loss"], m1["loss"])
+    for a, b in zip(leaves(plain), leaves(meshed), strict=True):
+        assert torch.equal(a.detach(), b.detach())

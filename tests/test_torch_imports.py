@@ -98,6 +98,7 @@ def test_prefill_raises_without_card_unless_cpu(no_card, name):
 def test_new_families_raise_without_card_unless_cpu(no_card, name):
     """The MoE, hybrid, windowed, vision and encoder-only configs take the
     same entry points: cuda by default, the CPU only when asked."""
+    from repro_torch.distributed import sharding
     from repro_torch.models import moe
 
     cfg = reduced(get_config(name))
@@ -114,9 +115,9 @@ def test_new_families_raise_without_card_unless_cpu(no_card, name):
     assert logits.shape == (2, cfg.vocab_size)
     assert torch.isfinite(logits).all()
     assert (cache is None) == cfg.encoder_only
-    if cfg.n_experts:  # the reference's names, no mesh constraint
+    if cfg.n_experts:  # the reference's names, its mesh constraint too
         assert {"moe_specs", "_capacity", "moe"} <= set(vars(moe))
-        assert "constrain" not in vars(moe)
+        assert vars(moe)["constrain"] is sharding.constrain
 
 
 def test_serve_raises_without_card_unless_cpu(no_card, capsys):
@@ -237,3 +238,25 @@ def test_chaos_fleet_raises_without_card_unless_cpu(no_card):
         simulate_fleet_chaos("lags", asg, crash, **kw)
     res = simulate_fleet_chaos("lags", asg, crash, device="cpu", **kw)
     assert res.epochs[0].fleet.backend == "torch" and res.n_completed > 0
+
+
+def test_make_local_mesh_raises_without_card_unless_cpu(no_card):
+    """The mesh is a cuda mesh unless the CPU is asked for: no card, no
+    NCCL group, and nothing falls back to gloo."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_local_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.make_production_mesh()
+    assert not dist.is_initialized()
+    try:
+        cpu = mesh.make_local_mesh(device="cpu")
+        assert dist.get_backend() == "gloo" and cpu.device_type == "cpu"
+    finally:
+        dist.destroy_process_group()
+    m = mesh.abstract_production_mesh(multi_pod=True)
+    assert (m.mesh_dim_names, m.shape) == (("pod", "data", "model"),
+                                           (2, 16, 16))
