@@ -188,7 +188,22 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     params, mu and nu bit-equal, the attention backward on
     ``fa_bwd_wgmma``; ``--only-distributed`` builds the kernels, runs only
     this phase and stops;
-29. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+29. the dry run, the roofline and the figure drivers: (a) ``python -m
+    repro_torch.launch.dryrun --all`` in a child process (fake process
+    groups of 256 and 512 ranks, no card), 62 cells ok and 18 skipped with
+    the reference's reasons, each ok cell's bytes a device (arguments and
+    outputs) equal to the reference's (``REF_DRYRUN``); (b) the
+    ``roofline.*`` rows of ``benchmarks_torch.roofline`` over its report
+    on the H100's published figures, and the share of the card's bf16 peak
+    that ``flops_model``'s MODEL_FLOPS gives at the step times of phases
+    25 (stablelm-1.6b train), 9 (Qwen3-8B prefill) and 7 (Qwen3-8B decode),
+    as ``mfu=``; (c) on the card, while the child runs:
+    ``benchmarks_torch.fig11_baselines``' five ``fig11.torch.*`` rows
+    equal to ``REF_FIG11``, ``benchmarks_torch.serving_lags`` at 24
+    tenants equal to the reference's rows (``REF_SERVING``), and
+    ``examples_torch/quickstart.py`` with its loss falling;
+    ``--only-figures`` builds the kernels, runs only this phase and stops;
+30. the script's wall seconds, a ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16``; the two backward kernels at the stablelm-1.6b and falcon-mamba
@@ -922,6 +937,7 @@ def serve_qwen3_8b(torch, ops, serve, tick_kernel_ms):
     require(logits.shape == (16, cfg.vocab_size), f"logits {logits.shape}")
     require(bool(torch.isfinite(logits).all()), "non-finite logits")
     step_ms = sorted(s.elapsed_time(e) for s, e in timer_ev[3:])
+    MEASURED["decode", cfg.name, 16, max_len] = step_ms[len(step_ms) // 2]
     weight_bytes = 2 * (n_params - cfg.vocab_size * cfg.d_model)  # rows read
     print(f"decode step qwen3-8b B=16 kv_len={max_len}: "
           f"median {step_ms[len(step_ms) // 2]:.3f} ms, min {step_ms[0]:.3f} ms "
@@ -1110,6 +1126,7 @@ def prefill_full(torch, ops, cfg, params, batch, n_decode, launches, tail=1,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     med = sorted(secs)[1]
+    MEASURED["prefill", label, B, S] = med * 1e3
     print(f"prefill {label} B={B} S={S}: median {med * 1e3:.3f} ms "
           f"(runs {', '.join(f'{x * 1e3:.3f}' for x in secs)} ms), "
           f"{B * S / med:.0f} tokens/s; launches {json.dumps(n)}")
@@ -2528,6 +2545,7 @@ def train_stablelm(torch, ops, steps=10, B=8, S=2048):
         require(n[kernel] == w, f"{cfg.name}: {kernel} launches {n[kernel]} "
                 f"!= {w}")
     step_s = sorted(out["seconds"][1:])[len(out["seconds"][1:]) // 2]
+    MEASURED["train", cfg.name, B, S] = step_s * 1e3
     print(f"phase 25 {cfg.name} train (B={B}, S={S}, {steps} steps through "
           f"launch.train.main): {wall:.1f} s wall, median step "
           f"{step_s * 1e3:.1f} ms ({B * S / step_s:.0f} tokens/s), first step "
@@ -2896,6 +2914,262 @@ def distributed_on_card(torch, ops, card):
     return n, dict(collectives=coll, expert_parallel=ep)
 
 
+# -- phase 29: the dry run, the roofline, the figure drivers --------------
+
+# The reference at the same cells (JAX 0.9.0 on the CPU; this script imports
+# nothing of it): for each cell that ``repro.launch.dryrun --all`` builds,
+# the bytes one device holds of the arguments and of the outputs (arch,
+# shape, mesh): (arguments, outputs), by shard arithmetic over the
+# ShapeDtypeStructs and PartitionSpecs of ``repro.launch.specs.
+# build_lowerable`` on the production mesh (no compile).  The outputs are
+# counted as ``repro_torch.launch.specs`` places them (the train state as
+# its input plus five replicated f32 metrics; logits over ("batch",
+# "vocab") and the cache under its logical axes), where the reference
+# leaves them to XLA.  tests/test_torch_dryrun.py recomputes every entry.
+REF_DRYRUN = {
+    ("falcon-mamba-7b", "train_4k", "16x16"): (453017604, 452231192),
+    ("falcon-mamba-7b", "prefill_32k", "16x16"): (92078080, 4603776),
+    ("falcon-mamba-7b", "decode_32k", "16x16"): (896352292, 18415104),
+    ("falcon-mamba-7b", "long_500k", "16x16"): (880295944, 2301888),
+    ("gemma3-27b", "train_4k", "16x16"): (1064027140, 1063240728),
+    ("gemma3-27b", "prefill_32k", "16x16"): (214010880, 2080440320),
+    ("gemma3-27b", "decode_32k", "16x16"): (11704269860, 8325824512),
+    ("hubert-xlarge", "train_4k", "16x16"): (219744772, 51448344),
+    ("hubert-xlarge", "prefill_32k", "16x16"): (178260480, 2016),
+    ("jamba-v0.1-52b", "train_4k", "16x16"): (2115563524, 2114777112),
+    ("jamba-v0.1-52b", "prefill_32k", "16x16"): (424161280, 1075765248),
+    ("jamba-v0.1-52b", "decode_32k", "16x16"): (1506586660, 276660224),
+    ("jamba-v0.1-52b", "long_500k", "16x16"): (1767882760, 537899008),
+    ("mistral-nemo-12b", "train_4k", "16x16"): (729935876, 729149464),
+    ("mistral-nemo-12b", "prefill_32k", "16x16"): (146755584, 10737451008),
+    ("mistral-nemo-12b", "decode_32k", "16x16"): (5004677156, 2685796352),
+    ("qwen2-moe-a2.7b", "train_4k", "16x16"): (563286020, 562499608),
+    ("qwen2-moe-a2.7b", "prefill_32k", "16x16"): (113217536, 805344352),
+    ("qwen2-moe-a2.7b", "decode_32k", "16x16"): (5024063524, 3222950272),
+    ("qwen2-vl-7b", "train_4k", "16x16"): (900626436, 781613080),
+    ("qwen2-vl-7b", "prefill_32k", "16x16"): (172378112, 3758134400),
+    ("qwen2-vl-7b", "decode_32k", "16x16"): (3434117252, 940134912),
+    ("qwen3-8b", "train_4k", "16x16"): (501370884, 500584472),
+    ("qwen3-8b", "prefill_32k", "16x16"): (100872192, 9663714400),
+    ("qwen3-8b", "decode_32k", "16x16"): (4008366116, 2417250688),
+    ("qwen3-moe-235b-a22b", "train_4k", "16x16"): (9459730436, 9458944024),
+    ("qwen3-moe-235b-a22b", "prefill_32k", "16x16"): (1898256384, 12616504416),
+    ("qwen3-moe-235b-a22b", "decode_32k", "16x16"): (6862813220, 3155808640),
+    ("stablelm-1.6b", "train_4k", "16x16"): (66215940, 65429528),
+    ("stablelm-1.6b", "prefill_32k", "16x16"): (13508608, 805331456),
+    ("stablelm-1.6b", "decode_32k", "16x16"): (3428720676, 3222898688),
+    ("falcon-mamba-7b", "train_4k", "2x16x16"): (452624388, 452231192),
+    ("falcon-mamba-7b", "prefill_32k", "2x16x16"): (91947008, 2301888),
+    ("falcon-mamba-7b", "decode_32k", "2x16x16"): (887177236, 9207552),
+    ("falcon-mamba-7b", "long_500k", "2x16x16"): (880295944, 2301888),
+    ("gemma3-27b", "train_4k", "2x16x16"): (1063633924, 1063240728),
+    ("gemma3-27b", "prefill_32k", "2x16x16"): (213879808, 1040220160),
+    ("gemma3-27b", "decode_32k", "2x16x16"): (7541488660, 4162912256),
+    ("hubert-xlarge", "train_4k", "2x16x16"): (135596548, 51448344),
+    ("hubert-xlarge", "prefill_32k", "2x16x16"): (94374400, 1008),
+    ("jamba-v0.1-52b", "train_4k", "2x16x16"): (2115170308, 2114777112),
+    ("jamba-v0.1-52b", "prefill_32k", "2x16x16"): (424030208, 537882624),
+    ("jamba-v0.1-52b", "decode_32k", "2x16x16"): (1368289300, 138330112),
+    ("jamba-v0.1-52b", "long_500k", "2x16x16"): (1767882760, 537899008),
+    ("mistral-nemo-12b", "train_4k", "2x16x16"): (729542660, 729149464),
+    ("mistral-nemo-12b", "prefill_32k", "2x16x16"): (146624512, 5368725504),
+    ("mistral-nemo-12b", "decode_32k", "2x16x16"): (3661844500, 1342898176),
+    ("qwen2-moe-a2.7b", "train_4k", "2x16x16"): (562892804, 562499608),
+    ("qwen2-moe-a2.7b", "prefill_32k", "2x16x16"): (113086464, 402672176),
+    ("qwen2-moe-a2.7b", "decode_32k", "2x16x16"): (3412664340, 1611475136),
+    ("qwen2-vl-7b", "train_4k", "2x16x16"): (841119748, 781613080),
+    ("qwen2-vl-7b", "prefill_32k", "2x16x16"): (164513792, 1879067200),
+    ("qwen2-vl-7b", "decode_32k", "2x16x16"): (2964125764, 470067456),
+    ("qwen3-8b", "train_4k", "2x16x16"): (500977668, 500584472),
+    ("qwen3-8b", "prefill_32k", "2x16x16"): (100741120, 4831857200),
+    ("qwen3-8b", "decode_32k", "2x16x16"): (2799816724, 1208625344),
+    ("qwen3-moe-235b-a22b", "train_4k", "2x16x16"): (9459337220, 9458944024),
+    ("qwen3-moe-235b-a22b", "prefill_32k", "2x16x16"): (1898125312, 6308252208),
+    ("qwen3-moe-235b-a22b", "decode_32k", "2x16x16"): (5284984852, 1577904320),
+    ("stablelm-1.6b", "train_4k", "2x16x16"): (65822724, 65429528),
+    ("stablelm-1.6b", "prefill_32k", "2x16x16"): (13377536, 402665728),
+    ("stablelm-1.6b", "decode_32k", "2x16x16"): (1817321492, 1611449344),
+}
+FULL_ATTN = "full-attention arch: long_500k skipped per spec"
+NO_DECODE = "encoder-only arch has no decode step"
+# ``repro.launch.specs.cell_skip_reason`` of the cells it skips, on each mesh
+REF_SKIPPED = {
+    ("gemma3-27b", "long_500k"): FULL_ATTN,
+    ("hubert-xlarge", "decode_32k"): NO_DECODE,
+    ("hubert-xlarge", "long_500k"): NO_DECODE,
+    ("mistral-nemo-12b", "long_500k"): FULL_ATTN,
+    ("qwen2-moe-a2.7b", "long_500k"): FULL_ATTN,
+    ("qwen2-vl-7b", "long_500k"): FULL_ATTN,
+    ("qwen3-8b", "long_500k"): FULL_ATTN,
+    ("qwen3-moe-235b-a22b", "long_500k"): FULL_ATTN,
+    ("stablelm-1.6b", "long_500k"): FULL_ATTN,
+}
+# ``benchmarks/serving_lags.py::main(densities=(24,))``'s derived column
+# (the reference's engine, JAX 0.9.0 on the CPU); tests/test_torch_figures.py
+# recomputes it
+REF_SERVING = {
+    "serving.t24.fifo": "done=1260/1589;p50=5.58;slo2s=12%;ovh=2.5%",
+    "serving.t24.fair": "done=1235/1589;p50=4.16;slo2s=32%;ovh=4.9%",
+    "serving.t24.lags": "done=1208/1589;p50=4.64;slo2s=29%;ovh=5.3%",
+}
+# step times of phases 7, 9 and 25 that phase 29 turns into shares of the
+# card's peak: (step, arch, B, S) -> ms
+MEASURED = {}
+
+
+def dry_run_child(report):
+    """Phase 29(a)'s child process: ``repro_torch.launch.dryrun --all``,
+    its report to ``report``.  The dry run starts default process groups of
+    its own (fake, 256 then 512 ranks), so it runs beside this process's
+    state, not in it."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out",
+         str(report)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def check_dry_run(child, report):
+    """Phase 29(a): 62 cells ok and 18 skipped with the reference's
+    reasons; each ok cell's bytes a device, arguments and outputs, equal to
+    ``REF_DRYRUN``."""
+    out, _ = child.communicate(timeout=600)
+    require(child.returncode == 0, f"the dry run exited {child.returncode}: "
+            f"{out[-2000:]}")
+    cells = json.loads(Path(report).read_text())
+    ok = {(c["arch"], c["shape"], c["mesh"]): c for c in cells
+          if c["status"] == "ok"}
+    skipped = [c for c in cells if c["status"] == "skipped"]
+    require(len(cells) == 80 and len(ok) == 62 and len(skipped) == 18,
+            f"{len(cells)} cells: {len(ok)} ok, {len(skipped)} skipped")
+    for c in skipped:
+        want = REF_SKIPPED.get((c["arch"], c["shape"]))
+        require(c["reason"] == want, f"{c['arch']} x {c['shape']} skipped "
+                f"for {c['reason']!r}, the reference {want!r}")
+    require(set(ok) == set(REF_DRYRUN), "the ok cells are not the "
+            "reference's")
+    for key, (args, outs) in REF_DRYRUN.items():
+        mem = ok[key]["memory"]
+        got = (mem["argument_size_in_bytes"], mem["output_size_in_bytes"])
+        require(got == (args, outs), f"{key}: bytes a device (arguments, "
+                f"outputs) {got}, the reference {(args, outs)}")
+    fit = out.strip().splitlines()[-2]
+    print(f"phase 29(a) dry run (a child process, fake groups of 256 and 512 "
+          f"ranks, meta tensors placed as DTensors): 62 cells ok, 18 skipped "
+          f"with the reference's reasons; arguments and outputs a device "
+          f"equal to the reference's shard arithmetic in every ok cell; "
+          f"{fit}")
+
+
+def roofline_and_mfu(report, card):
+    """Phase 29(b): the roofline rows over the dry run's report on the
+    card's published figures, and the share of the card's bf16 peak that
+    ``model_flops`` gives at each step time phases 7, 9 and 25 measured
+    (printed as ``mfu=``)."""
+    from benchmarks_torch import roofline
+    from benchmarks_torch.flops_model import step_model_flops
+    from repro_torch.launch.hlo_analysis import CHIP
+
+    rows = roofline.main(str(report))
+    require(len(rows) == 62 and all(r[0].startswith("roofline.") and
+                                    "collective_s=n/a" in r[2] for r in rows),
+            f"{len(rows)} roofline rows")
+    for name, _, derived in rows:
+        print(f"{name}: {derived}")
+    for key in (("train", "stablelm-1.6b", 8, 2048),
+                ("prefill", "qwen3-8b", 4, 2048),
+                ("decode", "qwen3-8b", 16, 512)):
+        step, arch, B, S = key
+        if key not in MEASURED:
+            print(f"phase 29(b) {step} {arch} B={B} S={S}: not measured in "
+                  f"this run")
+            continue
+        ms = MEASURED[key]
+        flops = step_model_flops(arch, step, B, S)
+        share = flops / (ms * 1e-3) / CHIP.peak_flops
+        print(f"phase 29(b) {step} {arch} B={B} S={S}: {ms:.6g} ms, "
+              f"model_flops {flops:.4e}, mfu={share:.6f} of "
+              f"{CHIP.peak_flops:.4g} FLOP/s dense bf16 [{card}]")
+
+
+def drivers_on_card(torch, ops, card):
+    """Phase 29(c): the figure drivers and the quickstart on the card:
+    ``fig11_baselines``' five ``fig11.torch.*`` rows equal to
+    ``REF_FIG11``, ``serving_lags.main(densities=(24,))`` equal to
+    ``REF_SERVING`` (no kernel: below 256 tenants the engine's credit tick
+    runs on the host), and ``examples_torch/quickstart.py`` with its loss
+    falling.  Returns their launches."""
+    import runpy
+
+    from benchmarks_torch import fig11_baselines, serving_lags
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = fig11_baselines.torch_rows()
+    fig11_s = time.perf_counter() - t0
+    require([r[0] for r in rows] == [f"fig11.torch.120fn-{p}" for p in (
+        "cfs", "eevdf", "rr", "lags", "lags-static")], f"rows {rows}")
+    for name, _, derived in rows:
+        n, _, p50, p95, _, _ = REF_FIG11[name.split("-", 1)[1]]
+        want = f"p50={p50:.3f};p95={p95:.3f};n={n}"
+        require(derived == want, f"{name}: {derived}, the reference {want}")
+        print(f"{name}: {derived} [{card}]")
+    t0 = time.perf_counter()
+    rows = serving_lags.main(densities=(24,))
+    serving_s = time.perf_counter() - t0
+    got = {name: derived for name, _, derived in rows}
+    require(got == REF_SERVING, f"serving rows {got}, the reference "
+            f"{REF_SERVING}")
+    for name, derived in got.items():
+        print(f"{name}: {derived} [{card}]")
+    t0 = time.perf_counter()
+    quick = runpy.run_path(str(ROOT / "examples_torch" / "quickstart.py"),
+                           run_name="quickstart")["run"]()
+    quick_s = time.perf_counter() - t0
+    n = ops.launch_counts()
+    losses = quick["losses"]
+    require(losses[-1] < losses[0], f"the quickstart's loss {losses}")
+    # the quickstart's reduced qwen3-8b: 2 attention layers, 30 steps,
+    # remat; the serving sweep's 24 tenants stay below the engine's
+    # pallas_threshold (256), where its credit tick runs on the host, as the
+    # reference's does
+    want = {"flash_attention": 2 * 2 * 30, "flash_attention_bwd": 2 * 30,
+            "lags_select": 0}
+    for kernel, w in want.items():
+        require(n[kernel] == w, f"phase 29(c) {kernel} launches {n[kernel]}, "
+                f"want {w}")
+    print(f"phase 29(c) on the card: fig11.torch rows {fig11_s:.1f} s, equal "
+          f"to REF_FIG11; serving.t24 rows {serving_s:.1f} s, equal to "
+          f"REF_SERVING; quickstart {quick_s:.1f} s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; launches {json.dumps(n)} [{card}]")
+    return n
+
+
+def figures(torch, ops, card):
+    """Phase 29: the dry run in a child process while the card runs the
+    drivers, then the roofline and the shares of the card's peak.  Returns
+    the drivers' launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        report = Path(d) / "dryrun_report.json"
+        child = dry_run_child(report)
+        try:
+            n = drivers_on_card(torch, ops, card)
+            check_dry_run(child, report)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        roofline_and_mfu(report, card)
+    print(f"phase 29 the dry run, the roofline and the drivers: "
+          f"{time.perf_counter() - t0:.1f} s wall")
+    return n
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -2906,6 +3180,11 @@ def main():
         "--only-distributed", action="store_true",
         help="build the kernels, run only phase 28 (the multi-device "
              "layer), and stop without the closing lines")
+    parser.add_argument(
+        "--only-figures", action="store_true",
+        help="build the kernels, run only phase 29 (the dry run, the "
+             "roofline and the figure drivers), and stop without the closing "
+             "lines")
     args = parser.parse_args()
     import torch
 
@@ -2992,6 +3271,9 @@ def main():
 
     if args.only_distributed:
         distributed_on_card(torch, ops, card)
+        return
+    if args.only_figures:
+        figures(torch, ops, card)
         return
 
     # phases 3-5: kernels against their plain versions, then times
@@ -3114,6 +3396,9 @@ def main():
     # phase 28: the multi-device layer on a world-1 NCCL group
     n, _ = distributed_on_card(torch, ops, card)
     add_counts(counts, n)
+
+    # phase 29: the dry run, the roofline and the figure drivers
+    add_counts(counts, figures(torch, ops, card))
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",

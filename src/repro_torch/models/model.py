@@ -3,7 +3,10 @@ prefill, decode and the training loss.
 
 Port of ``repro.models.model`` for ``init_cache``, ``prefill``,
 ``decode_step``, ``chunked_lm_loss`` and ``train_loss``; the parameters
-come from ``repro_torch.models.params``.  The entry points run on
+come from ``repro_torch.models.params``.  ``abstract_params`` and
+``cache_specs`` give the :class:`ParamSpec` trees of the parameters and of
+``init_cache``'s output (shape, dtype, the reference's logical axes), with
+one entry per layer where the reference stacks them.  The entry points run on
 ``device`` (default cuda), where ``params`` must lie, and keep f32 products
 in full f32 (no TF32).  The cache is a list with one dict per layer and is
 updated in place (the reference returns a new one).
@@ -41,27 +44,45 @@ from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks
 from repro_torch.models.common import (dtype_of, masked_nll, rms_norm,
                                        rope_angles, softmax_cross_entropy)
+from repro_torch.models.params import ParamSpec, param_specs
+from repro_torch.train.tree import map_tree
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The ParamSpec tree of the parameters (``params.param_specs``)."""
+    return param_specs(cfg)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """The ParamSpec tree of ``init_cache(cfg, batch, max_len)``: one dict a
+    layer, with the logical axes of the reference's
+    ``blocks.layer_cache_specs`` (its stacked leaves have one more,
+    leading, unnamed axis)."""
+    dt = dtype_of(cfg)
+    out = []
+    for spec in layer_specs(cfg):
+        if spec.kind == "attn":
+            kv = ParamSpec((batch, max_len, cfg.n_kv_heads, cfg.head_dim), dt,
+                           ("batch", "kv_seq", "kv_heads", None))
+            out.append({"k": kv, "v": kv})
+        else:
+            out.append({
+                "h": ParamSpec((batch, cfg.d_inner, cfg.ssm_state),
+                               torch.float32,
+                               ("batch", "ssm_inner", "ssm_state")),
+                "conv": ParamSpec((batch, cfg.d_conv - 1, cfg.d_inner), dt,
+                                  ("batch", None, "ssm_inner"))})
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zeros on ``device`` (default cuda), one dict per layer: {"k", "v"} of
     (batch, max_len, Hkv, D) in ``cfg.dtype`` for attention, {"h":
-    (batch, I, N) f32, "conv": (batch, W-1, I) in ``cfg.dtype``} for Mamba."""
+    (batch, I, N) f32, "conv": (batch, W-1, I) in ``cfg.dtype``} for Mamba
+    (``cache_specs``)."""
     dev = resolve(device)
-    dt = dtype_of(cfg)
-    cache = []
-    for spec in layer_specs(cfg):
-        if spec.kind == "attn":
-            shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-            cache.append({"k": torch.zeros(shape, dtype=dt, device=dev),
-                          "v": torch.zeros(shape, dtype=dt, device=dev)})
-        else:
-            cache.append({
-                "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
-                                 dtype=torch.float32, device=dev),
-                "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
-                                    dtype=dt, device=dev)})
-    return cache
+    return map_tree(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                    cache_specs(cfg, batch, max_len))
 
 
 def unembed_matrix(params, cfg: ModelConfig):

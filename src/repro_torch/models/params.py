@@ -42,8 +42,10 @@ dtype, logical axes) for each leaf, the reference's
 logical axes are the stacked spec's minus its leading (None) entry, so it
 resolves to the stacked spec's partition minus its first entry.
 ``spec_to_pspecs`` resolves such a tree under sharding rules and a mesh,
-and ``constrain_like`` applies each leaf's constraint to a tree of the same
-structure (a no-op without a mesh).
+``spec_to_meta`` turns it into tensors on the meta device (shape and dtype,
+no storage: the reference's ``spec_to_sds``), and ``constrain_like``
+applies each leaf's constraint to a tree of the same structure (a no-op
+without a mesh).
 """
 from __future__ import annotations
 
@@ -258,6 +260,13 @@ def spec_to_pspecs(tree, rules=None, mesh=None):
     """ParamSpec tree -> PartitionSpec tree."""
     return map_tree(lambda s: to_pspec(s.logical, rules=rules, mesh=mesh,
                                        shape=s.shape), tree)
+
+
+def spec_to_meta(tree):
+    """ParamSpec tree -> tree of meta tensors of each spec's shape and
+    dtype (the reference's ``spec_to_sds``)."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), tree)
 
 
 def constrain_like(tree, spec_tree):

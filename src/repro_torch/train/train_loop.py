@@ -14,8 +14,9 @@ leading axis is cut into that many
 microbatches whose gradients are summed in f32 and divided, as the
 reference's scan does.  The step constrains the gradients to the
 parameters' logical axes (``params.constrain_like``, a no-op without a
-mesh), and ``state_pspecs`` resolves the state's partition specs under a
-rule table and a mesh, as the reference's do.
+mesh), ``state_pspecs`` resolves the state's partition specs under a
+rule table and a mesh, and ``abstract_state`` gives the state as meta
+tensors (shape and dtype, no storage), as the reference's do.
 """
 from __future__ import annotations
 
@@ -76,6 +77,17 @@ def state_from_jax(cfg: ModelConfig, jax_state, device=None) -> TrainState:
                              device=dev),
         mu=params_lib.from_jax_params(cfg, opt.mu, device=dev),
         nu=params_lib.from_jax_params(cfg, opt.nu, device=dev)))
+
+
+def abstract_state(cfg: ModelConfig) -> TrainState:
+    """The train state on the meta device: the parameters in their dtypes,
+    f32 moments and an int32 step (the reference's ``abstract_state``)."""
+    params = params_lib.spec_to_meta(params_lib.param_specs(cfg))
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32,  # noqa: E731
+                                device="meta")
+    return TrainState(params=params, opt=opt_lib.OptState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu=map_tree(f32, params), nu=map_tree(f32, params)))
 
 
 def state_pspecs(cfg: ModelConfig, rules=None, mesh=None) -> TrainState:

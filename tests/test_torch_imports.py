@@ -1,6 +1,8 @@
-"""Hygiene of the port: it imports neither JAX nor the reference package, its
-entry points run on the card unless the CPU is asked for, and its kernel
-wrappers never fall back from the card to the CPU."""
+"""Hygiene of the port (``src/repro_torch``, ``benchmarks_torch``,
+``examples_torch`` and ``chip_smoke.py``): it imports neither JAX nor the
+reference package, its entry points run on the card unless the CPU is
+asked for, and its kernel wrappers never fall back from the card to the
+CPU."""
 import ast
 import pathlib
 import types
@@ -29,8 +31,9 @@ from repro_torch.sched import cuda_backend
 from repro_torch.serving.engine import Engine, EngineConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_roots(path):
