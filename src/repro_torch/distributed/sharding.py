@@ -19,11 +19,31 @@ dimension.
 
 ``constrain`` is the reference's ``with_sharding_constraint`` by logical
 names.  Without a mesh it returns ``x`` itself; a DTensor is redistributed
-to the resolved placements; a plain tensor under a mesh of one device is
-returned as it is (the constraint holds trivially, as it does in JAX).  A
-plain tensor under a larger mesh raises ``NotImplementedError``: running the
-model over several devices is not ported (the CUDA kernels take raw
-pointers, so a DTensor cannot enter them).
+to the resolved placements (the collectives that XLA's partitioner inserts
+in the reference); a plain tensor under a mesh of one device is returned as
+it is (the constraint holds trivially, as it does in JAX).  A plain tensor
+under a larger mesh raises ``NotImplementedError``: prefill and decode run
+sharded with every activation a DTensor from the embedding on, so a plain
+tensor there is a leak; sharded training is not ported.
+
+Every redistribution (``redistribute``: ``constrain``'s, ``distribute``'s
+and ``full``'s) runs its collectives through ``torch.distributed``'s own
+calls on the rank's shard (``all_gather_into_tensor``, ``all_reduce``,
+``reduce_scatter_tensor``) and rewraps it, never through DTensor's: with
+torch 2.11.0 and gloo on an H100 host, DTensor's functional all-gather of
+a CUDA tensor ended the process (SIGSEGV), while the plain calls moved the
+same tensors.  The
+models place every DTensor operation so that it needs no redistribution
+of its own (the tests hold them to that).
+
+``distribute`` is the reference's ``jax.device_put`` with a tree of
+``NamedSharding``s: each full tensor becomes a DTensor holding only the
+rank's shard.  Where a step has no DTensor strategy, or needs a collective
+that the reference's partitioner places by itself, the models work on the
+rank's shard (``local``) with the collective explicit (``psum``, ``pmax``
+over the mesh axes that shard a dimension, ``shard_axes``) and wrap the
+result back (``from_local``); ``local_offset`` gives where a rank's shard
+starts, and ``zeros`` allocates only the rank's shard of a tensor.
 """
 from __future__ import annotations
 
@@ -208,12 +228,13 @@ def constrain(x, *logical):
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, placements(spec, mesh))
+        return redistribute(x, placements(spec, mesh))
     if mesh.size() == 1:
         return x
     raise NotImplementedError(
-        f"a plain tensor under a mesh of {mesh.size()} devices: running the "
-        f"model over several devices is not ported (spec {spec})")
+        f"a plain tensor under a mesh of {mesh.size()} devices (spec "
+        f"{spec}): on several devices only DTensors run (prefill and decode); "
+        f"sharded training is not ported")
 
 
 def named_sharding(logical, mesh=None, rules=None) -> NamedSharding:
@@ -221,3 +242,240 @@ def named_sharding(logical, mesh=None, rules=None) -> NamedSharding:
     if mesh is None:
         raise ValueError("named_sharding needs a mesh")
     return NamedSharding(mesh, to_pspec(logical, rules=rules, mesh=mesh))
+
+
+# --- DTensors: placing, local shards and explicit collectives ---------------
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def local(x):
+    """The rank's shard of a DTensor (``to_local()``); anything else as it
+    is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _chunk(t, mesh, pl):
+    """The rank's shard of the full tensor ``t`` under placements ``pl``
+    (each split even; a dimension split over several mesh dimensions is
+    split in mesh order, as DTensor splits it)."""
+    coord = mesh.get_coordinate()
+    for m, p in enumerate(pl):
+        if p.is_shard():
+            n = mesh.size(m)
+            if t.shape[p.dim] % n:
+                raise ValueError(f"dimension {p.dim} of {tuple(t.shape)} "
+                                 f"does not split evenly over {n}")
+            t = t.chunk(n, dim=p.dim)[coord[m]]
+    return t
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def _place(t, spec, mesh):
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, torch.Tensor):
+        return t
+    pl = placements(spec if spec is not None else PartitionSpec(), mesh)
+    if isinstance(t, DTensor):
+        return redistribute(t, pl)
+    dev = torch.device(mesh.device_type)
+    if all(p.is_replicate() for p in pl):
+        shard = t.to(dev)
+    else:  # a copy: the caller's full tensor can be dropped
+        shard = _chunk(t, mesh, pl).to(dev, copy=True).contiguous()
+    return DTensor.from_local(shard, mesh, pl, run_check=False, shape=t.shape,
+                              stride=_contiguous_strides(t.shape))
+
+
+def distribute(tree, pspec_tree, mesh):
+    """The reference's ``jax.device_put(tree, NamedSharding tree)``: each
+    tensor leaf of ``tree`` becomes a DTensor on ``mesh`` with the
+    placements of its PartitionSpec, holding only the rank's shard (moved
+    to the mesh's device; nothing is communicated, every rank holds the
+    same full tensor).  A DTensor leaf is redistributed.  A None spec, for
+    a leaf or a whole subtree, replicates; other leaves (numbers, None)
+    are returned as they are."""
+    if pspec_tree is None or isinstance(pspec_tree, PartitionSpec):
+        from repro_torch.train.tree import map_tree
+
+        return map_tree(lambda t: _place(t, pspec_tree, mesh), tree)
+    if isinstance(tree, dict):
+        return {k: distribute(v, pspec_tree[k], mesh) for k, v in tree.items()}
+    return type(tree)(distribute(v, s, mesh)
+                      for v, s in zip(tree, pspec_tree, strict=True))
+
+
+def _alone(placements, m, d, ndim) -> bool:
+    """Whether mesh dimension m is the only one splitting tensor dim d."""
+    return not any(q.is_shard() and q.dim % ndim == d
+                   for k, q in enumerate(placements) if k != m)
+
+
+def redistribute(x, target):
+    """The DTensor ``x`` with placements ``target`` on its mesh: first each
+    mesh dimension that changes is summed (Partial: ``all_reduce``, or
+    ``reduce_scatter_tensor`` straight onto a split the target asks for) or
+    gathered (Shard: ``all_gather_into_tensor``) over its group, the inner
+    dimensions first; then each that the target splits takes the rank's
+    chunk.  Values as ``DTensor.redistribute``'s."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, target = x.device_mesh, tuple(target)
+    cur = list(x.placements)
+    if tuple(cur) == target:
+        return x
+    t = x.to_local()
+    for m in reversed(range(mesh.ndim)):
+        p = cur[m]
+        if p == target[m] or p.is_replicate():
+            continue
+        if p.is_partial():
+            if p != Partial():
+                raise NotImplementedError(f"reducing {p}")
+            d = target[m].dim % x.ndim if target[m].is_shard() else None
+            if d is not None and _alone(cur, m, d, x.ndim) and _alone(
+                    target, m, d, x.ndim):
+                src = t.movedim(d, 0).contiguous()
+                out = torch.empty((src.shape[0] // mesh.size(m),
+                                   *src.shape[1:]), dtype=src.dtype,
+                                  device=src.device)
+                dist.reduce_scatter_tensor(out, src, group=mesh.get_group(m))
+                t, cur[m] = out.movedim(0, d), target[m]
+                continue
+            t = t.contiguous().clone()
+            dist.all_reduce(t, group=mesh.get_group(m))
+        else:  # Shard(d): gather along d
+            d, n = p.dim % x.ndim, mesh.size(m)
+            src = t.movedim(d, 0).contiguous()
+            out = torch.empty((n * src.shape[0], *src.shape[1:]),
+                              dtype=src.dtype, device=src.device)
+            dist.all_gather_into_tensor(out, src, group=mesh.get_group(m))
+            t = out.movedim(0, d)
+        cur[m] = Replicate()
+    coord = mesh.get_coordinate()
+    for m in range(mesh.ndim):
+        if target[m] != cur[m]:
+            if not target[m].is_shard():
+                raise NotImplementedError(f"redistributing to {target[m]}")
+            d = target[m].dim % x.ndim
+            t = t.chunk(mesh.size(m), dim=d)[coord[m]]
+    return DTensor.from_local(t.contiguous(), mesh, target, run_check=False,
+                              shape=x.shape,
+                              stride=_contiguous_strides(x.shape))
+
+
+def full(x):
+    """The whole tensor of a DTensor on every rank (``full_tensor()``,
+    through ``redistribute``); anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def gathered(w):
+    """A parameter with its FSDP split gathered: the mesh axes that the
+    active rules give "embed_p" replicated, the others as they are (the
+    weights' all-gather before a product, as XLA places it)."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    fsdp = _CTX.rules.get("embed_p")
+    fsdp = (fsdp,) if isinstance(fsdp, str) else tuple(fsdp or ())
+    names = w.device_mesh.mesh_dim_names
+    return redistribute(w, [Replicate() if names[m] in fsdp else p
+                            for m, p in enumerate(w.placements)])
+
+
+def shard_axes(x, dim: int) -> tuple:
+    """The names of the mesh dimensions that split dimension ``dim`` of the
+    DTensor ``x``, in mesh order (none for a plain tensor)."""
+    if not is_dtensor(x):
+        return ()
+    names = x.device_mesh.mesh_dim_names
+    dim %= x.ndim
+    return tuple(names[m] for m, p in enumerate(x.placements)
+                 if p.is_shard() and p.dim % x.ndim == dim)
+
+
+def local_offset(x, dim: int) -> int:
+    """Where the rank's shard of the DTensor ``x`` starts along ``dim`` (0
+    for a plain tensor or an unsplit dimension)."""
+    axes = shard_axes(x, dim)
+    if not axes:
+        return 0
+    mesh = x.device_mesh
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return idx * x.to_local().shape[dim]
+
+
+def _all_reduce(t, axes, op):
+    import torch.distributed as dist
+
+    mesh = _CTX.mesh
+    for a in axes:
+        if axis_sizes(mesh)[a] > 1:
+            dist.all_reduce(t, op=op, group=mesh.get_group(a))
+    return t
+
+
+def psum(t, axes):
+    """Sum the plain tensor ``t`` (in place) over the ranks of the active
+    mesh's ``axes``: the explicit all-reduce of a partial product."""
+    import torch.distributed as dist
+
+    return _all_reduce(t, axes, dist.ReduceOp.SUM)
+
+
+def pmax(t, axes):
+    """``psum``'s maximum."""
+    import torch.distributed as dist
+
+    return _all_reduce(t, axes, dist.ReduceOp.MAX)
+
+
+def from_local(t, shape, *logical):
+    """``t``, the rank's shard of a ``shape`` tensor laid out by the logical
+    axes under the active mesh and rules, as a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = _CTX.mesh
+    shape = tuple(shape)
+    pl = placements(to_pspec(logical, shape=shape), mesh)
+    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                              stride=_contiguous_strides(shape))
+
+
+def zeros(shape, dtype, logical, device):
+    """A DTensor of zeros of ``shape``, laid out by the logical axes under
+    the active mesh and rules, allocating only the rank's shard."""
+    import torch
+
+    mesh = _CTX.mesh
+    pl = placements(to_pspec(logical, shape=tuple(shape)), mesh)
+    local_shape = list(shape)
+    for m, p in enumerate(pl):
+        if p.is_shard():
+            local_shape[p.dim] //= mesh.size(m)
+    return from_local(torch.zeros(local_shape, dtype=dtype, device=device),
+                      shape, *logical)

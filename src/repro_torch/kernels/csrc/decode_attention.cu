@@ -48,6 +48,11 @@
 //   atomic counter after __threadfence) merges all splits, parallel over
 //   (g, d), out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30) with
 //   w_s = 2^(m_s - max m), and sets the counter back to 0: one launch.
+// - The log-sum-exp (optional, ``lse`` non-null): f32 (B, H), ln of the sum
+//   of exp(scale * q.k) over the attended rows, m ln 2 + ln l from the
+//   (m, l) the merge already holds; -inf for an empty range.  A caller that
+//   splits the cache rows over ranks merges the ranks' outputs with it.
+//   Without it (null, the default) the kernel writes nothing more.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,6 +67,7 @@ constexpr int NRG = 4;     // rows a lane group takes from each tile in dec_spli
 constexpr int MAX_G = 16;  // query heads per KV head: the larger group bound
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -117,7 +123,7 @@ size_t merge_smem(size_t ring, int D, int n_split, int GB) {
 // block of (b, hk) to finish merges every split and resets its counter.
 template <typename T, int D, int GB>
 __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
-                                       float* m_part, float* l_part,
+                                       float* lse, float* m_part, float* l_part,
                                        float* acc_part, unsigned* counters,
                                        int G, int n_split, int split,
                                        long long head0, int b, int hk) {
@@ -143,6 +149,7 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
       const long long bh = head0 + g;
       if (n_split == 1) {
         out[bh * D + d] = from_f<T>(num / fmaxf(den, 1e-30f));
+        if (lse != nullptr && d == 0) lse[bh] = mm * LN2 + logf(den);
       } else {
         acc_part[(bh * n_split + split) * D + d] = num;
         if (d == 0) {
@@ -153,6 +160,7 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
     }
   } else if (n_split == 1) {  // kv_len 0: no row to attend to
     for (int i = threadIdx.x; i < G * D; i += NW * 32) out[head0 * D + i] = from_f<T>(0.f);
+    if (lse != nullptr && threadIdx.x < G) lse[head0 + threadIdx.x] = -CUDART_INF_F;
   } else if (threadIdx.x < G) {  // this split lies wholly past kv_len
     m_part[(head0 + threadIdx.x) * n_split + split] = -CUDART_INF_F;
     l_part[(head0 + threadIdx.x) * n_split + split] = 0.f;
@@ -184,7 +192,11 @@ __device__ __forceinline__ void finish(uint8_t* smem, bool rows, T* out,
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
-    if (lane == 0) den[g] = fmaxf(dsum, 1e-30f);
+    if (lane == 0) {
+      den[g] = fmaxf(dsum, 1e-30f);
+      // every split empty: mm = -inf, dsum = 0
+      if (lse != nullptr) lse[head0 + g] = dsum > 0.f ? mm * LN2 + logf(dsum) : -CUDART_INF_F;
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < G * D; i += NW * 32) {
@@ -204,7 +216,8 @@ template <int LPR, int CPL, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_split(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const int* __restrict__ kv_len,
-          const int* __restrict__ kv_start, float* __restrict__ out, float* __restrict__ m_part,
+          const int* __restrict__ kv_start, float* __restrict__ out,
+          float* __restrict__ lse, float* __restrict__ m_part,
           float* __restrict__ l_part, float* __restrict__ acc_part,
           unsigned* __restrict__ counters, int H, int G, int L, int chunk,
           int n_split, long long qsb, long long qsh, long long ksb,
@@ -379,7 +392,7 @@ dec_split(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
-  finish<float, D, GB>(smem, n > 0, out, m_part, l_part, acc_part, counters,
+  finish<float, D, GB>(smem, n > 0, out, lse, m_part, l_part, acc_part, counters,
                        G, n_split, split, head0, b, hk);
 }
 
@@ -430,7 +443,8 @@ template <int D, int GB>
 __global__ void __launch_bounds__(NW * 32)
 dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
         const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
-        const int* __restrict__ kv_start, __nv_bfloat16* __restrict__ out, float* __restrict__ m_part,
+        const int* __restrict__ kv_start, __nv_bfloat16* __restrict__ out,
+        float* __restrict__ lse, float* __restrict__ m_part,
         float* __restrict__ l_part, float* __restrict__ acc_part,
         unsigned* __restrict__ counters, int H, int G, int L, int chunk,
         int n_split, long long qsb, long long qsh, long long ksb,
@@ -613,13 +627,14 @@ dec_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k
               R == 1 ? o[nd][e] + o[nd][e + 2] : o[nd][2 * r + e];
     }
   }
-  finish<__nv_bfloat16, D, GB>(smem, n > 0, out, m_part, l_part, acc_part,
+  finish<__nv_bfloat16, D, GB>(smem, n > 0, out, lse, m_part, l_part, acc_part,
                                counters, G, n_split, split, head0, b, hk);
 }
 
 template <int D, int GB>
 int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
-               const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part,
+               const int* kv_start, void* out, float* lse, float* m_part, float* l_part,
+               float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
                int n_split, long long qsb, long long qsh, long long ksb,
                long long ksh, long long ksl, long long vsb, long long vsh,
@@ -631,7 +646,7 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
   dec_mma<D, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), kv_len, kv_start,
-      static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(out), lse,
       m_part, l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb,
       ksh, ksl, vsb, vsh, vsl, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
@@ -639,7 +654,8 @@ int launch_mma(const void* q, const void* k, const void* v, const int* kv_len,
 
 template <int LPR, int CPL, int GB>
 int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
-               const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part,
+               const int* kv_start, void* out, float* lse, float* m_part, float* l_part,
+               float* acc_part,
                unsigned* counters, int B, int H, int G, int L, int chunk,
                int n_split, long long qsb, long long qsh, long long ksb,
                long long ksh, long long ksl, long long vsb, long long vsh,
@@ -652,7 +668,7 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_len,
   if (err != cudaSuccess) return static_cast<int>(err);
   dec_split<LPR, CPL, GB><<<dim3(n_split, H / G, B), NW * 32, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), kv_len, kv_start, static_cast<float*>(out),
+      static_cast<const float*>(v), kv_len, kv_start, static_cast<float*>(out), lse,
       m_part,
       l_part, acc_part, counters, H, G, L, chunk, n_split, qsb, qsh, ksb, ksh,
       ksl, vsb, vsh, vsl, scale * LOG2E);
@@ -683,6 +699,7 @@ extern "C" int decode_attention_smem(int dtype, int D) {
 }
 
 // kv_start: (B,) int32 first row attended to, or null for row 0.
+// lse: (B, H) f32 log-sum-exp written beside the output, or null for none.
 // dtype: 0 = float32 (dec_split), 1 = bfloat16 (dec_mma); D one of the head
 // dims above; G = H / Hkv at most MAX_G, built for the group bound 8 where
 // it holds G and 16 otherwise; k and v 16-byte aligned with strides in
@@ -690,14 +707,15 @@ extern "C" int decode_attention_smem(int dtype, int D) {
 // left zero.
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v, const int* kv_len,
-    const int* kv_start, void* out, float* m_part, float* l_part, float* acc_part, unsigned* counters,
+    const int* kv_start, void* out, float* lse, float* m_part, float* l_part, float* acc_part,
+    unsigned* counters,
     int B, int H, int G, int L, int D, int chunk, int n_split, long long qsb,
     long long qsh, long long ksb, long long ksh, long long ksl, long long vsb,
     long long vsh, long long vsl, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (G < 1 || G > MAX_G) return static_cast<int>(cudaErrorInvalidValue);
 #define F32_GB(DD, LPR, CPL, GB)                                                \
-  return launch_f32<LPR, CPL, GB>(q, k, v, kv_len, kv_start, out, m_part,      \
+  return launch_f32<LPR, CPL, GB>(q, k, v, kv_len, kv_start, out, lse, m_part, \
                                   l_part,                                       \
                                   acc_part, counters, B, H, G, L, chunk,        \
                                   n_split, qsb, qsh, ksb, ksh, ksl, vsb, vsh,   \
@@ -708,7 +726,7 @@ extern "C" int decode_attention_launch(
     F32_GB(DD, LPR, CPL, 16)                                                    \
   }
 #define BF16_GB(DD, GB)                                                         \
-  return launch_mma<DD, GB>(q, k, v, kv_len, kv_start, out, m_part, l_part,     \
+  return launch_mma<DD, GB>(q, k, v, kv_len, kv_start, out, lse, m_part, l_part,\
                             acc_part,                                           \
                             counters, B, H, G, L, chunk, n_split, qsb, qsh,     \
                             ksb, ksh, ksl, vsb, vsh, vsl, scale, st);

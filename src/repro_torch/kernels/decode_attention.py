@@ -17,6 +17,18 @@ a window's view of it that starts at a later row, and copies nothing.  Scores, s
 cast to q's dtype.  The TPU kernel's 8-row query padding is TPU layout and is
 not carried over.
 
+``with_lse=True`` also returns the log-sum-exp, f32 (B, H): ln of the sum of
+exp(scale * q.k) over the attended rows, -inf where a row attends to none.
+Calls that attend over disjoint row ranges of one cache (the ranks of a
+sequence-sharded cache) merge to the call over their union with it
+(``models/attention.py::merge_partials``).  Without it, the default, the
+kernel writes nothing more.
+
+DTensor arguments (the model under a mesh of several devices) may be
+sharded over batch and heads only: the kernel runs on each rank's local
+shard and its output is that rank's shard of the result
+(``kernels/_dtensor.py``).
+
 On a card the kernel reads K and V 16 bytes a load: k and v need 16-byte
 aligned data, strides in multiples of 16 bytes, and a head dim in
 ``HEAD_DIMS`` (powers of two up to 256), as the model's cache has.  The
@@ -32,7 +44,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dtensor
 
 NEG_INF = -1e30
 
@@ -93,11 +105,13 @@ def _counters(dev: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def decode_attention_plain(q, k, v, kv_len, *, scale=None, kv_start=None):
+def decode_attention_plain(q, k, v, kv_len, *, scale=None, kv_start=None,
+                           with_lse=False):
     """Plain PyTorch version, in the kernel's numerics: f32 scores masked
     outside rows [kv_start, kv_len) with -1e30, f32 softmax (an empty range
     gives 0, as the reference's clamped softmax does), f32 P.V, output in
-    q's dtype."""
+    q's dtype; with ``with_lse`` also the f32 (B, H) log-sum-exp of the
+    attended scores (-inf for an empty range)."""
     B, Hkv, L, D = k.shape
     H = q.shape[1]
     G = H // Hkv
@@ -108,30 +122,53 @@ def decode_attention_plain(q, k, v, kv_len, *, scale=None, kv_start=None):
     if kv_start is not None:
         valid &= rows >= kv_start.reshape(B, 1)
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF / 2))
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF / 2)
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    p = p / den.clamp_min(1e-30)
     o = torch.einsum("bhgl,bhld->bhgd", p, v.float())
-    return o.reshape(B, H, D).to(q.dtype)
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not with_lse:
+        return o
+    lse = torch.where(den > 0, m + torch.log(den),
+                      torch.full_like(den, -math.inf))
+    return o, lse.reshape(B, H)
+
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     "decode_attention_launch": (
-        [_I] + [_P] * 10 + [_I] * 7 + [_L] * 8 + [_F, _P], _I),
+        [_I] + [_P] * 11 + [_I] * 7 + [_L] * 8 + [_F, _P], _I),
     "decode_attention_max_group": ([], _I),
 }
 
 
-def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None):
+#: the dims each argument may be sharded over, by role; the outputs' roles
+_SHARDS = ({0: "batch", 1: "heads"}, {0: "batch", 1: "heads"},
+           {0: "batch", 1: "heads"}, {0: "batch"}, {0: "batch"})
+_OUT_SHARDS = ({0: "batch", 1: "heads"}, {0: "batch", 1: "heads"})
+
+
+def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None,
+                     with_lse=False):
     """q: (B, H, D); k, v: (B, Hkv, L, D), any strides with the last one 1;
     kv_len: (B,) valid prefix length; kv_start: optional (B,) first valid
-    row.  Returns (B, H, D) in q's dtype."""
+    row.  Returns (B, H, D) in q's dtype, and with ``with_lse`` also the
+    f32 (B, H) log-sum-exp."""
     global launches
+    if _dtensor.any_dtensor(q, k, v, kv_len, kv_start):
+        return _dtensor.on_shards(
+            "decode_attention",
+            lambda *a: decode_attention(*a[:4], scale=scale, kv_start=a[4],
+                                        with_lse=with_lse),
+            (q, k, v, kv_len, kv_start), _SHARDS,
+            _OUT_SHARDS if with_lse else _OUT_SHARDS[0])
     dev = _build.device_of(*(t for t in (q, k, v, kv_len, kv_start)
                              if t is not None))
     if dev.type == "cpu":
         return decode_attention_plain(q, k, v, kv_len, scale=scale,
-                                      kv_start=kv_start)
+                                      kv_start=kv_start, with_lse=with_lse)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
@@ -169,6 +206,8 @@ def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None):
         kv_start = kv_start.to(torch.int32).contiguous()
     chunk, n_split = split_plan(B, Hkv, L, D, esize)
     out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=dev)
+           if with_lse else None)
     m_part = l_part = acc_part = counters = None
     if n_split > 1:
         # one f32 scratch: m and l (B, H, n_split) each, acc (B, H, n_split, D)
@@ -181,11 +220,12 @@ def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None):
     status = lib.decode_attention_launch(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         kv_len.data_ptr(), 0 if kv_start is None else kv_start.data_ptr(),
-        out.data_ptr(), m_part, l_part, acc_part,
+        out.data_ptr(), None if lse is None else lse.data_ptr(), m_part,
+        l_part, acc_part,
         counters, B, H, G, L, D, chunk, n_split,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), _scale(D, scale),
         _build.stream_ptr(dev))
     _build.check_status("decode_attention", status)
     launches += 1
-    return out
+    return out if lse is None else (out, lse)

@@ -70,7 +70,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dtensor
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -480,13 +480,29 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+#: the dims each argument may be sharded over, by role (q, k, v, q_pos,
+#: k_pos), and the output's
+_SHARDS = ({0: "batch", 1: "heads"}, {0: "batch", 1: "heads"},
+           {0: "batch", 1: "heads"}, {0: "batch"}, {0: "batch"})
+_OUT_SHARDS = {0: "batch", 1: "heads"}
+
+
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     q_pos=None, k_pos=None):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D), any strides with the last one
     1; q_pos, k_pos: optional (B, S) integer positions that the masks
     compare in place of the row index.  Returns (B, H, S, D) in q's dtype
     (on a card, a view of a (B, S, H, D) tensor).  Where a gradient is
-    wanted on a card, the call goes through ``FlashAttentionFn``."""
+    wanted on a card, the call goes through ``FlashAttentionFn``.
+    DTensors may be sharded over batch and heads: each rank runs the kernel
+    on its shard (``kernels/_dtensor.py``)."""
+    if _dtensor.any_dtensor(q, k, v, q_pos, k_pos):
+        return _dtensor.on_shards(
+            "flash_attention",
+            lambda q, k, v, qp, kp: flash_attention(
+                q, k, v, causal=causal, window=window, scale=scale, q_pos=qp,
+                k_pos=kp),
+            (q, k, v, q_pos, k_pos), _SHARDS, _OUT_SHARDS)
     dev = _build.device_of(q, k, v)
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

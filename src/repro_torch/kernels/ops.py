@@ -5,6 +5,14 @@ tensors lie: the CUDA kernel for tensors on a card, the plain PyTorch version
 for tensors on the CPU, and an error for anything else.  Nothing falls back
 from the card to the CPU or from a kernel to its plain version.  Each kernel
 module counts its own launches; ``launch_counts`` reads them all.
+
+Under a mesh the model hands ``decode_attention``, ``flash_attention`` and
+``ssm_scan`` DTensors: each wrapper checks that they are split only over
+dimensions its kernel treats independently (batch and heads for attention,
+batch and the inner channels for the scan), runs on each rank's local
+shard and wraps the result back (``_dtensor.on_shards``); any other
+placement raises, and nothing gathers a full tensor.  The counts are each
+rank's own.
 """
 from __future__ import annotations
 

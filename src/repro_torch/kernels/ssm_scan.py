@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _dtensor
 
 #: steps a checkpointed segment: the states at t = 0, SEG, 2 SEG, ... are kept
 SEG = 16
@@ -230,11 +230,23 @@ class SSMScanFn(torch.autograd.Function):
         return d_dA, d_dBx, dC, dh0.to(h0.dtype)
 
 
+#: the dims each argument may be sharded over, by role (dA, dBx, C, h0),
+#: and the outputs' (y, h_last)
+_SHARDS = ({0: "batch", 2: "inner"}, {0: "batch", 2: "inner"}, {0: "batch"},
+           {0: "batch", 1: "inner"})
+_OUT_SHARDS = ({0: "batch", 2: "inner"}, {0: "batch", 1: "inner"})
+
+
 def ssm_scan(dA, dBx, C, h0):
     """dA, dBx: (B, S, I, N); C: (B, S, N); h0: (B, I, N).  Returns
     (y (B, S, I) in dA's dtype, h_last (B, I, N) f32); on a card, f32
     inputs only.  Where a gradient is wanted on a card, the call goes
-    through ``SSMScanFn``."""
+    through ``SSMScanFn``.  DTensors may be sharded over batch and the
+    inner channels: each rank runs the kernel on its shard
+    (``kernels/_dtensor.py``)."""
+    if _dtensor.any_dtensor(dA, dBx, C, h0):
+        return _dtensor.on_shards("ssm_scan", ssm_scan, (dA, dBx, C, h0),
+                                  _SHARDS, _OUT_SHARDS)
     dev = _build.device_of(dA, dBx, C, h0)
     if dev.type == "cpu":
         return ssm_scan_plain(dA, dBx, C, h0)

@@ -13,10 +13,17 @@ leaf's spec is the reference's without that leading ``None`` and the bytes
 a device holds are the same.
 
 The reference leaves the placement of most outputs to XLA's partitioner
-(``out_shardings=None``).  The port executes no sharded step, so it states
-the placement it counts: the train state as its input (donated), metrics
-replicated, logits over ("batch", "vocab") and a cache as the cache's
-logical axes.
+(``out_shardings=None``).  The port states the placement it counts: the
+train state as its input (donated), metrics replicated, logits over
+("batch", "vocab") and a cache as the cache's logical axes.
+
+The prefill and decode ``fn``s also run sharded, the port's counterpart of
+``jax.jit(low.fn, in_shardings=...)``: their arguments placed on a live
+mesh by ``sharding.distribute(arg, in_shardings[i], mesh)`` (parameters,
+batch and cache; ``cache_len`` a plain int) and called under
+``sharding_ctx(mesh, low.rules)``; the logits come back vocab-sharded as
+DTensors (``full_tensor()`` gathers them) and the cache as DTensors laid
+out by the rules.  The train step does not run sharded yet.
 """
 from __future__ import annotations
 

@@ -40,17 +40,41 @@ The sharding constraints sit at the reference's sites (attention.py:91-93,
 118-119, 149-151, 183) and do nothing without a mesh.  Its constraint on the
 decode scores (:66) has no tensor here: the kernel keeps the scores; and
 the keys and values are not repeated to H heads (:149-151), so only q
-takes that site's constraint.  The reference pads the heads to a multiple
-of the "model" axis where it does not divide them (:140-148); that belongs
-to running over several devices, which is not ported, and raises.
+takes that site's constraint.
+
+Under a mesh (DTensor activations; ``launch/specs.py``) both paths run on
+each rank's shards:
+
+* Prefill.  The projections' input is gathered over the sequence (the
+  residual between layers is sequence-sharded), q, k and v come out split
+  by heads, and ``flash_attention`` runs on each rank's heads, query head h
+  reading its KV head through the kernel's own GQA mapping.  Where the
+  "model" axis splits the query heads but not the KV heads, each rank pairs
+  its query heads with the slice of the replicated KV heads they read
+  (``_paired``).  Where it does not divide the query heads, the reference
+  repeats K and V to H heads and pads q, K and V with zero heads to the
+  next multiple (attention.py:140-148): so does ``_padded``, on each rank's
+  slice of the padded heads, and the padded heads are cut off before
+  ``wo``.  The new keys and values are written into the rank's shard of
+  the cache (``_write_rows``).
+* Decode under ``DECODE_RULES``: the cache's rows are split over "model".
+  The new row is written by the rank whose rows hold ``cache_len``; q is
+  gathered over "model"; each rank runs ``decode_attention`` over its own
+  rows, with kv_len shifted by its first row and clamped (a rank with no
+  valid row has log-sum-exp -inf and weight 0), and the ranks' outputs are
+  merged exactly from their log-sum-exps by all-reduces over "model" in
+  f32 (``merge_partials``).  A cache whose rows are not split (their count not
+  divisible) is split by heads, and decode then runs on heads as prefill.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import active_mesh, axis_sizes, constrain
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models.common import apply_rope, rms_norm
 
 
@@ -63,11 +87,13 @@ def _tp_size() -> int:
 
 def _qkv(params: dict, x, cfg: ModelConfig, rope):
     """q (B, S, H, D), k and v (B, S, Hkv, D), after qk-norm and rope."""
+    x = constrain(x, "batch", "seq", None)  # gather the sequence-split rows
     B, S, M = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype).reshape(M, H * D)).view(B, S, H, D)
-    k = (x @ params["wk"].to(x.dtype).reshape(M, Hkv * D)).view(B, S, Hkv, D)
-    v = (x @ params["wv"].to(x.dtype).reshape(M, Hkv * D)).view(B, S, Hkv, D)
+    w = {n: sh.gathered(params[n]).to(x.dtype) for n in ("wq", "wk", "wv")}
+    q = (x @ w["wq"].reshape(M, H * D)).view(B, S, H, D)
+    k = (x @ w["wk"].reshape(M, Hkv * D)).view(B, S, Hkv, D)
+    v = (x @ w["wv"].reshape(M, Hkv * D)).view(B, S, Hkv, D)
     q = constrain(q, "batch", "seq", "heads", None)
     k = constrain(k, "batch", "seq", "kv_heads", None)
     v = constrain(v, "batch", "seq", "kv_heads", None)
@@ -83,8 +109,8 @@ def _qkv(params: dict, x, cfg: ModelConfig, rope):
 def _out(params: dict, out, x):
     """out: (B, S, H, D) -> y (B, S, M)."""
     B, S, H, D = out.shape
-    y = out.reshape(B, S, H * D) @ params["wo"].to(x.dtype).reshape(
-        H * D, x.shape[-1])
+    y = out.reshape(B, S, H * D) @ sh.gathered(params["wo"]).to(
+        x.dtype).reshape(H * D, x.shape[-1])
     return constrain(y, "batch", "seq_sp", None)
 
 
@@ -93,25 +119,110 @@ def prefill_attention(params: dict, x, cfg: ModelConfig, rope, cache,
     """x: (B, S, M); rope: (cos, sin) of (B, S, D/2) or None; pos: (B, S)
     int32 positions of the mask, or None for the row index.  Writes k, v
     into ``cache`` at [:, :S] (unless it is None) and returns y (B, S, M)."""
-    S = x.shape[1]
+    S, H = x.shape[1], cfg.n_heads
     q, k, v = _qkv(params, x, cfg, rope)
     if cache is not None:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        for name in ("k", "v"):
+        for name, t in (("k", k), ("v", v)):
+            _write_rows(cache[name], t, 0)
             cache[name] = constrain(cache[name], "batch", "kv_seq",
                                     "kv_heads", None)
-    if S > 1 and cfg.q_per_kv > 1:
-        if cfg.n_heads % _tp_size():
-            raise NotImplementedError(
-                f"{cfg.n_heads} heads over a model axis of {_tp_size()}: "
-                f"the reference's head padding is not ported")
+    pad = S > 1 and cfg.q_per_kv > 1 and H % _tp_size()
+    if S > 1 and cfg.q_per_kv > 1 and not pad:
         q = constrain(q, "batch", "seq", "heads", None)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # heads first
+    if pad:
+        q, k, v = _padded(q, k, v, cfg)
+    elif sh.is_dtensor(q):
+        k, v = _paired(q, k, v, cfg)
     out = ops.flash_attention(
-        q.permute(0, 2, 1, 3), k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-        causal=cfg.causal, window=window or 0, q_pos=pos,
+        q, k, v, causal=cfg.causal, window=window or 0, q_pos=pos,
         k_pos=pos if cache is None else None)  # (B, H, S, D)
-    return _out(params, out.permute(0, 2, 1, 3), x)
+    out = out.permute(0, 2, 1, 3)
+    if pad:  # gather the padded heads and cut them off
+        out = constrain(out, "batch", "seq", None, None)[:, :, :H]
+    return _out(params, out, x)
+
+
+def _model_rank(x) -> tuple:
+    """(the "model" axis' size, this rank's index on it) of a DTensor's
+    mesh."""
+    mesh = x.device_mesh
+    if "model" not in mesh.mesh_dim_names:
+        return 1, 0
+    return axis_sizes(mesh)["model"], mesh.get_local_rank("model")
+
+
+def _heads_dtensor(t, tp: int, B: int):
+    """The rank's local (b, h, S, D) ``t`` as its shard of a (B, tp * h, S,
+    D) DTensor split over batch and heads."""
+    return sh.from_local(t, (B, tp * t.shape[1], *t.shape[2:]), "batch",
+                         "heads", None, None)
+
+
+def _kv_for(k, heads, G: int):
+    """The KV heads that query heads ``heads`` (a range) read, from the
+    local (B, Hkv, S, D) ``k``: a slice where the range holds whole groups
+    (or lies in one), else one KV head per query head (index h // G)."""
+    idx = torch.arange(heads.start, heads.stop) // G
+    first, n = int(idx[0]), int(idx[-1] - idx[0]) + 1
+    g = len(idx) // n
+    if len(idx) % n == 0 and torch.equal(
+            idx, first + torch.arange(len(idx)) // g):
+        return k[:, first:first + n]
+    return k[:, idx.to(k.device)]
+
+
+def _paired(q, k, v, cfg: ModelConfig):
+    """k, v for q split over "model" by heads: as they are where "model"
+    splits the KV heads alike; where it splits only the query heads, each
+    rank's slice of the replicated KV heads, paired with its query heads."""
+    tp, r = _model_rank(q)
+    if tp == 1 or sh.shard_axes(k, 1) or not sh.shard_axes(q, 1):
+        return k, v
+    hl = cfg.n_heads // tp
+    heads = range(r * hl, (r + 1) * hl)
+    return tuple(_heads_dtensor(_kv_for(sh.local(t), heads, cfg.q_per_kv), tp,
+                                q.shape[0]) for t in (k, v))
+
+
+def _padded(q, k, v, cfg: ModelConfig):
+    """The reference's head padding (attention.py:140-148) on each rank's
+    slice: q (B, H, S, D) and k, v (B, Hkv, S, D), replicated over "model",
+    become this rank's Hp / tp of the Hp = H rounded up to a multiple of tp
+    heads, K and V repeated to one head per query head, the padded heads
+    zero."""
+    tp, r = _model_rank(q)
+    H, hl = cfg.n_heads, -(-cfg.n_heads // tp)
+    heads = range(r * hl, min((r + 1) * hl, H))
+    ql, kl, vl = (sh.local(t) for t in (q, k, v))
+    idx = torch.tensor([h // cfg.q_per_kv for h in heads], dtype=torch.long,
+                       device=kl.device)
+
+    def pad(t):
+        z = t.new_zeros((t.shape[0], hl - len(heads), *t.shape[2:]))
+        return torch.cat([t, z], dim=1)
+
+    return tuple(_heads_dtensor(pad(t), tp, q.shape[0]) for t in (
+        ql[:, heads.start:heads.stop], kl[:, idx], vl[:, idx]))
+
+
+def _write_rows(cache, rows, start: int):
+    """Write ``rows`` (B, S, Hkv, D) into ``cache`` (B, L, Hkv, D) at rows
+    start..start+S-1, in place.  Sharded, into the rank's shard of the
+    cache: the rows are laid out as the cache but not split over its rows,
+    and each rank writes those that fall in its own rows (none, some or
+    all)."""
+    if sh.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate
+
+        rows = sh.redistribute(rows, [
+            Replicate() if p.is_shard() and p.dim % 4 == 1 else p
+            for p in cache.placements])
+    c, t = sh.local(cache), sh.local(rows)
+    r0, S = sh.local_offset(cache, 1), t.shape[1]
+    a, b = max(start, r0), min(start + S, r0 + c.shape[1])
+    if a < b:
+        c[:, a - r0:b - r0] = t[:, a - start:b - start].to(c.dtype)
 
 
 def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
@@ -123,11 +234,27 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     if x.shape[1] != 1:
         raise NotImplementedError("decode takes one token a step (S = 1)")
     q, k, v = _qkv(params, x, cfg, rope)
-    ck, cv = cache["k"], cache["v"]
-    ck[:, cache_len] = k[:, 0].to(ck.dtype)
-    cv[:, cache_len] = v[:, 0].to(cv.dtype)
-    ck = cache["k"] = constrain(ck, "batch", "kv_seq", "kv_heads", None)
-    cv = cache["v"] = constrain(cv, "batch", "kv_seq", "kv_heads", None)
+    for name, t in (("k", k), ("v", v)):
+        _write_rows(cache[name], t, cache_len)
+    ck = cache["k"] = constrain(cache["k"], "batch", "kv_seq", "kv_heads",
+                                None)
+    cv = cache["v"] = constrain(cache["v"], "batch", "kv_seq", "kv_heads",
+                                None)
+    if sh.is_dtensor(ck):
+        if window or pos is not None:
+            raise NotImplementedError("sharded decode of windowed layers or "
+                                      "given positions is not ported")
+        if sh.shard_axes(ck, 1):
+            return _decode_split_rows(params, x, q, ck, cv, cache_len)
+        q = q.permute(0, 2, 1, 3)
+        k, v = _paired(q, ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3), cfg)
+        kv_len = sh.from_local(
+            torch.full((sh.local(q).shape[0],), cache_len + 1,
+                       dtype=torch.int32, device=sh.local(q).device),
+            (q.shape[0],), "batch")
+        out = ops.decode_attention(q[:, :, 0], k.to(x.dtype), v.to(x.dtype),
+                                   kv_len)  # (B, H, D)
+        return _out(params, out[:, None], x)
     kv_start = None
     if pos is not None:
         qp = pos[:, 0].to(kv_len.dtype)
@@ -143,3 +270,37 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
         cv.to(x.dtype).permute(0, 2, 1, 3), kv_len,
         kv_start=kv_start)  # (B, H, D)
     return _out(params, out[:, None], x)
+
+
+def _decode_split_rows(params: dict, x, q, ck, cv, cache_len: int):
+    """Decode against a cache whose rows are split over the mesh axes
+    ``shard_axes(ck, 1)``: q gathered over them, ``decode_attention`` over
+    each rank's rows with the log-sum-exp, the outputs merged exactly."""
+    axes = sh.shard_axes(ck, 1)
+    q = constrain(q, "batch", None, None, None)  # every head on every rank
+    ql, kl, vl = (sh.local(t) for t in (q, ck, cv))
+    r0, n = sh.local_offset(ck, 1), kl.shape[1]
+    kv_len = torch.full((ql.shape[0],), min(max(cache_len + 1 - r0, 0), n),
+                        dtype=torch.int32, device=ql.device)
+    out, lse = ops.decode_attention(
+        ql[:, 0], kl.to(ql.dtype).permute(0, 2, 1, 3),
+        vl.to(ql.dtype).permute(0, 2, 1, 3), kv_len, with_lse=True)
+    out = merge_partials([out], [lse], axes).to(ql.dtype)  # (B, H, D)
+    out = sh.from_local(out[:, None], q.shape, "batch", None, None, None)
+    return _out(params, out, x)
+
+
+def merge_partials(outs, lses, axes=()):
+    """The attention over the union of disjoint row ranges from each
+    range's output (B, H, D) and log-sum-exp (B, H) (``decode_attention``'s
+    ``with_lse``), the ranges in the lists and, with ``axes``, on the ranks
+    of those mesh axes: with m the largest log-sum-exp, w = exp(lse - m),
+    out = sum w out / sum w, in f32, by all-reduces over ``axes``.  A range
+    with no valid row has lse -inf and weight 0; a row with none anywhere
+    gives 0."""
+    lse = torch.stack([x.float() for x in lses])
+    m = sh.pmax(lse.amax(dim=0), axes).clamp_min(NEG_INF)
+    w = torch.exp(lse - m)[..., None]
+    out = torch.stack([o.float() for o in outs])
+    acc = sh.psum(torch.cat([w * out, w], dim=-1).sum(dim=0), axes)
+    return acc[..., :-1] / acc[..., -1:].clamp_min(1e-30)

@@ -32,7 +32,9 @@ from repro_torch.models.common import rms_norm
 def apply_layer(cfg: ModelConfig, spec: LayerSpec, params: dict, x, rope,
                 cache, cache_len=None, kv_len=None, pos=None):
     """Pre-norm residual layer; ``cache`` is updated in place.  Returns
-    (x, aux)."""
+    (x, aux).  Under a mesh the residual and each branch's output are laid
+    out alike before each sum, so the sum moves nothing."""
+    x = constrain(x, "batch", "seq_sp", None)
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if spec.kind == "mamba":
         y = mamba.mamba_mixer(params["mamba"], h, cfg, cache)
@@ -43,7 +45,7 @@ def apply_layer(cfg: ModelConfig, spec: LayerSpec, params: dict, x, rope,
         y = attention.decode_attention(params["attn"], h, cfg, rope, cache,
                                        cache_len, kv_len, window=spec.window,
                                        pos=pos)
-    x = x + y
+    x = x + constrain(y, "batch", "seq_sp", None)
     aux = 0.0
     if spec.mlp == "dense":
         x = x + mlp.mlp(params["mlp"], rms_norm(x, params["ln2"], cfg.norm_eps))

@@ -19,6 +19,18 @@ with zeros, and nothing is written, so autograd sees no in-place update; on
 a card each chunk's scan then runs ``ssm_scan``'s forward kernel (its build
 that keeps a state every 16 steps) with its backward kernel as the gradient,
 the chunks chained through h0's gradient.
+
+Under a mesh (DTensor activations) the inner channels are split over
+"model" as the reference's rules place them.  ``in_proj`` is one (M, 2I)
+leaf split over its columns, so at tp 2 one rank holds the x half and the
+other the z half: its output is gathered before the split at I, as in the
+reference's partitioned program, and x and z are each split over the inner
+channels again.  The conv, the gate and the scan run on each rank's
+channels (the parameters' shards); ``x_proj`` contracts over the inner
+channels, so its partial output is summed over the ranks (an explicit
+all-reduce) before the dt, B and C split; ``ssm_scan`` gets DTensors split
+over batch and inner channels and runs on each rank's shard; ``out_proj``
+is row-parallel, its partial sums reduced by the output's constraint.
 """
 from __future__ import annotations
 
@@ -26,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 
@@ -61,6 +74,23 @@ def _conv_shift(x_pad, w, b, S: int):
     return y + b
 
 
+def _scan(dA, dBx, C, h0, B: int, I: int, sharded: bool):
+    """``ops.ssm_scan`` on the rank's shards: sharded, handed over as
+    DTensors split over batch and inner channels (global batch B, I
+    channels); returns local tensors."""
+    if not sharded:
+        return ops.ssm_scan(dA, dBx, C, h0)
+    S, N = dA.shape[1], dA.shape[3]
+    y, h = ops.ssm_scan(
+        sh.from_local(dA, (B, S, I, N), "batch", "seq", "ssm_inner",
+                      "ssm_state"),
+        sh.from_local(dBx, (B, S, I, N), "batch", "seq", "ssm_inner",
+                      "ssm_state"),
+        sh.from_local(C, (B, S, N), "batch", "seq", "ssm_state"),
+        sh.from_local(h0, (B, I, N), "batch", "ssm_inner", "ssm_state"))
+    return sh.local(y), sh.local(h)
+
+
 def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     """x: (B, S, M) -> y (B, S, M); ``cache`` = {"h", "conv"} is read as the
     initial state and overwritten with the final one; None starts from zero
@@ -69,24 +99,32 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     I, N, R, W = cfg.d_inner, cfg.ssm_state, cfg.dt_rank_resolved, cfg.d_conv
     dt_ = x.dtype
 
-    xz = x @ params["in_proj"].to(dt_)
-    xin, z = xz[..., :I], xz[..., I:]
-    xin = constrain(xin, "batch", "seq", "ssm_inner")
-    conv0 = (torch.zeros((B, W - 1, I), dtype=dt_, device=x.device)
-             if cache is None else cache["conv"].to(dt_))
+    x = constrain(x, "batch", "seq", None)  # gather the sequence-split rows
+    # in_proj's columns are split over the ranks: gather before the split
+    xz = constrain(x @ sh.gathered(params["in_proj"]).to(dt_), "batch", "seq",
+                   None)
+    xin = constrain(xz[..., :I], "batch", "seq", "ssm_inner")
+    z = constrain(xz[..., I:], "batch", "seq", "ssm_inner")
+    # from here on each rank's inner channels, with the parameters' shards
+    sharded, inner = sh.is_dtensor(xin), sh.shard_axes(xin, 2)
+    p = {k: sh.local(v) for k, v in params.items()}
+    xin, z = sh.local(xin), sh.local(z)
+    Bl, Il = xin.shape[0], xin.shape[2]
+    conv0 = (torch.zeros((Bl, W - 1, Il), dtype=dt_, device=xin.device)
+             if cache is None else sh.local(cache["conv"]).to(dt_))
     x_pad = torch.cat([conv0, xin], dim=1)
     new_conv = x_pad[:, -(W - 1):, :]
-    xc = F.silu(_conv_shift(x_pad, params["conv_w"].to(dt_),
-                            params["conv_b"].to(dt_), S))
+    xc = F.silu(_conv_shift(x_pad, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
+                            S))
 
-    xdb = xc @ params["x_proj"].to(dt_)
+    xdb = sh.psum(xc @ p["x_proj"].to(dt_), inner)  # partial over inner
     dt_raw, Bm, Cm = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
-    dt = F.softplus((dt_raw @ params["dt_proj"].to(dt_)).float()
-                    + params["dt_bias"])  # (B, S, I) f32
-    A = -torch.exp(params["A_log"])  # (I, N) f32
+    dt = F.softplus((dt_raw @ p["dt_proj"].to(dt_)).float()
+                    + p["dt_bias"])  # (B, S, I) f32
+    A = -torch.exp(p["A_log"])  # (I, N) f32
     Bm32, Cm32, xc32 = Bm.float(), Cm.float(), xc.float()
-    h0 = (torch.zeros((B, I, N), dtype=torch.float32, device=x.device)
-          if cache is None else cache["h"].float())
+    h0 = (torch.zeros((Bl, Il, N), dtype=torch.float32, device=xin.device)
+          if cache is None else sh.local(cache["h"]).float())
 
     if S == 1:  # decode: a single recurrence step
         dA = torch.exp(dt[:, 0, :, None] * A)  # (B, I, N)
@@ -101,14 +139,16 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
             dt_c = dt[:, sl]
             dA = torch.exp(dt_c[..., None] * A)  # (B, cs, I, N)
             dBx = dt_c[..., None] * Bm32[:, sl, None, :] * xc32[:, sl, :, None]
-            y_c, h_last = ops.ssm_scan(dA, dBx, Cm32[:, sl].contiguous(),
-                                       h_last)
+            y_c, h_last = _scan(dA, dBx, Cm32[:, sl].contiguous(), h_last,
+                                B, I, sharded)
             ys.append(y_c)
         y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)
 
-    y = (y + xc32 * params["D"]).to(dt_) * F.silu(z)
-    out = y @ params["out_proj"].to(dt_)
+    y = (y + xc32 * p["D"]).to(dt_) * F.silu(z)
+    if sharded:
+        y = sh.from_local(y, (B, S, I), "batch", "seq", "ssm_inner")
+    out = y @ sh.gathered(params["out_proj"]).to(dt_)  # sharded: partial
     if cache is not None:
-        cache["h"].copy_(h_last)
-        cache["conv"].copy_(new_conv)
+        sh.local(cache["h"]).copy_(h_last)
+        sh.local(cache["conv"]).copy_(new_conv)
     return constrain(out, "batch", "seq", None)

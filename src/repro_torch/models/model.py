@@ -32,14 +32,28 @@ updated in place (the reference returns a new one).
 * The sharding constraints sit at the reference's sites (model.py:71, 102,
   114, 146) and, like those of the layers, do nothing without a mesh
   (``repro_torch.distributed.sharding``).
+* Under a mesh (``sharding_ctx(mesh, rules)``, parameters placed by
+  ``distribute``: ``launch/specs.py::build_lowerable`` gives both) prefill
+  and decode run sharded.  The batch is distributed by its spec, each rank
+  looks the tokens up in its rows of the vocab-split table and the ranks'
+  rows are summed (``_embed_split``), every activation is a DTensor from
+  there on, the cache holds only each rank's shards (``init_cache``), and
+  the logits come back vocab-sharded as DTensors (``sharding.full``
+  gathers them).  The
+  families outside that path (MoE, Jamba's hybrid stack, windowed layers,
+  the vision frontend and M-RoPE, the encoder-only forward, given
+  positions) and training raise ``NotImplementedError`` under a mesh of
+  several devices.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, layer_specs
 from repro_torch.device import resolve
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks
 from repro_torch.models.common import (dtype_of, masked_nll, rms_norm,
@@ -79,16 +93,83 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zeros on ``device`` (default cuda), one dict per layer: {"k", "v"} of
     (batch, max_len, Hkv, D) in ``cfg.dtype`` for attention, {"h":
     (batch, I, N) f32, "conv": (batch, W-1, I) in ``cfg.dtype``} for Mamba
-    (``cache_specs``)."""
-    dev = resolve(device)
+    (``cache_specs``).  Under a mesh of several devices each leaf is a
+    DTensor laid out by its logical axes under the active rules, of which
+    each rank allocates only its shard."""
+    mesh = sh.active_mesh()
+    return _new_cache(cfg, batch, max_len, resolve(device),
+                      mesh is not None and mesh.size() > 1)
+
+
+def _new_cache(cfg: ModelConfig, batch: int, max_len: int, dev, sharded):
+    if sharded:
+        return map_tree(lambda s: sh.zeros(s.shape, s.dtype, s.logical, dev),
+                        cache_specs(cfg, batch, max_len))
     return map_tree(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
                     cache_specs(cfg, batch, max_len))
 
 
 def unembed_matrix(params, cfg: ModelConfig):
+    """(M, V); sharded, its FSDP split gathered."""
     if cfg.tie_embeddings:
-        return params["embed"].T  # (M, V)
-    return params["unembed"]
+        return sh.gathered(params["embed"]).T  # (M, V)
+    return sh.gathered(params["unembed"])
+
+
+def _unported_under_mesh(cfg: ModelConfig, batch: dict) -> str:
+    """What of the config (or batch) does not run sharded yet ("" for
+    none)."""
+    specs = layer_specs(cfg)
+    missing = [
+        ("MoE layers (experts over the mesh)",
+         any(s.mlp == "moe" for s in specs)),
+        ("the hybrid stack of attention and Mamba layers",
+         len({s.kind for s in specs}) > 1),
+        ("windowed attention layers (their KV-sequence split)",
+         any(s.window for s in specs)),
+        ("the vision frontend and M-RoPE",
+         cfg.frontend == "vision" or cfg.rope_kind == "mrope"),
+        ("the encoder-only forward",
+         cfg.encoder_only or cfg.frontend == "audio_frames"),
+        ("given positions", "positions" in batch)]
+    return ", ".join(what for what, hit in missing if hit)
+
+
+def _mesh_check(params, cfg: ModelConfig, batch: dict,
+                training: bool = False) -> bool:
+    """Whether the entry point runs sharded: the parameters are DTensors
+    (placed by ``distribute``), under an active mesh.  Raises
+    ``NotImplementedError`` for what does not run under a mesh of several
+    devices yet."""
+    mesh = sh.active_mesh()
+    sharded = sh.is_dtensor(params["embed"])
+    if sharded and mesh is None:
+        raise ValueError("DTensor parameters need an active mesh "
+                         "(sharding_ctx(mesh, rules))")
+    n = mesh.size() if mesh is not None else 1
+    if n > 1 or sharded:
+        what = ("sharded training (FSDP over \"data\", gradients through "
+                "the collectives)" if training
+                else _unported_under_mesh(cfg, batch))
+        if what:
+            raise NotImplementedError(
+                f"{cfg.name} under a mesh of {n} devices: {what}: not "
+                f"ported yet; prefill and decode run sharded for stacks of "
+                f"attention (without a window) or Mamba layers with dense "
+                f"MLPs")
+    return sharded
+
+
+def _batch_tensor(a, dev, sharded: bool, *logical):
+    """A batch entry on ``dev``; sharded, a DTensor laid out by the logical
+    axes (one that is already a DTensor is kept)."""
+    if sh.is_dtensor(a):
+        return a
+    t = torch.as_tensor(a, device=dev)
+    if not sharded:
+        return t
+    return sh.distribute(t, sh.to_pspec(logical, shape=tuple(t.shape)),
+                         sh.active_mesh())
 
 
 def _start(params, cfg: ModelConfig, device):
@@ -102,14 +183,19 @@ def _start(params, cfg: ModelConfig, device):
     return dev
 
 
-def _embed(params, cfg: ModelConfig, batch: dict, dev):
+def _embed(params, cfg: ModelConfig, batch: dict, dev, sharded=False):
     """(B, S, M) in ``cfg.dtype``: the frames, or the token embeddings with
-    the vision embeddings over their first rows."""
+    the vision embeddings over their first rows; sharded, the gather from
+    the vocab-sharded table is split over the ranks."""
     dt = dtype_of(cfg)
     if cfg.frontend == "audio_frames":
         x = torch.as_tensor(batch["frames"], device=dev).to(dt)
         return constrain(x, "batch", "seq", None)
-    x = params["embed"][torch.as_tensor(batch["tokens"], device=dev)].to(dt)
+    tokens = _batch_tensor(batch["tokens"], dev, sharded, "batch", None)
+    if sharded:
+        x = _embed_split(tokens, sh.gathered(params["embed"])).to(dt)
+    else:
+        x = F.embedding(tokens, params["embed"]).to(dt)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         v = torch.as_tensor(batch["vision_embeds"], device=dev)
         if v.shape[1] > x.shape[1]:
@@ -119,10 +205,26 @@ def _embed(params, cfg: ModelConfig, batch: dict, dev):
     return constrain(x, "batch", "seq", None)
 
 
-def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev):
+def _embed_split(tokens, table):
+    """The embedding from a table whose rows are split over the ranks:
+    every rank looks up every token in its rows (zero where another rank
+    holds the token's row), and the sum over the ranks keeps each token's
+    one row, exactly.  Returns a DTensor replicated over the mesh."""
+    tokens = sh.local(constrain(tokens, None, None))
+    rows, r0 = sh.local(table), sh.local_offset(table, 0)
+    idx = tokens.long() - r0
+    hit = (idx >= 0) & (idx < rows.shape[0])
+    x = F.embedding(idx.clamp(0, rows.shape[0] - 1), rows) * hit[..., None]
+    x = sh.psum(x, sh.shard_axes(table, 0))
+    return sh.from_local(x, x.shape, None, None, None)
+
+
+def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev,
+          sharded=False):
     """(cos/sin of the positions, or None where the config has no rope;
     stream 0 of given positions as (B, S) int32 where it is not the row
-    index start..start+S-1, else None)."""
+    index start..start+S-1, else None).  Sharded, cos and sin are DTensors
+    split as the batch."""
     index = torch.arange(start, start + S, dtype=torch.int32, device=dev)
     mask_pos = None
     if "positions" in batch:
@@ -136,9 +238,14 @@ def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev):
             pos = pos[..., None].expand(B, S, 3)
     if cfg.rope_kind == "none":
         return None, mask_pos
-    return rope_angles(pos, cfg.head_dim, cfg.rope_theta,
+    rope = rope_angles(pos, cfg.head_dim, cfg.rope_theta,
                        cfg.mrope_sections if cfg.rope_kind == "mrope"
-                       else None), mask_pos
+                       else None)
+    if sharded:
+        rope = sh.distribute(rope, sh.to_pspec(
+            ("batch", "seq", None), shape=tuple(rope[0].shape)),
+            sh.active_mesh())
+    return rope, mask_pos
 
 
 def _logits(params, cfg: ModelConfig, x):
@@ -153,31 +260,38 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int | None = None,
     """Forward over a prompt, filling a new cache.  batch["tokens"]: (B, S),
     any S >= 1 (``batch["frames"]`` (B, S, M) for the audio frontend).
     Returns (last_logits (B, V), cache of ``max_len`` rows, default S); the
-    encoder-only forward returns no cache."""
+    encoder-only forward returns no cache.  Sharded (DTensor parameters
+    under a mesh), the logits are vocab-sharded and the cache holds each
+    rank's shards, both DTensors."""
+    sharded = _mesh_check(params, cfg, batch)
     dev = _start(params, cfg, device)
-    x = _embed(params, cfg, batch, dev)
+    x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
     max_len = max_len or S
     if S < 1 or max_len < S:
         raise ValueError(f"prefill of {S} tokens into a cache of {max_len}")
-    rope, pos = _rope(cfg, batch, B, S, 0, dev)
-    cache = None if cfg.encoder_only else init_cache(cfg, B, max_len,
-                                                     device=dev)
+    rope, pos = _rope(cfg, batch, B, S, 0, dev, sharded)
+    cache = None if cfg.encoder_only else _new_cache(cfg, B, max_len, dev,
+                                                     sharded)
     x, _ = blocks.apply_stack(cfg, params["layers"], x, rope, cache, pos=pos)
-    return _logits(params, cfg, x[:, -1:]), cache
+    # the residual's rows may be split over the ranks: gather, keep the last
+    last = constrain(x, "batch", "seq", None)[:, -1:]
+    return _logits(params, cfg, last), cache
 
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
                 device=None):
     """One incremental token.  batch["tokens"]: (B, 1).  Returns (logits
-    (B, V), cache), the cache written at ``cache_len``."""
+    (B, V), cache), the cache written at ``cache_len``; sharded, as
+    ``prefill``."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
+    sharded = _mesh_check(params, cfg, batch)
     dev = _start(params, cfg, device)
-    x = _embed(params, cfg, batch, dev)
+    x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
-    rope, pos = _rope(cfg, batch, B, S, cache_len, dev)
+    rope, pos = _rope(cfg, batch, B, S, cache_len, dev, sharded)
     kv_len = torch.full((B,), cache_len + S, dtype=torch.int32, device=dev)
     x, _ = blocks.apply_stack(cfg, params["layers"], x, rope, cache, cache_len,
                               kv_len, pos=pos)
@@ -218,6 +332,7 @@ def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     optionally "loss_mask" (B, S), "positions", "vision_embeds".  Returns
     (loss = nll + 0.01 aux, {"nll", "aux"}) as 0-dim f32 tensors; with
     ``remat`` each layer is recomputed in the backward pass."""
+    _mesh_check(params, cfg, batch, training=True)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev)
     B, S = x.shape[:2]

@@ -45,7 +45,9 @@ resolves to the stacked spec's partition minus its first entry.
 ``spec_to_meta`` turns it into tensors on the meta device (shape and dtype,
 no storage: the reference's ``spec_to_sds``), and ``constrain_like``
 applies each leaf's constraint to a tree of the same structure (a no-op
-without a mesh).
+without a mesh).  ``shard_params`` places a parameter tree on a mesh by
+those specs: each leaf a DTensor holding only the rank's shard (the
+reference's ``jax.device_put`` with the specs' ``NamedSharding``s).
 """
 from __future__ import annotations
 
@@ -58,7 +60,8 @@ import torch
 from repro_torch.configs.base import (LayerSpec, ModelConfig, layer_specs,
                                       scan_period)
 from repro_torch.device import resolve
-from repro_torch.distributed.sharding import active_mesh, constrain, to_pspec
+from repro_torch.distributed.sharding import (active_mesh, constrain,
+                                              distribute, to_pspec)
 from repro_torch.models.common import param_dtype_of
 from repro_torch.models.mamba import mamba_specs
 from repro_torch.models.moe import moe_specs
@@ -260,6 +263,14 @@ def spec_to_pspecs(tree, rules=None, mesh=None):
     """ParamSpec tree -> PartitionSpec tree."""
     return map_tree(lambda s: to_pspec(s.logical, rules=rules, mesh=mesh,
                                        shape=s.shape), tree)
+
+
+def shard_params(cfg: ModelConfig, params: dict, mesh, rules=None) -> dict:
+    """``params`` (full tensors, every rank the same) placed on ``mesh`` by
+    ``param_specs`` resolved under ``rules`` (default: the active rules):
+    each leaf a DTensor holding only the rank's shard."""
+    return distribute(params, spec_to_pspecs(param_specs(cfg), rules=rules,
+                                             mesh=mesh), mesh)
 
 
 def spec_to_meta(tree):

@@ -24,7 +24,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lags_select as lags
 from repro_torch.kernels import ssm_scan as ssm
 from repro_torch.configs.base import get_config, layer_specs, reduced
-from repro_torch.models import blocks, model
+from repro_torch.models import attention, blocks, model
 from repro_torch.models.params import init_params
 from repro_torch.sched import torch_backend as tb
 
@@ -153,6 +153,43 @@ def test_decode_attention_large_groups_and_window_views(card, dtype, B, H,
     got = dec.decode_attention(q, k, v, kv_len)
     want = dec.decode_attention_plain(q, k, v, kv_len)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# (B, H, Hkv, L): G = 1, 2, 4, 8 and 16 at D = 128 (D = 64 at G = 1), one
+# split and several; (4, 32, 8, 1032) is each rank's cache in the sharded
+# Qwen3-8B decode (2064 rows over two ranks)
+DEC_LSE_SHAPES = [(2, 8, 8, 300, 64), (2, 16, 8, 1024, 128),
+                  (4, 32, 8, 1032, 128), (4, 32, 4, 2112, 128),
+                  (4, 64, 4, 2112, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,L,D", DEC_LSE_SHAPES)
+def test_decode_attention_lse_matches_plain_and_merges(card, dtype, B, H, Hkv,
+                                                      L, D):
+    """The log-sum-exp output against the plain version's (-inf where a row
+    attends to none: kv_len 0), the output bit-equal to the launch without
+    it; and the rows split at L / 2, each half attended with kv_len shifted
+    and clamped, merge to the unsplit output."""
+    n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
+    q = n(B, H, D)
+    k = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    v = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    kv_len = torch.tensor([[L, L - 7, 0, L // 3][b % 4] for b in range(B)],
+                          dtype=torch.int32, device="cuda")
+    out, lse = dec.decode_attention(q, k, v, kv_len, with_lse=True)
+    want, want_lse = dec.decode_attention_plain(q, k, v, kv_len,
+                                                with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, dec.decode_attention(q, k, v, kv_len))
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    half = L // 2
+    parts = [dec.decode_attention(q, k[:, :, a:b], v[:, :, a:b],
+                                  (kv_len - a).clamp(0, b - a), with_lse=True)
+             for a, b in ((0, half), (half, L))]
+    merged = attention.merge_partials(*zip(*parts))
+    torch.testing.assert_close(merged, want.float(), **TOL[dtype])
 
 
 def test_decode_attention_refuses_groups_past_16(card):

@@ -1,0 +1,241 @@
+"""The decode merge over split cache rows, and what does not run sharded.
+
+* ``decode_attention_plain``'s log-sum-exp against a float64 softmax, empty
+  ranges (-inf) included; a (B, H, L) case split into 2 and 3 row ranges,
+  some of them empty for some rows, merges (``models/attention.py::
+  merge_partials``, which the sharded decode runs over the ranks) to the
+  unsplit result at ``TOL[float32]`` (tests/test_kernels.py).
+* In a gloo world of 2 processes on a (1, 2) mesh: the configs outside the
+  sharded slice (MoE, Jamba's hybrid stack, gemma3's windowed layers,
+  qwen2-vl's vision frontend, hubert's encoder) raise
+  ``NotImplementedError`` naming the config, and so does training;
+  ``constrain`` raises for a plain tensor; and the kernel wrappers refuse
+  DTensors split over a dimension the kernel does not treat independently
+  (the sequence, the cache rows), split unlike each other, or mixed with
+  plain tensors, instead of gathering them.
+"""
+import json
+import math
+import os
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.models.attention import merge_partials
+
+TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py TOL[float32]
+JOIN_S = 120
+
+
+def _inputs(seed, B, H, Hkv, L, D):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    return n(B, H, D), n(B, Hkv, L, D), n(B, Hkv, L, D)
+
+
+@pytest.mark.parametrize("B,H,Hkv,L,D,kv_len,kv_start", [
+    (2, 4, 4, 16, 8, [16, 5], None),
+    (3, 8, 2, 40, 16, [40, 0, 1], [0, 0, 0]),
+    (4, 16, 1, 33, 32, [33, 20, 7, 2], [0, 4, 7, 3]),
+])
+def test_decode_lse_equals_float64_softmax(B, H, Hkv, L, D, kv_len,
+                                           kv_start):
+    q, k, v = _inputs(0, B, H, Hkv, L, D)
+    kl = torch.tensor(kv_len, dtype=torch.int32)
+    ks = None if kv_start is None else torch.tensor(kv_start,
+                                                    dtype=torch.int32)
+    out, lse = dec.decode_attention(q, k, v, kl, kv_start=ks, with_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    G = H // Hkv
+    s = torch.einsum("bhgd,bhld->bhgl", q.double().reshape(B, Hkv, G, D),
+                     k.double()) / math.sqrt(D)
+    rows = torch.arange(L)
+    start = torch.zeros(B, dtype=torch.long) if ks is None else ks.long()
+    valid = (rows[None] < kl[:, None]) & (rows[None] >= start[:, None])
+    s = s.masked_fill(~valid[:, None, None], -math.inf)
+    want = torch.logsumexp(s, dim=-1).reshape(B, H)
+    torch.testing.assert_close(lse.double(), want, **TOL)
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    o = torch.einsum("bhgl,bhld->bhgd", p, v.double()).reshape(B, H, D)
+    torch.testing.assert_close(out.double(), o, **TOL)
+    empty = ~valid.any(-1)
+    assert torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()
+
+
+@pytest.mark.parametrize("cuts", [(0, 20, 40), (0, 7, 30, 40)],
+                         ids=["two", "three"])
+def test_split_rows_merge_to_the_unsplit_result(cuts):
+    """Rows [kv_start, kv_len) of a 40-row cache, attended in row ranges
+    whose kv_len and kv_start are shifted by the range's first row and
+    clamped, as each rank of a sequence-split cache attends: row 2 has an
+    empty range in both splits, row 1 in the three-way one."""
+    B, H, Hkv, L, D = 3, 8, 2, 40, 16
+    q, k, v = _inputs(1, B, H, Hkv, L, D)
+    kv_len = torch.tensor([40, 17, 9], dtype=torch.int32)
+    kv_start = torch.tensor([0, 5, 0], dtype=torch.int32)
+    want = dec.decode_attention(q, k, v, kv_len, kv_start=kv_start)
+    outs, lses = [], []
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        o, lse = dec.decode_attention(
+            q, k[:, :, a:b], v[:, :, a:b], (kv_len - a).clamp(0, b - a),
+            kv_start=(kv_start - a).clamp(0, b - a), with_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    assert any(torch.isneginf(x).any() for x in lses)  # an empty range
+    torch.testing.assert_close(merge_partials(outs, lses), want, **TOL)
+
+
+# --- what does not run sharded: a world of two gloo ranks -------------------
+
+OUTSIDE = {"qwen2-moe-a2.7b": "MoE", "jamba-v0.1-52b": "hybrid",
+           "gemma3-27b": "windowed", "qwen2-vl-7b": "vision",
+           "hubert-xlarge": "encoder-only"}
+
+
+def _raises(fn):
+    """The type and message of what fn raises, or None."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - recorded for the test to judge
+        return [type(e).__name__, str(e)]
+    return None
+
+
+def _rank_checks(rank, store, out_dir):
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        from torch.distributed.tensor import (Replicate, Shard,
+                                              distribute_tensor)
+
+        from repro_torch.configs.base import get_config, reduced
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssm_scan as ssm
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.models import model
+        from repro_torch.models.params import init_params, shard_params
+
+        mesh = make_local_mesh(1, 2, device="cpu")
+        res = {}
+        for name in [*OUTSIDE, "qwen3-8b"]:
+            cfg = reduced(get_config(name))
+            params = shard_params(cfg, init_params(
+                cfg, torch.Generator().manual_seed(0), device="cpu"), mesh,
+                sh.TRAIN_RULES)
+            batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
+                     "targets": torch.zeros((2, 8), dtype=torch.int32)}
+            if cfg.frontend == "audio_frames":
+                batch = {"frames": torch.zeros((2, 8, cfg.d_model))}
+            with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
+                if name != "qwen3-8b":
+                    res[f"prefill/{name}"] = _raises(lambda: model.prefill(
+                        params, cfg, batch, device="cpu"))
+                res[f"train/{name}"] = _raises(lambda: model.train_loss(
+                    params, cfg, batch, device="cpu"))
+        with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
+            res["constrain"] = _raises(lambda: sh.constrain(
+                torch.ones(4, 4), "batch", None))
+        rep, model_ax = [Replicate(), Replicate()], lambda p: [Replicate(), p]
+        d = lambda t, pl: distribute_tensor(t, mesh, pl)  # noqa: E731
+        torch.manual_seed(0)  # every rank the same full tensors
+        q = torch.randn(2, 4, 8, 16)
+        k = torch.randn(2, 2, 8, 16)
+        res["fa_seq"] = _raises(lambda: fa.flash_attention(
+            d(q, model_ax(Shard(2))), d(k, model_ax(Shard(2))),
+            d(k, model_ax(Shard(2)))))
+        res["fa_unlike"] = _raises(lambda: fa.flash_attention(
+            d(q, model_ax(Shard(1))), d(k, rep), d(k, rep)))
+        res["fa_mixed"] = _raises(lambda: fa.flash_attention(
+            d(q, model_ax(Shard(1))), k, k))
+        out = fa.flash_attention(d(q, model_ax(Shard(1))),
+                                 d(k, model_ax(Shard(1))),
+                                 d(k, model_ax(Shard(1))))
+        res["fa_heads"] = [str(out.placements), float(
+            (out.full_tensor() - fa.flash_attention_plain(q, k, k)).abs()
+            .max())]
+        kv_len = torch.tensor([8, 3], dtype=torch.int32)
+        res["dec_rows"] = _raises(lambda: dec.decode_attention(
+            d(q[:, :, 0], rep), d(k, model_ax(Shard(2))),
+            d(k, model_ax(Shard(2))), d(kv_len, rep)))
+        dA = torch.rand(2, 8, 16, 4)
+        C, h0 = torch.randn(2, 8, 4), torch.zeros(2, 16, 4)
+        res["ssm_seq"] = _raises(lambda: ssm.ssm_scan(
+            d(dA, model_ax(Shard(1))), d(dA, model_ax(Shard(1))),
+            d(C, model_ax(Shard(1))), d(h0, rep)))
+        y, h = ssm.ssm_scan(d(dA, model_ax(Shard(2))),
+                            d(dA, model_ax(Shard(2))), d(C, rep),
+                            d(h0, model_ax(Shard(1))))
+        wy, wh = ssm.ssm_scan_plain(dA, dA, C, h0)
+        res["ssm_inner"] = [str(y.placements), str(h.placements), float(
+            (y.full_tensor() - wy).abs().max()), float(
+            (h.full_tensor() - wh).abs().max())]
+        with open(os.path.join(out_dir, f"checks{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def checks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("sharded_checks")
+    ctx = mp.spawn(_rank_checks, args=(str(tmp / "store"), str(tmp)),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + JOIN_S
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the two gloo ranks did not end in {JOIN_S} s")
+    return [json.loads((tmp / f"checks{r}.json").read_text())
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("name", list(OUTSIDE))
+def test_configs_outside_the_slice_raise_under_a_mesh(checks, name):
+    for res in checks:
+        kind, msg = res[f"prefill/{name}"]
+        assert kind == "NotImplementedError"
+        assert f"{name}-reduced" in msg and OUTSIDE[name] in msg
+        assert "mesh of 2 devices" in msg
+
+
+@pytest.mark.parametrize("name", [*OUTSIDE, "qwen3-8b"])
+def test_training_raises_under_a_mesh(checks, name):
+    for res in checks:
+        kind, msg = res[f"train/{name}"]
+        assert kind == "NotImplementedError" and f"{name}-reduced" in msg
+        if name == "qwen3-8b":
+            assert "sharded training" in msg
+
+
+def test_constrain_raises_for_a_plain_tensor_on_two_ranks(checks):
+    for res in checks:
+        kind, msg = res["constrain"]
+        assert kind == "NotImplementedError" and "several devices" in msg
+
+
+@pytest.mark.parametrize("case,kind", [
+    ("fa_seq", "NotImplementedError"), ("fa_unlike", "NotImplementedError"),
+    ("fa_mixed", "ValueError"), ("dec_rows", "NotImplementedError"),
+    ("ssm_seq", "NotImplementedError")])
+def test_wrappers_refuse_placements_they_cannot_run_on_shards(checks, case,
+                                                              kind):
+    for res in checks:
+        assert res[case][0] == kind, res[case]
+
+
+def test_wrappers_run_on_head_and_channel_shards(checks):
+    for res in checks:
+        placements, err = res["fa_heads"]
+        assert placements == "(Replicate(), Shard(dim=1))" and err < 1e-6
+        y_pl, h_pl, y_err, h_err = res["ssm_inner"]
+        assert y_pl == "(Replicate(), Shard(dim=2))"
+        assert h_pl == "(Replicate(), Shard(dim=1))"
+        assert y_err < 1e-6 and h_err < 1e-6
