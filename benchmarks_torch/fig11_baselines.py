@@ -29,13 +29,13 @@ KINDS = ("resctl", "resctl-parallel", "resctl-mix")
 TORCH_POLICIES = ("cfs", "eevdf", "rr", "lags", "lags-static")
 
 
-def torch_rows(device=None) -> list:
+def torch_rows(device=None, policies=TORCH_POLICIES) -> list:
     """The ``fig11.torch.120fn-<policy>`` rows on the open-loop trace (the
     tick simulator replays recorded arrivals; closed-loop resctl load
-    generation stays numpy-only)."""
+    generation stays numpy-only), one for each of ``policies``."""
     rows = []
     static = lightest_band_fns(120, n_bands_low=3)
-    for pol in TORCH_POLICIES:
+    for pol in policies:
         t0 = time.time()
         lat, _ = run_sim_torch(
             "azure2021", 120, pol,

@@ -201,24 +201,43 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     that ``flops_model``'s MODEL_FLOPS gives at the step times of phases
     25 (stablelm-1.6b train), 9 (Qwen3-8B prefill) and 7 (Qwen3-8B decode),
     as ``mfu=``; (c) on the card, while the child runs:
-    ``benchmarks_torch.fig11_baselines``' five ``fig11.torch.*`` rows
-    equal to ``REF_FIG11``, ``benchmarks_torch.serving_lags`` at 24
+    ``benchmarks_torch.fig11_baselines``' ``fig11.torch.*`` rows of rr
+    and lags-static (phase 11 holds all seven codes) equal to
+    ``REF_FIG11``, ``benchmarks_torch.serving_lags`` at 24
     tenants equal to the reference's rows (``REF_SERVING``), and
     ``examples_torch/quickstart.py`` with its loss falling;
     ``--only-figures`` builds the kernels, runs only this phase and stops;
 30. prefill and decode sharded over a (1, 2) ("data", "model") mesh: two
     processes sharing the card over gloo (NCCL takes one rank a card),
-    the parameters placed by ``params.shard_params``, prefill under
-    ``TRAIN_RULES`` and 8 decode steps through ``build_lowerable``'s decode
-    cell: the reduced Qwen3-8B (G=2) and falcon-mamba-7b in f32, Qwen3-8B
-    (B=4, S=2048) and falcon-mamba-7b (B=4, S=1024) at full width and
-    depth in bf16, and falcon-mamba-7b at full width on 2, 4 and 8
-    layers in f32, each against the same run unsharded in this process
+    the parameters placed by their specs as they are drawn
+    (``params.init_params(..., mesh=)``), prefill under ``TRAIN_RULES``
+    and 8 decode steps through ``build_lowerable``'s decode cell: the
+    reduced Qwen3-8B (G=2) and falcon-mamba-7b in f32, Qwen3-8B (B=4,
+    S=2048) and falcon-mamba-7b (B=4, S=1024) at full width and depth in
+    bf16, and falcon-mamba-7b at full width on 2, 4 and 8 layers in f32,
+    each against the same run unsharded in this process
     (``sharded_on_card``: the checks, and why falcon-mamba-7b's logits are
     held on 4 layers in f32); ``--only-sharded`` builds the kernels,
-    checks ``decode_attention`` (phase 4's part), runs only this phase and
-    stops;
-31. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+    checks ``decode_attention`` (phase 4's part), runs only phases 30 and
+    31 and stops;
+31. the same for the MoE, hybrid, windowed, vision and encoder-only
+    families (``FAMILY_JOBS``): the reduced qwen2-moe, qwen3-moe (G=16),
+    jamba, gemma3 (a window of 4 crossing the ranks' cache rows), qwen2-vl
+    (vision rows, positions off the row index on one row) and hubert in
+    f32, each held to TOL (jamba to TOL widened by 4x the world-1 run's
+    own move under 1e-7 noise); then at full width in bf16
+    qwen2-moe-a2.7b (24 layers, B=4, S=2048), jamba-v0.1-52b and
+    qwen3-moe-235b-a22b on 8 layers (B=2, S=2048), gemma3-27b on 12 layers
+    (B=2, S=1536, decode past its window of 1024), qwen2-vl-7b (28 layers,
+    B=4, S=2048, 1024 vision rows) and hubert-xlarge (48 layers, B=4,
+    S=2048, the encoder forward); gemma3's and qwen2-vl's held at cosine
+    >= 0.99 to their world-1 run, the chaotic MoE stacks', jamba's and
+    hubert's printed and held in f32 at full width on their first layers
+    (hubert on all 48) at cosine >= 0.99 (``FAMILY_JOBS`` says why);
+    each job prints the cosine, the share of equal argmax tokens, a rank's
+    bytes against the rules, each kernel's local launch shapes, and a
+    rank's prefill and step times;
+32. the script's wall seconds, a ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16`` and with its log-sum-exp output under ``lse`` (timed in turns
@@ -3156,11 +3175,17 @@ def roofline_and_mfu(report, card):
               f"{CHIP.peak_flops:.4g} FLOP/s dense bf16 [{card}]")
 
 
+# phase 11 holds all seven Fig. 11 codes on the card; fig11_baselines'
+# torch rows repeat the same host-bound tick loop, so phase 29(c) runs two
+# of them: a plain policy and the one given static right-sizing
+FIG11_ROW_POLICIES = ("rr", "lags-static")
+
+
 def drivers_on_card(torch, ops, card):
     """Phase 29(c): the figure drivers and the quickstart on the card:
-    ``fig11_baselines``' five ``fig11.torch.*`` rows equal to
-    ``REF_FIG11``, ``serving_lags.main(densities=(24,))`` equal to
-    ``REF_SERVING`` (no kernel: below 256 tenants the engine's credit tick
+    ``fig11_baselines``' ``fig11.torch.*`` rows of ``FIG11_ROW_POLICIES``
+    equal to ``REF_FIG11``, ``serving_lags.main(densities=(24,))`` equal
+    to ``REF_SERVING`` (no kernel: below 256 tenants the engine's credit tick
     runs on the host), and ``examples_torch/quickstart.py`` with its loss
     falling.  Returns their launches."""
     import runpy
@@ -3169,10 +3194,10 @@ def drivers_on_card(torch, ops, card):
 
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rows = fig11_baselines.torch_rows()
+    rows = fig11_baselines.torch_rows(policies=FIG11_ROW_POLICIES)
     fig11_s = time.perf_counter() - t0
-    require([r[0] for r in rows] == [f"fig11.torch.120fn-{p}" for p in (
-        "cfs", "eevdf", "rr", "lags", "lags-static")], f"rows {rows}")
+    require([r[0] for r in rows] == [f"fig11.torch.120fn-{p}" for p in
+                                     FIG11_ROW_POLICIES], f"rows {rows}")
     for name, _, derived in rows:
         n, _, p50, p95, _, _ = REF_FIG11[name.split("-", 1)[1]]
         want = f"p50={p50:.3f};p95={p95:.3f};n={n}"
@@ -3273,6 +3298,51 @@ SHARDED_JOBS = (
                "cos"),
     ShardedJob("falcon-mamba-7b", False, {"n_layers": 8, **F32}, 4, 1024, 1,
                None))
+# Phase 31: the other families.  The reduced configs in f32 first, held to
+# TOL as in phase 30; jamba's, whose reduced residual reaches ~1e11, to TOL
+# widened by 4x the world-1 run's own move under 1e-7 noise on its
+# embeddings (2 draws; tests/test_torch_sharded_families.py).  A window of
+# 4 over a 20-token prompt crosses the two ranks' 18 cache rows in decode,
+# and qwen2-vl's row 1 takes positions off the row index.  Then
+# full width at phases 16-21's shapes; jamba and qwen3-moe on the 8 layers
+# of phases 17-18, gemma3 on its first 12 (global layers 5 and 11, decode
+# past its window of 1024), gemma3 and qwen2-vl held in bf16 at cosine >=
+# 0.99.  The other random stacks amplify a last-bit difference (the
+# ranks' partial sums meet in another order) from layer to layer, as
+# falcon-mamba-7b's does in phase 30: in bf16 on an H100 80GB HBM3 at 700
+# W, the MoE stacks' expert choices flip near ties (min cosine to the
+# world-1 run 0.907 for qwen2-moe-a2.7b's 24 layers, 0.269 for qwen3-moe's
+# 8) and hubert-xlarge's 48 non-causal layers reach 0.980.  So their bf16
+# logits are printed, and each is held in f32 at full width: qwen2-moe
+# and qwen3-moe on their first 4 layers, jamba on 5 (Mamba, the attention
+# layer at 4, MoE at 1 and 3), hubert at full depth.  jamba's random 8
+# layers in bf16 grow a residual whose square overflows f32 in the final
+# norm, so both runs' logits are 0; the job still runs every kernel at
+# full width on a rank's shards.
+FAMILY_JOBS = (
+    ShardedJob("qwen2-moe-a2.7b", True, {}, 2, 64, 4, "tol"),
+    ShardedJob("qwen3-moe-235b-a22b", True, {"n_heads": 16, "n_kv_heads": 1},
+               2, 64, 4, "tol"),
+    ShardedJob("jamba-v0.1-52b", True, {}, 2, 64, 4, "noise"),
+    ShardedJob("gemma3-27b", True, {"sliding_window": 4}, 2, 20, 4, "tol"),
+    ShardedJob("qwen2-vl-7b", True, {}, 2, 64, 4, "tol"),
+    ShardedJob("hubert-xlarge", True, {}, 2, 64, 0, "tol"),
+    ShardedJob("qwen2-moe-a2.7b", False, {}, 4, 2048, 8, None),
+    ShardedJob("qwen2-moe-a2.7b", False, {"n_layers": 4, **F32}, 4, 2048, 8,
+               "cos"),
+    ShardedJob("jamba-v0.1-52b", False, {"n_layers": 8}, 2, 2048, 8, None),
+    ShardedJob("jamba-v0.1-52b", False, {"n_layers": 5, **F32}, 2, 2048, 8,
+               "cos"),
+    ShardedJob("qwen3-moe-235b-a22b", False, {"n_layers": 8}, 2, 2048, 8,
+               None),
+    ShardedJob("qwen3-moe-235b-a22b", False, {"n_layers": 4, **F32}, 2, 2048,
+               8, "cos"),
+    ShardedJob("gemma3-27b", False, {"n_layers": 12}, 2, 1536, 8, "cos"),
+    ShardedJob("qwen2-vl-7b", False, {}, 4, 2048, 8, "cos"),
+    ShardedJob("hubert-xlarge", False, {}, 4, 2048, 0, None),
+    ShardedJob("hubert-xlarge", False, F32, 4, 2048, 0, "cos"))
+JOBS = {30: SHARDED_JOBS, 31: FAMILY_JOBS}
+NOISE_DRAWS = 2
 GLOO_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
                     "reduce_scatter_tensor", "broadcast", "all_to_all_single")
 
@@ -3346,34 +3416,75 @@ def gloo_cuda_collectives(torch, rank):
     return out
 
 
-def sharded_steps(torch, ops, cfg, B, S, n_decode, mesh=None):
-    """Prefill of B seeded prompts of S tokens into a cache of S + 16
-    rows, then ``n_decode`` steps fed seeded tokens; parameters from seed 0
-    on the card.  With ``mesh``: the parameters placed by
-    ``shard_params`` under ``TRAIN_RULES``, prefill under them, then the
-    decode cell of ``launch/specs.build_lowerable`` on arguments placed by
-    its ``in_shardings``, under its rules; the logits gathered.  Returns
-    the logits (f32, CPU), the ms of the prefill and of each step, the
-    launches of the main path (counted from 0 just before it), and with
-    ``mesh`` the bytes each rank holds against the rules and the local
-    shapes each kernel wrapper ran on."""
+def sharded_batches(torch, cfg, B, S, n_decode, off_index=False):
+    """The prefill batch and ``n_decode`` step batches of a sharded run,
+    seeded, on the card: B prompts of S tokens (``token_batch``) and tokens
+    from seed 9, or frames for the audio frontend; for the vision frontend
+    ``n_vision_tokens`` random embeddings and ``mrope_positions``, the step
+    at cache_len n at position n.  With ``off_index``, row 1's stream 0
+    leaves the row index: +3 from position 5 in prefill, positions 5, 6,
+    ... in decode (below the cache length, so its decode attends only the
+    first rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    if cfg.frontend == "audio_frames":
+        batch = {"frames": torch.randn(
+            B, S, cfg.d_model, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(8))}
+    else:
+        batch = token_batch(torch, cfg, B, S)
+    toks = torch.randint(0, cfg.vocab_size, (n_decode, B, 1),
+                         dtype=torch.int32, device="cuda", generator=gen)
+    steps = [{"tokens": toks[i]} for i in range(n_decode)]
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.randn(
+            B, cfg.n_vision_tokens, cfg.d_model, device="cuda", generator=gen)
+        pos = mrope_positions(torch, B, S, cfg.n_vision_tokens, "cuda")
+        if off_index:
+            pos[1, 5:, 0] += 3
+        batch["positions"] = pos
+        for i, st in enumerate(steps):
+            st["positions"] = torch.full((B, 1, 3), S + i, dtype=torch.int32,
+                                         device="cuda")
+            if off_index:
+                st["positions"][1, 0, 0] = 5 + i
+    return batch, steps
+
+
+def spec_bytes(spec_tree):
+    from repro_torch.train.tree import leaves
+
+    return sum(math.prod(s.shape) * s.dtype.itemsize
+               for s in leaves(spec_tree))
+
+
+def sharded_steps(torch, ops, cfg, B, S, n_decode, mesh=None, noise=0,
+                  off_index=False):
+    """Prefill of ``sharded_batches`` (B prompts of S positions) into a
+    cache of S + 16 rows, then ``n_decode`` steps fed seeded tokens;
+    parameters from seed 0 on the card (the encoder-only forward: prefill
+    alone, no cache).  With ``mesh``: the parameters placed by their specs
+    under ``TRAIN_RULES`` leaf by leaf as they are drawn, prefill under
+    them, then the decode cell of ``launch/specs.build_lowerable`` on
+    arguments placed by its ``in_shardings``, under its rules; the logits
+    gathered.  Returns the logits (f32, CPU), the ms of the prefill and of
+    each step, the launches of the main path (counted from 0 just before
+    it), and with ``mesh`` the bytes each rank holds against the rules and
+    the local shapes each kernel wrapper ran on.  With ``noise`` draws (no
+    mesh), also how far the logits move when the embeddings (the frames
+    for the audio frontend) move by 1e-7, relative: the run's own
+    sensitivity, for a stack whose logits amplify last-bit differences."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import specs
     from repro_torch.models import model
-    from repro_torch.models.params import (init_params, param_specs,
-                                           shard_params)
+    from repro_torch.models.params import init_params, param_specs
 
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         device="cuda")
-    out = {"full_bytes": tree_bytes(params)}
-    gen = torch.Generator(device="cuda").manual_seed(9)
-    tokens = token_batch(torch, cfg, B, S)["tokens"]
-    steps = torch.randint(0, cfg.vocab_size, (n_decode, B, 1),
-                          dtype=torch.int32, device="cuda", generator=gen)
+                         device="cuda", mesh=mesh, rules=sh.TRAIN_RULES)
+    out = {"full_bytes": spec_bytes(param_specs(cfg))}
+    batch, steps = sharded_batches(torch, cfg, B, S, n_decode, off_index)
     L = S + specs.DECODE_PAD
     if mesh is not None:
-        params = shard_params(cfg, params, mesh, sh.TRAIN_RULES)
         torch.cuda.empty_cache()
         out["param_bytes"] = [tree_bytes(params), rule_bytes(
             param_specs(cfg), mesh, sh.TRAIN_RULES)]
@@ -3385,12 +3496,12 @@ def sharded_steps(torch, ops, cfg, B, S, n_decode, mesh=None):
     def gather(t):
         return sh.full(t).float().cpu()
 
-    def prefill(n):
+    def prefill(b, p=None):
         with under(sh.TRAIN_RULES):
-            return model.prefill(params, cfg, {"tokens": tokens[:, :n]},
-                                 max_len=L, device="cuda")
+            return model.prefill(p or params, cfg, b, max_len=L,
+                                 device="cuda")
 
-    prefill(min(S, 64))  # warm-up: cuBLAS and the kernels' first launches
+    prefill(rows(batch, min(S, 64)))  # warm-up: cuBLAS, the kernels
     seen = {name: set() for name in ("flash_attention", "decode_attention",
                                      "ssm_scan")}
     originals = {name: getattr(ops, name) for name in seen}
@@ -3408,30 +3519,33 @@ def sharded_steps(torch, ops, cfg, B, S, n_decode, mesh=None):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = prefill(S)
+        logits, cache = prefill(batch)
         logits = [gather(logits)]
         out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         step_rules = sh.DECODE_RULES
-        if mesh is not None:
+        if mesh is not None and cache is not None:
             out["cache_bytes_prefill"] = [tree_bytes(cache), rule_bytes(
                 model.cache_specs(cfg, B, L), mesh, sh.TRAIN_RULES)]
             low = specs.build_lowerable(
                 cfg, ShapeConfig("decode", S, B, "decode"), mesh)
             step_rules = low.rules
-            params = sh.distribute(params, low.in_shardings[0], mesh)
-            cache = sh.distribute(cache, low.in_shardings[2], mesh)
+            # leaf by leaf: a second whole tree of qwen3-moe's 8 layers
+            # would not fit beside two ranks' first
+            params = sh.distribute(params, low.in_shardings[0], mesh,
+                                   in_place=True)
+            cache = sh.distribute(cache, low.in_shardings[2], mesh,
+                                  in_place=True)
             torch.cuda.empty_cache()
         out["decode_ms"] = []
-        for i in range(n_decode):
-            batch = {"tokens": steps[i]}
+        for i, step in enumerate(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with under(step_rules):
                 if mesh is not None:
-                    batch = sh.distribute(batch, low.in_shardings[1], mesh)
-                    lg, cache = low.fn(params, batch, cache, S + i)
+                    step = sh.distribute(step, low.in_shardings[1], mesh)
+                    lg, cache = low.fn(params, step, cache, S + i)
                 else:
-                    lg, cache = model.decode_step(params, cfg, batch, cache,
+                    lg, cache = model.decode_step(params, cfg, step, cache,
                                                   S + i, device="cuda")
             logits.append(gather(lg))
             out["decode_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -3441,20 +3555,48 @@ def sharded_steps(torch, ops, cfg, B, S, n_decode, mesh=None):
             setattr(ops, name, fn)
     if mesh is not None:
         out["param_bytes_decode"] = [tree_bytes(params), rule_bytes(
-            param_specs(cfg), mesh, sh.DECODE_RULES)]
-        out["cache_bytes_decode"] = [tree_bytes(cache), rule_bytes(
-            model.cache_specs(cfg, B, L), mesh, sh.DECODE_RULES)]
+            param_specs(cfg), mesh, sh.DECODE_RULES if steps
+            else sh.TRAIN_RULES)]
+        if cache is not None:
+            out["cache_bytes_decode"] = [tree_bytes(cache), rule_bytes(
+                model.cache_specs(cfg, B, L), mesh, sh.DECODE_RULES)]
         out["shapes"] = {k: sorted(v) for k, v in seen.items()}
     out["logits"] = logits
-    del params, cache
+    del cache
+    out["move"] = [0.0] * len(logits)
+    for seed in range(noise):
+        g = torch.Generator(device="cuda").manual_seed(100 + seed)
+        noisy, b = dict(params), dict(batch)
+        key, tree = (("frames", b) if cfg.frontend == "audio_frames"
+                     else ("embed", noisy))
+        tree[key] = tree[key] * (1 + 1e-7 * torch.randn(
+            tree[key].shape, generator=g, device="cuda"))
+        lg, c = prefill(b, noisy)
+        moved = [gather(lg)]
+        for i, step in enumerate(steps):
+            lg, c = model.decode_step(noisy, cfg, step, c, S + i,
+                                      device="cuda")
+            moved.append(gather(lg))
+        out["move"] = [max(m, float((x - y).abs().max())) for m, x, y in
+                       zip(out["move"], moved, logits, strict=True)]
+        del noisy, c
+    del params
     torch.cuda.empty_cache()
     return out
 
 
-def sharded_rank(rank, store, out_dir):
-    """One rank of phase 30: a gloo group of ``SHARDED_RANKS`` processes
-    on cuda:0, a (1, 2) ("data", "model") mesh, every job of
-    ``SHARDED_JOBS``; writes its results to out_dir/rank{rank}.pt."""
+def run_job(torch, ops, job, mesh=None):
+    """One job of ``JOBS`` in this process (mesh None: the world-1 run)."""
+    return sharded_steps(
+        torch, ops, sharded_cfg(job), job.B, job.S, job.n_decode, mesh,
+        noise=NOISE_DRAWS if job.limit == "noise" and mesh is None else 0,
+        off_index=job.reduced)
+
+
+def sharded_rank(rank, store, out_dir, phase):
+    """One rank of phase 30 or 31: a gloo group of ``SHARDED_RANKS``
+    processes on cuda:0, a (1, 2) ("data", "model") mesh, every job of
+    ``JOBS[phase]``; writes its results to out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -3467,44 +3609,74 @@ def sharded_rank(rank, store, out_dir):
 
         res = {"collectives": gloo_cuda_collectives(torch, rank)}
         mesh = make_local_mesh(1, SHARDED_RANKS)
-        for k, job in enumerate(SHARDED_JOBS):
-            res[k] = sharded_steps(torch, ops, sharded_cfg(job), job.B,
-                                   job.S, job.n_decode, mesh)
+        for k, job in enumerate(JOBS[phase]):
+            res[k] = run_job(torch, ops, job, mesh)
             dist.barrier()
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def sharded_on_card(torch, ops, card):
-    """Phase 30: prefill and decode over a (1, 2) ("data", "model") mesh,
-    each rank running the kernels on its shards.  The card has one H100
-    and NCCL refuses two ranks on one device, so the world is 2 processes
-    sharing cuda:0 over gloo, every rank's compute and kernels on the card.
-    Each job of ``SHARDED_JOBS`` runs first unsharded in this process (the
-    world-1 run: the same seeded weights and tokens), then in both ranks.
+def expected_launches(cfg, S, n_decode):
+    """{kernel: launches} of a prefill of S positions and ``n_decode``
+    decode steps, per rank."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models.mamba import CHUNK
+
+    specs = layer_specs(cfg)
+    n_attn = sum(s.kind == "attn" for s in specs)
+    return {"flash_attention": n_attn, "decode_attention": n_attn * n_decode,
+            "ssm_scan": (len(specs) - n_attn) * -(-S // CHUNK)}
+
+
+def half_shapes(cfg, B, S, n_decode):
+    """The local launch shapes of a full-width job on a rank of the (1, 2)
+    mesh: heads H/2 and KV heads Hkv/2 for flash_attention, every head over
+    L/2 cache rows with the log-sum-exp for decode_attention, inner
+    channels I/2 in chunks of 256 for ssm_scan."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models.mamba import CHUNK
+
+    kinds = {s.kind for s in layer_specs(cfg)}
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    chunk = (B, min(S, CHUNK), cfg.d_inner // 2, cfg.ssm_state)
+    return {"flash_attention": [(((B, H // 2, S, D), (B, Hkv // 2, S, D)),
+                                 False)] if "attn" in kinds else [],
+            "decode_attention": [(((B, H, D), (B, Hkv, (S + 16) // 2, D)),
+                                  True)] if "attn" in kinds and n_decode
+            else [],
+            "ssm_scan": [((chunk, chunk), False)] if "mamba" in kinds else []}
+
+
+def sharded_on_card(torch, ops, card, phase=30):
+    """Phases 30 and 31: prefill and decode over a (1, 2) ("data", "model")
+    mesh, each rank running the kernels on its shards.  The card has one
+    H100 and NCCL refuses two ranks on one device, so the world is 2
+    processes sharing cuda:0 over gloo, every rank's compute and kernels on
+    the card.  Each job of ``JOBS[phase]`` runs first unsharded in this
+    process (the world-1 run: the same seeded weights and batches; all of
+    them before the ranks start, each freed after it), then in both ranks.
     Checks: the collectives gloo moves for CUDA tensors; each rank's
     parameter and cache bytes equal to its shards' by the rules (about half
-    of the whole at full size); the kernels' local launch shapes (heads H/2
-    for flash_attention, channels I/2 for ssm_scan, cache rows L/2 with the
-    log-sum-exp for decode_attention); the gathered logits of the prefill
-    and of every decode step finite, and against the world-1 run as each
-    job's ``limit`` says (the reduced f32 configs within TOL; Qwen3-8B in
-    bf16 and falcon-mamba-7b on 4 layers in f32 at cosine >= 0.99 per
-    prompt; falcon-mamba-7b at 64 layers in bf16, and on 2 and 8 in f32,
-    printed: ``SHARDED_JOBS`` says why), with the argmax tokens side by
-    side.  Returns the launches of both ranks' main paths, summed."""
+    of the whole at full size); the launches of every kernel on the path
+    and their local shapes (``half_shapes``); the gathered logits of the
+    prefill and of every decode step finite, and against the world-1 run as
+    each job's ``limit`` says (``SHARDED_JOBS``, ``FAMILY_JOBS``), with the
+    logits' cosine and the share of equal argmax tokens printed.  Returns
+    the launches of both ranks' main paths, summed."""
     import tempfile
 
     import torch.multiprocessing as mp
     import torch.nn.functional as F
 
     t_phase = time.perf_counter()
-    world1 = [sharded_steps(torch, ops, sharded_cfg(job), job.B, job.S,
-                            job.n_decode) for job in SHARDED_JOBS]
-    torch.cuda.empty_cache()
+    jobs = JOBS[phase]
+    world1 = []
+    for job in jobs:
+        world1.append(run_job(torch, ops, job))
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
-        ctx = mp.spawn(sharded_rank, args=(f"{d}/store", d),
+        ctx = mp.spawn(sharded_rank, args=(f"{d}/store", d, phase),
                        nprocs=SHARDED_RANKS, join=False)
         deadline = time.monotonic() + SHARDED_JOIN_S
         try:
@@ -3517,13 +3689,18 @@ def sharded_on_card(torch, ops, card):
                     p.kill()
         ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(SHARDED_RANKS)]
     coll = ranks[0]["collectives"]
-    print(f"phase 30 gloo moves for CUDA tensors (2 ranks on cuda:0): "
+    print(f"phase {phase} gloo moves for CUDA tensors (2 ranks on cuda:0): "
           + ", ".join(f"{k} {v}" for k, v in coll.items()))
     for r in ranks:
         require(all(v == "ok" for v in r["collectives"].values()),
                 f"gloo collectives on CUDA tensors: {r['collectives']}")
-    total = {}
-    for k, job in enumerate(SHARDED_JOBS):
+    total, fails = {}, []
+
+    def need(cond, msg):  # every job is printed before the phase fails
+        if not cond:
+            fails.append(msg)
+
+    for k, job in enumerate(jobs):
         cfg, want = sharded_cfg(job), world1[k]
         B, S, n_decode, dtype = job.B, job.S, job.n_decode, cfg.dtype
         label = (f"{cfg.name} ({cfg.n_layers} layers, {dtype}, B={B}, S={S}, "
@@ -3531,62 +3708,47 @@ def sharded_on_card(torch, ops, card):
         for r, res in enumerate(ranks):
             got = res[k]
             add_counts(total, got["counts"])
-            for key in ("param_bytes", "cache_bytes_prefill",
-                        "param_bytes_decode", "cache_bytes_decode"):
-                require(got[key][0] == got[key][1], f"{label} rank {r}: "
+            keys = ("param_bytes", "cache_bytes_prefill",
+                    "param_bytes_decode", "cache_bytes_decode")
+            for key in keys if not cfg.encoder_only else keys[:1]:
+                need(got[key][0] == got[key][1], f"{label} rank {r}: "
                         f"{key} {got[key][0]} held, {got[key][1]} by the "
                         f"rules")
             share = got["param_bytes_decode"][0] / got["full_bytes"]
             if not job.reduced:
-                require(0.5 <= share < 0.51, f"{label} rank {r} holds "
+                need(0.5 <= share < 0.51, f"{label} rank {r} holds "
                         f"{share:.4f} of the parameters' bytes")
-            lse_rows = set(got["shapes"]["decode_attention"])
             sizes = {k: v for k, v in got["counts"].items() if v}
-            print(f"phase 30 {label} rank {r}: parameters "
+            cache = got.get("cache_bytes_decode", [0])[0]
+            print(f"phase {phase} {label} rank {r}: parameters "
                   f"{got['param_bytes'][0] / 1e9:.4f} GB of "
                   f"{got['full_bytes'] / 1e9:.4f} ({share:.4f}), cache "
-                  f"{got['cache_bytes_decode'][0] / 1e9:.4f} GB; launches "
-                  f"{sizes}; local launch shapes {got['shapes']}")
-            n_layers, n = cfg.n_layers, got["counts"]
-            launches = ({"ssm_scan": n_layers * -(-S // 256)}
-                        if cfg.family == "ssm" else
-                        {"flash_attention": n_layers,
-                         "decode_attention": n_layers * n_decode})
-            for kernel, w in launches.items():
-                require(n[kernel] == w, f"{label} rank {r}: {kernel} "
+                  f"{cache / 1e9:.4f} GB; launches {sizes}; local launch "
+                  f"shapes {got['shapes']}")
+            n = got["counts"]
+            for kernel, w in expected_launches(cfg, S, n_decode).items():
+                need(n[kernel] == w, f"{label} rank {r}: {kernel} "
                         f"launched {n[kernel]} times, want {w}")
             if not job.reduced:
-                # the local shapes of the main path's launches
-                if cfg.family == "ssm":
-                    chunk = (B, 256, cfg.d_inner // 2, cfg.ssm_state)
-                    require(got["shapes"]["ssm_scan"] == [((chunk, chunk),
-                                                           False)],
-                            f"{label} rank {r}: scan shapes "
-                            f"{got['shapes']['ssm_scan']}")
-                else:
-                    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-                    require(got["shapes"]["flash_attention"] == [(
-                        ((B, H // 2, S, D), (B, Hkv // 2, S, D)), False)],
-                        f"{label} rank {r}: flash shapes "
-                        f"{got['shapes']['flash_attention']}")
-                    require(lse_rows == {(((B, H, D),
-                                           (B, Hkv, (S + 16) // 2, D)), True)},
-                            f"{label} rank {r}: decode shapes {lse_rows}")
+                for kernel, w in half_shapes(cfg, B, S, n_decode).items():
+                    need(got["shapes"][kernel] == w, f"{label} rank {r}: "
+                            f"{kernel} shapes {got['shapes'][kernel]}, want "
+                            f"{w}")
             for i, (g, w) in enumerate(zip(got["logits"], want["logits"],
                                            strict=True)):
                 what = "prefill" if i == 0 else f"decode step {i}"
-                require(bool(torch.isfinite(g).all()), f"{label} rank {r} "
+                need(bool(torch.isfinite(g).all()), f"{label} rank {r} "
                         f"{what}: non-finite logits")
-                if job.limit is None:
-                    continue
-                if job.limit == "tol":
-                    ok, err, bad = within(g, w, TOL["float32"])
-                    require(ok, f"{label} rank {r} {what}: {bad} logits "
-                            f"outside {TOL['float32']} of the world-1 run, "
-                            f"max err {err}")
-                else:
+                if job.limit in ("tol", "noise"):
+                    tol = dict(TOL["float32"])
+                    tol["atol"] += 4 * want["move"][i]
+                    ok, err, bad = within(g, w, tol)
+                    need(ok, f"{label} rank {r} {what}: {bad} logits "
+                            f"outside {tol} of the world-1 run, max err "
+                            f"{err}")
+                elif job.limit == "cos":
                     cos = F.cosine_similarity(g, w, dim=-1)
-                    require(float(cos.min()) >= 0.99, f"{label} rank {r} "
+                    need(float(cos.min()) >= 0.99, f"{label} rank {r} "
                             f"{what}: cosine {cos.tolist()} < 0.99")
         g0, w = ranks[0][k], want
         cos = [float(F.cosine_similarity(g, x, dim=-1).min())
@@ -3595,27 +3757,36 @@ def sharded_on_card(torch, ops, card):
                   for g, x in zip(g0["logits"], w["logits"]))
         rel = max(float((g - x).norm() / x.norm())
                   for g, x in zip(g0["logits"], w["logits"]))
-        print(f"phase 30 {label}: 2 ranks vs world 1"
-              + (" (printed, not held: chaotic across its layers)"
-                 if job.limit is None else "") + ", logits min cosine "
-              f"{min(cos):.6f} (prefill {cos[0]:.6f}), max abs diff "
+        same = [float((g.argmax(-1) == x.argmax(-1)).float().mean())
+                for g, x in zip(g0["logits"], w["logits"])]
+        zero = all(not x.any() for x in w["logits"] + g0["logits"])
+        held = {None: " (printed, not held: chaotic across its layers"
+                + ("; both runs' logits all 0" if zero else "") + ")",
+                "noise": " (held to TOL + 4x the world-1 run's move under "
+                f"1e-7 noise, moves {[f'{m:.3g}' for m in w['move']]})"}
+        print(f"phase {phase} {label}: 2 ranks vs world 1"
+              + held.get(job.limit, "") + ", logits min cosine "
+              f"{min(cos):.6f} (prefill {cos[0]:.6f}), argmax tokens equal "
+              f"{sum(same) / len(same):.4f} of the rows, max abs diff "
               f"{err:.4g}, relative difference (2-norm, largest step) "
               f"{rel:.4g}; argmax tokens, 2 ranks / world 1: " + "; ".join(
                   f"{g.argmax(-1).tolist()} / {x.argmax(-1).tolist()}"
                   for g, x in zip(g0["logits"], w["logits"])))
-        dec_ms = [sorted(res[k]["decode_ms"])[n_decode // 2]
-                  for res in ranks]
-        print(f"phase 30 {label}: prefill " + ", ".join(
+        mid = lambda x: sorted(x)[len(x) // 2]  # noqa: E731
+        print(f"phase {phase} {label}: prefill " + ", ".join(
             f"rank {r} {res[k]['prefill_ms']:.1f} ms"
             for r, res in enumerate(ranks))
-            + f" (world 1 {want['prefill_ms']:.1f} ms); decode median "
-            + ", ".join(f"rank {r} {m:.1f} ms a step"
-                        for r, m in enumerate(dec_ms))
-            + f" (world 1 {sorted(want['decode_ms'])[n_decode // 2]:.1f} ms)"
+            + f" (world 1 {want['prefill_ms']:.1f} ms)" + (
+                "; decode median " + ", ".join(
+                    f"rank {r} {mid(res[k]['decode_ms']):.1f} ms a step"
+                    for r, res in enumerate(ranks))
+                + f" (world 1 {mid(want['decode_ms']):.1f} ms)"
+                if n_decode else "")
             + "; the two ranks share one card and move their collectives "
             "through gloo on the host: not a multi-card speed [" + card + "]")
-    print(f"phase 30 prefill and decode sharded over 2 ranks: "
+    print(f"phase {phase} prefill and decode sharded over 2 ranks: "
           f"{time.perf_counter() - t_phase:.1f} s wall")
+    require(not fails, f"phase {phase}: " + "; ".join(fails))
     return total
 
 
@@ -3637,9 +3808,9 @@ def main():
     parser.add_argument(
         "--only-sharded", action="store_true",
         help="build the kernels, check decode_attention (phase 4's part, "
-             "with its log-sum-exp output), run only phase 30 (prefill and "
-             "decode sharded over two ranks on the card), and stop without "
-             "the closing lines")
+             "with its log-sum-exp output), run only phases 30 and 31 "
+             "(prefill and decode sharded over two ranks on the card), and "
+             "stop without the closing lines")
     args = parser.parse_args()
     import torch
 
@@ -3733,6 +3904,7 @@ def main():
     if args.only_sharded:
         check_decode(torch, dec)  # the log-sum-exp output phase 30 merges
         sharded_on_card(torch, ops, card)
+        sharded_on_card(torch, ops, card, 31)
         return
 
     # phases 3-5: kernels against their plain versions, then times
@@ -3869,6 +4041,10 @@ def main():
 
     # phase 30: prefill and decode sharded over two ranks on the card
     add_counts(counts, sharded_on_card(torch, ops, card))
+
+    # phase 31: the MoE, hybrid, windowed, vision and encoder-only families
+    # sharded over two ranks on the card
+    add_counts(counts, sharded_on_card(torch, ops, card, 31))
 
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",

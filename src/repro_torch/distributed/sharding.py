@@ -300,14 +300,24 @@ def _place(t, spec, mesh):
                               stride=_contiguous_strides(t.shape))
 
 
-def distribute(tree, pspec_tree, mesh):
+def distribute(tree, pspec_tree, mesh, in_place=False):
     """The reference's ``jax.device_put(tree, NamedSharding tree)``: each
     tensor leaf of ``tree`` becomes a DTensor on ``mesh`` with the
     placements of its PartitionSpec, holding only the rank's shard (moved
     to the mesh's device; nothing is communicated, every rank holds the
     same full tensor).  A DTensor leaf is redistributed.  A None spec, for
     a leaf or a whole subtree, replicates; other leaves (numbers, None)
-    are returned as they are."""
+    are returned as they are.  With ``in_place``, the dicts and lists of
+    ``tree`` take the placed leaves themselves, one at a time, so that
+    each leaf's old placement is freed as its new one is made (no second
+    whole tree lives beside the first)."""
+    if in_place and isinstance(tree, (dict, list)):
+        whole = pspec_tree is None or isinstance(pspec_tree, PartitionSpec)
+        for k in list(tree.keys() if isinstance(tree, dict)
+                      else range(len(tree))):
+            tree[k] = distribute(tree[k], pspec_tree if whole
+                                 else pspec_tree[k], mesh, in_place=True)
+        return tree
     if pspec_tree is None or isinstance(pspec_tree, PartitionSpec):
         from repro_torch.train.tree import map_tree
 
@@ -330,7 +340,9 @@ def redistribute(x, target):
     ``reduce_scatter_tensor`` straight onto a split the target asks for) or
     gathered (Shard: ``all_gather_into_tensor``) over its group, the inner
     dimensions first; then each that the target splits takes the rank's
-    chunk.  Values as ``DTensor.redistribute``'s."""
+    chunk.  A mesh dimension of one rank moves nothing: its shard or its
+    sum is the whole (with gloo, a collective of a CUDA tensor would cross
+    the host even then).  Values as ``DTensor.redistribute``'s."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -342,6 +354,9 @@ def redistribute(x, target):
     t = x.to_local()
     for m in reversed(range(mesh.ndim)):
         p = cur[m]
+        if mesh.size(m) == 1:  # one rank: its shard, or its sum, is whole
+            cur[m] = target[m]
+            continue
         if p == target[m] or p.is_replicate():
             continue
         if p.is_partial():
@@ -454,14 +469,23 @@ def pmax(t, axes):
     return _all_reduce(t, axes, dist.ReduceOp.MAX)
 
 
-def from_local(t, shape, *logical):
+def from_local(t, shape, *logical, partial=()):
     """``t``, the rank's shard of a ``shape`` tensor laid out by the logical
-    axes under the active mesh and rules, as a DTensor."""
-    from torch.distributed.tensor import DTensor
+    axes under the active mesh and rules, as a DTensor.  On the mesh axes
+    named in ``partial`` it is instead a partial sum (``Partial()``): each
+    rank holds a term, which the next ``constrain`` sums over those axes
+    (``redistribute``: an all-reduce, or a reduce-scatter onto a split)."""
+    from torch.distributed.tensor import DTensor, Partial
 
     mesh = _CTX.mesh
     shape = tuple(shape)
-    pl = placements(to_pspec(logical, shape=shape), mesh)
+    pl = list(placements(to_pspec(logical, shape=shape), mesh))
+    for m, name in enumerate(mesh.mesh_dim_names):
+        if name in partial:
+            if pl[m].is_shard():
+                raise ValueError(f"mesh axis {name} both splits and sums a "
+                                 f"{shape} tensor")
+            pl[m] = Partial()
     return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
                               stride=_contiguous_strides(shape))
 

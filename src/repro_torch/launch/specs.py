@@ -17,13 +17,15 @@ The reference leaves the placement of most outputs to XLA's partitioner
 train state as its input (donated), metrics replicated, logits over
 ("batch", "vocab") and a cache as the cache's logical axes.
 
-The prefill and decode ``fn``s also run sharded, the port's counterpart of
-``jax.jit(low.fn, in_shardings=...)``: their arguments placed on a live
-mesh by ``sharding.distribute(arg, in_shardings[i], mesh)`` (parameters,
-batch and cache; ``cache_len`` a plain int) and called under
-``sharding_ctx(mesh, low.rules)``; the logits come back vocab-sharded as
-DTensors (``full_tensor()`` gathers them) and the cache as DTensors laid
-out by the rules.  The train step does not run sharded yet.
+The prefill and decode ``fn``s also run sharded, for every config, the
+port's counterpart of ``jax.jit(low.fn, in_shardings=...)``: their
+arguments placed on a live mesh by ``sharding.distribute(arg,
+in_shardings[i], mesh)`` (parameters, the batch of ``_batch_sds`` with its
+frames, vision embeddings and positions, and the cache; ``cache_len`` a
+plain int) and called under ``sharding_ctx(mesh, low.rules)``; the logits
+come back vocab-sharded as DTensors (``sharding.full`` gathers them) and
+the cache as DTensors laid out by the rules.  The train step does not run
+sharded yet.
 """
 from __future__ import annotations
 

@@ -59,12 +59,19 @@ each rank's shards:
   the cache (``_write_rows``).
 * Decode under ``DECODE_RULES``: the cache's rows are split over "model".
   The new row is written by the rank whose rows hold ``cache_len``; q is
-  gathered over "model"; each rank runs ``decode_attention`` over its own
-  rows, with kv_len shifted by its first row and clamped (a rank with no
-  valid row has log-sum-exp -inf and weight 0), and the ranks' outputs are
-  merged exactly from their log-sum-exps by all-reduces over "model" in
-  f32 (``merge_partials``).  A cache whose rows are not split (their count not
-  divisible) is split by heads, and decode then runs on heads as prefill.
+  gathered over "model"; each rank runs ``decode_attention`` over the part
+  of its own rows that the token attends to: the rows [start, end) of the
+  unsharded mask (``_decode_rows``: up to cache_len, from cache_len + 1 -
+  window in a windowed layer, and under given positions [max(0, pos -
+  window + 1), min(cache_len + 1, pos + 1))), as kv_start and kv_len
+  shifted by the rank's first row and clamped to its rows.  A rank with no
+  row of the range has log-sum-exp -inf and weight 0, and the ranks'
+  outputs are merged exactly from their log-sum-exps by all-reduces over
+  "model" in f32 (``merge_partials``).  A cache whose rows are not split
+  (their count not divisible) is split by heads, and decode then runs on
+  heads as prefill, the same range given as kv_start and kv_len.
+* Windows and given positions in prefill need nothing more: the kernel
+  takes the window, and the positions (B, S) split by batch as q is.
 """
 from __future__ import annotations
 
@@ -241,30 +248,23 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     cv = cache["v"] = constrain(cache["v"], "batch", "kv_seq", "kv_heads",
                                 None)
     if sh.is_dtensor(ck):
-        if window or pos is not None:
-            raise NotImplementedError("sharded decode of windowed layers or "
-                                      "given positions is not ported")
         if sh.shard_axes(ck, 1):
-            return _decode_split_rows(params, x, q, ck, cv, cache_len)
+            return _decode_split_rows(params, x, q, ck, cv, cache_len, cfg,
+                                      window, pos)
         q = q.permute(0, 2, 1, 3)
         k, v = _paired(q, ck.permute(0, 2, 1, 3), cv.permute(0, 2, 1, 3), cfg)
-        kv_len = sh.from_local(
-            torch.full((sh.local(q).shape[0],), cache_len + 1,
-                       dtype=torch.int32, device=sh.local(q).device),
-            (q.shape[0],), "batch")
+        ql = sh.local(q)
+        start, end = _decode_rows(_full_len(ql, cache_len), cache_len, cfg,
+                                  window, pos)
+        kv_len, kv_start = (None if t is None else sh.from_local(
+            t, (q.shape[0],), "batch") for t in (end, start))
         out = ops.decode_attention(q[:, :, 0], k.to(x.dtype), v.to(x.dtype),
-                                   kv_len)  # (B, H, D)
+                                   kv_len, kv_start=kv_start)  # (B, H, D)
         return _out(params, out[:, None], x)
-    kv_start = None
-    if pos is not None:
-        qp = pos[:, 0].to(kv_len.dtype)
-        if cfg.causal:
-            kv_len = torch.minimum(kv_len, qp + 1)
-        if window:
-            kv_start = (qp - window + 1).clamp_min(0)
-    elif window:
+    kv_start, kv_len = _decode_rows(kv_len, cache_len, cfg, window, pos)
+    if window and pos is None:  # every row's window starts at r0: a view
         r0 = max(0, cache_len + 1 - window)
-        ck, cv, kv_len = ck[:, r0:], cv[:, r0:], kv_len - r0
+        ck, cv, kv_start, kv_len = ck[:, r0:], cv[:, r0:], None, kv_len - r0
     out = ops.decode_attention(
         q[:, 0], ck.to(x.dtype).permute(0, 2, 1, 3),
         cv.to(x.dtype).permute(0, 2, 1, 3), kv_len,
@@ -272,19 +272,50 @@ def decode_attention(params: dict, x, cfg: ModelConfig, rope, cache: dict,
     return _out(params, out[:, None], x)
 
 
-def _decode_split_rows(params: dict, x, q, ck, cv, cache_len: int):
+def _full_len(q, cache_len: int):
+    """(B,) int32 = cache_len + 1 for the local (B, ...) ``q``'s rows."""
+    return torch.full((q.shape[0],), cache_len + 1, dtype=torch.int32,
+                      device=q.device)
+
+
+def _decode_rows(end, cache_len: int, cfg: ModelConfig, window, pos):
+    """(first row or None, end row), (B,) each: the cache rows [start, end)
+    the new token attends to, from ``end`` = cache_len + 1 (B,) int32: cut
+    at pos + 1 under given positions (causal), and from cache_len + 1 -
+    window, or pos + 1 - window under given positions, in a windowed layer;
+    ``pos`` is the (B, 1) stream 0 of the rows (a rank's), or None."""
+    start = None
+    if pos is not None:
+        qp = sh.local(pos)[:, 0].to(end.dtype)
+        if cfg.causal:
+            end = torch.minimum(end, qp + 1)
+        if window:
+            start = (qp - window + 1).clamp_min(0)
+    elif window:
+        start = torch.full_like(end, max(0, cache_len + 1 - window))
+    return start, end
+
+
+def _decode_split_rows(params: dict, x, q, ck, cv, cache_len: int,
+                       cfg: ModelConfig, window=None, pos=None):
     """Decode against a cache whose rows are split over the mesh axes
     ``shard_axes(ck, 1)``: q gathered over them, ``decode_attention`` over
-    each rank's rows with the log-sum-exp, the outputs merged exactly."""
+    the part of each rank's rows that the token attends to (kv_start and
+    kv_len shifted by the rank's first row and clamped to its rows: a rank
+    that holds none of them gives log-sum-exp -inf), the outputs merged
+    exactly."""
     axes = sh.shard_axes(ck, 1)
     q = constrain(q, "batch", None, None, None)  # every head on every rank
     ql, kl, vl = (sh.local(t) for t in (q, ck, cv))
     r0, n = sh.local_offset(ck, 1), kl.shape[1]
-    kv_len = torch.full((ql.shape[0],), min(max(cache_len + 1 - r0, 0), n),
-                        dtype=torch.int32, device=ql.device)
+    start, end = _decode_rows(_full_len(ql, cache_len), cache_len, cfg,
+                              window, pos)
+    kv_len = (end - r0).clamp(0, n)
+    kv_start = None if start is None else (start - r0).clamp(0, n)
     out, lse = ops.decode_attention(
         ql[:, 0], kl.to(ql.dtype).permute(0, 2, 1, 3),
-        vl.to(ql.dtype).permute(0, 2, 1, 3), kv_len, with_lse=True)
+        vl.to(ql.dtype).permute(0, 2, 1, 3), kv_len, kv_start=kv_start,
+        with_lse=True)
     out = merge_partials([out], [lse], axes).to(ql.dtype)  # (B, H, D)
     out = sh.from_local(out[:, None], q.shape, "batch", None, None, None)
     return _out(params, out, x)

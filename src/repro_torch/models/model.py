@@ -39,11 +39,12 @@ updated in place (the reference returns a new one).
   rows are summed (``_embed_split``), every activation is a DTensor from
   there on, the cache holds only each rank's shards (``init_cache``), and
   the logits come back vocab-sharded as DTensors (``sharding.full``
-  gathers them).  The
-  families outside that path (MoE, Jamba's hybrid stack, windowed layers,
-  the vision frontend and M-RoPE, the encoder-only forward, given
-  positions) and training raise ``NotImplementedError`` under a mesh of
-  several devices.
+  gathers them).  Every config runs so: the frames, the vision
+  embeddings and the positions are distributed by ("batch", None, None),
+  each rank writes the vision rows of its batch rows and builds cos and
+  sin from its rows' positions, and the MoE layers run each rank's
+  experts (``models/moe.py``).  Training raises ``NotImplementedError``
+  under a mesh of several devices.
 """
 from __future__ import annotations
 
@@ -116,47 +117,21 @@ def unembed_matrix(params, cfg: ModelConfig):
     return sh.gathered(params["unembed"])
 
 
-def _unported_under_mesh(cfg: ModelConfig, batch: dict) -> str:
-    """What of the config (or batch) does not run sharded yet ("" for
-    none)."""
-    specs = layer_specs(cfg)
-    missing = [
-        ("MoE layers (experts over the mesh)",
-         any(s.mlp == "moe" for s in specs)),
-        ("the hybrid stack of attention and Mamba layers",
-         len({s.kind for s in specs}) > 1),
-        ("windowed attention layers (their KV-sequence split)",
-         any(s.window for s in specs)),
-        ("the vision frontend and M-RoPE",
-         cfg.frontend == "vision" or cfg.rope_kind == "mrope"),
-        ("the encoder-only forward",
-         cfg.encoder_only or cfg.frontend == "audio_frames"),
-        ("given positions", "positions" in batch)]
-    return ", ".join(what for what, hit in missing if hit)
-
-
-def _mesh_check(params, cfg: ModelConfig, batch: dict,
-                training: bool = False) -> bool:
+def _mesh_check(params, cfg: ModelConfig, training: bool = False) -> bool:
     """Whether the entry point runs sharded: the parameters are DTensors
-    (placed by ``distribute``), under an active mesh.  Raises
-    ``NotImplementedError`` for what does not run under a mesh of several
-    devices yet."""
+    (placed by ``distribute``), under an active mesh.  Training raises
+    ``NotImplementedError`` under a mesh of several devices."""
     mesh = sh.active_mesh()
     sharded = sh.is_dtensor(params["embed"])
     if sharded and mesh is None:
         raise ValueError("DTensor parameters need an active mesh "
                          "(sharding_ctx(mesh, rules))")
     n = mesh.size() if mesh is not None else 1
-    if n > 1 or sharded:
-        what = ("sharded training (FSDP over \"data\", gradients through "
-                "the collectives)" if training
-                else _unported_under_mesh(cfg, batch))
-        if what:
-            raise NotImplementedError(
-                f"{cfg.name} under a mesh of {n} devices: {what}: not "
-                f"ported yet; prefill and decode run sharded for stacks of "
-                f"attention (without a window) or Mamba layers with dense "
-                f"MLPs")
+    if training and (n > 1 or sharded):
+        raise NotImplementedError(
+            f"{cfg.name} under a mesh of {n} devices: sharded training (FSDP "
+            f"over \"data\", gradients through the collectives): not ported "
+            f"yet; prefill and decode run sharded")
     return sharded
 
 
@@ -186,23 +161,28 @@ def _start(params, cfg: ModelConfig, device):
 def _embed(params, cfg: ModelConfig, batch: dict, dev, sharded=False):
     """(B, S, M) in ``cfg.dtype``: the frames, or the token embeddings with
     the vision embeddings over their first rows; sharded, the gather from
-    the vocab-sharded table is split over the ranks."""
+    the vocab-sharded table is split over the ranks, and each rank writes
+    the vision embeddings of its batch rows."""
     dt = dtype_of(cfg)
     if cfg.frontend == "audio_frames":
-        x = torch.as_tensor(batch["frames"], device=dev).to(dt)
-        return constrain(x, "batch", "seq", None)
+        x = _batch_tensor(batch["frames"], dev, sharded, "batch", None, None)
+        return constrain(x.to(dt), "batch", "seq", None)
     tokens = _batch_tensor(batch["tokens"], dev, sharded, "batch", None)
     if sharded:
         x = _embed_split(tokens, sh.gathered(params["embed"])).to(dt)
     else:
         x = F.embedding(tokens, params["embed"]).to(dt)
+    x = constrain(x, "batch", "seq", None)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
-        v = torch.as_tensor(batch["vision_embeds"], device=dev)
+        v = _batch_tensor(batch["vision_embeds"], dev, sharded, "batch", None,
+                          None)
         if v.shape[1] > x.shape[1]:
             raise ValueError(f"{v.shape[1]} vision embeddings do not fit "
                              f"{x.shape[1]} positions")
-        x[:, :v.shape[1]] = v.to(dt)
-    return constrain(x, "batch", "seq", None)
+        # x and v split their batch rows alike: each rank writes its own
+        v = sh.local(constrain(v, "batch", None, None))
+        sh.local(x)[:, :v.shape[1]] = v.to(dt)
+    return x
 
 
 def _embed_split(tokens, table):
@@ -223,15 +203,25 @@ def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev,
           sharded=False):
     """(cos/sin of the positions, or None where the config has no rope;
     stream 0 of given positions as (B, S) int32 where it is not the row
-    index start..start+S-1, else None).  Sharded, cos and sin are DTensors
-    split as the batch."""
+    index start..start+S-1, else None).  Sharded, each rank builds cos and
+    sin from the positions of its batch rows, and all of them DTensors
+    split as the batch; whether stream 0 is the row index is decided over
+    every rank's rows, so that all ranks take the same branch."""
     index = torch.arange(start, start + S, dtype=torch.int32, device=dev)
     mask_pos = None
     if "positions" in batch:
-        pos = torch.as_tensor(batch["positions"], device=dev)
+        given = batch["positions"]
+        pos = _batch_tensor(given, dev, sharded, "batch",
+                            *(None,) * (len(given.shape) - 1))
+        rows = sh.shard_axes(pos, 0)
+        pos = sh.local(pos)
         stream0 = (pos[..., 0] if pos.dim() == 3 else pos).to(torch.int32)
-        if not torch.equal(stream0, index.expand(B, S)):
+        off = torch.tensor([float(not torch.equal(
+            stream0, index.expand_as(stream0)))], device=dev)
+        if sh.pmax(off, rows)[0] > 0:  # a rank's rows are off the index
             mask_pos = stream0.contiguous()
+            if sharded:
+                mask_pos = sh.from_local(mask_pos, (B, S), "batch", None)
     else:
         pos = index.expand(B, S)
         if cfg.rope_kind == "mrope":
@@ -241,7 +231,10 @@ def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev,
     rope = rope_angles(pos, cfg.head_dim, cfg.rope_theta,
                        cfg.mrope_sections if cfg.rope_kind == "mrope"
                        else None)
-    if sharded:
+    if sharded and "positions" in batch:  # the rank's rows
+        rope = tuple(sh.from_local(t, (B, S, t.shape[-1]), "batch", "seq",
+                                   None) for t in rope)
+    elif sharded:  # every rank built the whole index's
         rope = sh.distribute(rope, sh.to_pspec(
             ("batch", "seq", None), shape=tuple(rope[0].shape)),
             sh.active_mesh())
@@ -263,7 +256,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int | None = None,
     encoder-only forward returns no cache.  Sharded (DTensor parameters
     under a mesh), the logits are vocab-sharded and the cache holds each
     rank's shards, both DTensors."""
-    sharded = _mesh_check(params, cfg, batch)
+    sharded = _mesh_check(params, cfg)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
@@ -287,7 +280,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
     ``prefill``."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
-    sharded = _mesh_check(params, cfg, batch)
+    sharded = _mesh_check(params, cfg)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
@@ -332,7 +325,7 @@ def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     optionally "loss_mask" (B, S), "positions", "vision_embeds".  Returns
     (loss = nll + 0.01 aux, {"nll", "aux"}) as 0-dim f32 tensors; with
     ``remat`` each layer is recomputed in the backward pass."""
-    _mesh_check(params, cfg, batch, training=True)
+    _mesh_check(params, cfg, training=True)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev)
     B, S = x.shape[:2]

@@ -3,8 +3,8 @@
 Port of ``repro.models.moe`` (``moe_specs``, ``_capacity``, ``moe``), in the
 reference's literal one-hot form: the dispatch and combine are the same
 einsums over the same (groups, group size, experts, capacity) tensors, so
-the port keeps exactly the reference's (token, k) pairs, with its sharding
-constraints at the same sites (moe.py:60, 93-106; no-ops without a mesh).
+the port keeps exactly the reference's (token, k) pairs.  One body serves
+plain tensors and DTensors: a plain tensor is the one-rank case.
 
 * Groups: the B * S tokens are flattened and cut into groups of
   ``min(group_size, S)`` (1 at decode), so a group may span two batch rows.
@@ -21,6 +21,11 @@ constraints at the same sites (moe.py:60, 93-106; no-ops without a mesh).
   slot < C and its gate weight > 0.
 * Experts: SwiGLU in x's dtype over (E, groups, C, M); the shared expert is
   the dense ``mlp`` over the same input, added after the combine.
+* Under a mesh (DTensor activations) each rank routes its batch rows'
+  groups and runs the experts its shards of ``w_gate``, ``w_up`` and
+  ``w_down`` hold; the partial sums over experts and FFN width meet in the
+  output's constraint.  The expert all-to-all
+  (``distributed/ep_a2a.py``) is not wired, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models.mlp import mlp as dense_mlp
 
@@ -68,17 +74,28 @@ def route(params: dict, x, cfg: ModelConfig, group_size: int = 256):
     f32 renormalised, ``ids`` (gr, gs, K) int64, ``pos_k`` (gr, gs, K) each
     pair's slot in its expert, ``keep`` (gr, gs, K) f32 and C."""
     B, S, M = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    gs = _group(B, S, group_size)
+    xg = constrain(x.reshape((B * S) // gs, gs, M), "batch", None, None)
+    return (xg, *_route_groups(xg, params["w_router"], cfg))
+
+
+def _group(B: int, S: int, group_size: int) -> int:
+    """The tokens a group: ``min(group_size, S)``, one at decode."""
     gs = 1 if S == 1 else min(group_size, S)  # decode: one token a group
     if (B * S) % gs:
         raise ValueError(f"B*S = {B * S} tokens do not fill groups of {gs}")
-    gr = (B * S) // gs
-    C = _capacity(gs, K, E)
-    xg = constrain(x.reshape(gr, gs, M), "batch", None, None)
+    return gs
 
+
+def _route_groups(xg, w_router, cfg: ModelConfig):
+    """``route`` on the groups xg (gr, gs, M) of one tensor: (probs, gate_w,
+    ids, pos_k, keep, C)."""
+    gr, gs, _ = xg.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _capacity(gs, K, E)
     # bf16 operands, f32 product: the operands are rounded as the
     # reference rounds them, the product is not
-    logits = xg.float() @ params["w_router"].to(x.dtype).float()
+    logits = xg.float() @ w_router.to(xg.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_w, ids = srt[..., :K], order[..., :K]
@@ -90,40 +107,81 @@ def route(params: dict, x, cfg: ModelConfig, group_size: int = 256):
     pos_k = torch.gather(pos, 2, ids.reshape(gr, gs * K, 1))[..., 0]
     pos_k = pos_k.reshape(gr, gs, K)
     keep = (pos_k < C).float() * (gate_w > 0).float()
-    return xg, probs, gate_w, ids, pos_k, keep, C
+    return probs, gate_w, ids, pos_k, keep, C
+
+
+def _combine(gate_w, ids, pos_k, keep, C: int, E: int, dt, experts: range):
+    """The combine tensor (gr, gs, len(experts), C) of the experts in the
+    range: sum_k gate_w_k * onehot(e_k) x onehot(c_k), the weight rounded
+    to ``dt``."""
+    eh = F.one_hot(ids, E)[..., experts.start:experts.stop]
+    ch = F.one_hot(pos_k.clamp(0, C - 1), C).to(dt)
+    return torch.einsum("gske,gskc->gsec",
+                        eh.to(dt) * (gate_w * keep).to(dt)[..., None], ch)
+
+
+def _experts(dispatch, combine, xg, w_gate, w_up, w_down):
+    """SwiGLU over the dispatched tokens of the experts whose weights are
+    given, combined: (gr, gs, M)."""
+    dt = xg.dtype
+    expert_in = torch.einsum("gsec,gsm->egcm", dispatch, xg)
+    g = torch.einsum("egcm,emf->egcf", expert_in, w_gate.to(dt))
+    u = torch.einsum("egcm,emf->egcf", expert_in, w_up.to(dt))
+    h = F.silu(g) * u
+    eo = torch.einsum("egcf,efm->egcm", h, w_down.to(dt))
+    return torch.einsum("gsec,egcm->gsm", combine, eo)
 
 
 def moe(params: dict, x, cfg: ModelConfig, group_size: int = 256):
-    """x: (B, S, M) -> (y (B, S, M) in x's dtype, aux f32 scalar)."""
+    """x: (B, S, M) -> (y (B, S, M) in x's dtype, aux f32 scalar).
+
+    On DTensors every rank routes the tokens of its batch rows (gathered
+    over the sequence) and runs its own experts on them; on a plain tensor
+    the one "rank" holds every row and every expert.  The tokens are also
+    gathered over the batch axes that split the expert weights' FFN width
+    (``DECODE_RULES`` puts ``expert_mlp`` on "data", where the batch lies
+    too), so that a width split is a partial sum over the same tokens and
+    never mixes rows of different ranks; and over every batch axis where a
+    group of ``min(group_size, S)`` tokens would cross the ranks' rows.  So
+    each rank takes the reference's groups, (token, k) pairs, slots and
+    drops for its rows.  Its combined output is a partial sum over the axes
+    that split the experts and the FFN width, reduced onto the residual's
+    layout by its constraint; the shared expert is the dense MLP."""
     B, S, M = x.shape
     E = cfg.n_experts
     dt = x.dtype
-    xg, probs, gate_w, ids, pos_k, keep, C = route(params, x, cfg, group_size)
-    # the Switch aux loss: E * sum_e(mean prob_e * top-1 share_e)
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(me * ce)
+    w = {n: sh.gathered(params[n]) for n in ("w_gate", "w_up", "w_down")}
+    router = sh.full(params["w_router"])
+    split = set(sh.shard_axes(w["w_gate"], 0) + sh.shard_axes(w["w_gate"], 2))
+    xr = constrain(x, "batch", None, None)  # every row's whole sequence
+    rows = sh.shard_axes(xr, 0)
+    gs = _group(B, S, group_size)
+    if rows and (split & set(rows) or sh.local(xr).shape[0] * S % gs):
+        xr = constrain(xr, None, None, None)
+        rows = ()
+    xl = sh.local(xr)
+    xg = xl.reshape(xl.shape[0] * S // gs, gs, M)
+    probs, gate_w, ids, pos_k, keep, C = _route_groups(xg, router, cfg)
 
-    # combine (gr, gs, E, C): sum_k gate_w_k * onehot(e_k) x onehot(c_k),
-    # the weight rounded to x's dtype; dispatch is where combine > 0
-    eh = F.one_hot(ids, E).to(dt)
-    ch = F.one_hot(pos_k.clamp(0, C - 1), C).to(dt)
-    combine = torch.einsum("gske,gskc->gsec",
-                           eh * (gate_w * keep).to(dt)[..., None], ch)
-    dispatch = (combine > 0).to(dt)
-    combine = constrain(combine, "batch", None, "experts", None)
-    dispatch = constrain(dispatch, "batch", None, "experts", None)
+    # the Switch aux loss, E * sum_e(mean prob_e * top-1 share_e), over
+    # every rank's groups
+    n = torch.tensor(float(xg.shape[0] * gs), device=xl.device)
+    tot = torch.cat([probs.sum(dim=(0, 1)),
+                     F.one_hot(ids[..., 0], E).float().sum(dim=(0, 1)), n[None]])
+    tot = sh.psum(tot, rows)
+    aux = E * torch.sum((tot[:E] / tot[-1]) * (tot[E:2 * E] / tot[-1]))
 
-    expert_in = torch.einsum("gsec,gsm->egcm", dispatch, xg)
-    expert_in = constrain(expert_in, "experts", "batch", None, None)
-    g = torch.einsum("egcm,emf->egcf", expert_in, params["w_gate"].to(dt))
-    u = torch.einsum("egcm,emf->egcf", expert_in, params["w_up"].to(dt))
-    h = F.silu(g) * u
-    eo = torch.einsum("egcf,efm->egcm", h, params["w_down"].to(dt))
-    eo = constrain(eo, "experts", "batch", None, None)
-    y = torch.einsum("gsec,egcm->gsm", combine, eo)
-    y = constrain(y.reshape(B, S, M), "batch", "seq_sp", None)
-
+    # dispatch is where combine > 0
+    wl = {k: sh.local(v) for k, v in w.items()}
+    e0 = sh.local_offset(w["w_gate"], 0)
+    combine = _combine(gate_w, ids, pos_k, keep, C, E, dt,
+                       range(e0, e0 + wl["w_gate"].shape[0]))
+    y = _experts((combine > 0).to(dt), combine, xg, wl["w_gate"],
+                 wl["w_up"], wl["w_down"]).reshape(xl.shape)
+    if sh.is_dtensor(x):
+        y = sh.from_local(y, (B, S, M), "batch" if rows else None, None,
+                          None, partial=split)
+    y = constrain(y, "batch", "seq_sp", None)
     if "shared" in params:
         y = y + dense_mlp(params["shared"], x)
     return y, aux

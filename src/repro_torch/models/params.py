@@ -138,27 +138,45 @@ def _draw(shape, init, dtype, fan_in, gen, dev):
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, mesh=None, rules=None) -> dict:
     """Random parameters on ``device`` (default cuda), drawn from
-    ``generator`` (a ``torch.Generator`` on that device)."""
+    ``generator`` (a ``torch.Generator`` on that device).  With ``mesh``,
+    each leaf is placed on it by its spec under ``rules`` as soon as it is
+    drawn (``shard_params`` of the same tree, every rank drawing the same
+    values), so that no more than one whole leaf lives at a time."""
     dev = resolve(device)
     pd = param_dtype_of(cfg)
     M, V = cfg.d_model, cfg.vocab_size
+    specs = param_specs(cfg)
+
+    def place(t, spec):
+        if mesh is None:
+            return t
+        return distribute(t, to_pspec(spec.logical, rules=rules, mesh=mesh,
+                                      shape=spec.shape), mesh)
+
     # the reference stacks n_rep = n_layers // P layers per period position;
     # its fan_in for those is n_rep, for the remainder layers shape[0]
     n_rep = cfg.n_layers // scan_period(cfg)
     n_stacked = n_rep * scan_period(cfg)
-    params = {"embed": _draw((V, M), "embed", pd, 0, generator, dev),
+    params = {"embed": place(_draw((V, M), "embed", pd, 0, generator, dev),
+                             specs["embed"]),
               "layers": []}
     for i, spec in enumerate(layer_specs(cfg)):
         layer: dict = {}
         for path, (shape, init, dt, _) in _layer_shapes(cfg, spec).items():
             fan_in = n_rep if i < n_stacked else shape[0]
-            _set(layer, path, _draw(shape, init, dt, fan_in, generator, dev))
+            leaf_spec = specs["layers"][i]
+            for key in path:
+                leaf_spec = leaf_spec[key]
+            _set(layer, path, place(_draw(shape, init, dt, fan_in, generator,
+                                          dev), leaf_spec))
         params["layers"].append(layer)
-    params["final_norm"] = torch.ones((M,), dtype=torch.float32, device=dev)
+    params["final_norm"] = place(torch.ones((M,), dtype=torch.float32,
+                                            device=dev), specs["final_norm"])
     if not cfg.tie_embeddings:
-        params["unembed"] = _draw((M, V), "dense", pd, M, generator, dev)
+        params["unembed"] = place(_draw((M, V), "dense", pd, M, generator,
+                                        dev), specs["unembed"])
     return params
 
 

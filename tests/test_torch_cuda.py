@@ -192,6 +192,81 @@ def test_decode_attention_lse_matches_plain_and_merges(card, dtype, B, H, Hkv,
     torch.testing.assert_close(merged, want.float(), **TOL[dtype])
 
 
+# (kv_start, kv_len) rows of each batch row: whole ranges, a window in the
+# middle, ranges that start at or past kv_len (empty), kv_len 0
+DEC_RANGES = [(0, "L"), (5, "L-7"), ("L-3", "L-3"), ("L//2", "L//3"),
+              (0, 0), (1, "L//3")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,L,D", DEC_LSE_SHAPES)
+def test_decode_attention_kv_start_with_lse_matches_plain(card, dtype, B, H,
+                                                         Hkv, L, D):
+    """kv_start and the log-sum-exp together, as each rank of a windowed
+    or positioned sharded decode runs them: output and log-sum-exp against
+    the plain version, an empty range (kv_start >= kv_len, or kv_len 0)
+    giving output 0 and log-sum-exp -inf; the output bit-equal to the
+    launch without the log-sum-exp."""
+    n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
+    q = n(B, H, D)
+    k = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    v = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    rows = [DEC_RANGES[(b + len(DEC_RANGES) - B % 3) % len(DEC_RANGES)]
+            for b in range(B)]
+    ev = lambda e: e if isinstance(e, int) else eval(e, {"L": L})  # noqa: E731
+    kv_start = torch.tensor([ev(a) for a, _ in rows], dtype=torch.int32,
+                            device="cuda")
+    kv_len = torch.tensor([ev(b) for _, b in rows], dtype=torch.int32,
+                          device="cuda")
+    out, lse = dec.decode_attention(q, k, v, kv_len, kv_start=kv_start,
+                                    with_lse=True)
+    want, want_lse = dec.decode_attention_plain(q, k, v, kv_len,
+                                                kv_start=kv_start,
+                                                with_lse=True)
+    assert torch.equal(out, dec.decode_attention(q, k, v, kv_len,
+                                                 kv_start=kv_start))
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    torch.testing.assert_close(out.float(), want.float(), **TOL[dtype])
+    empty = kv_start >= kv_len
+    assert bool(empty.any())
+    assert torch.isneginf(lse[empty]).all() and (out[empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ranks", [2, 3])
+@pytest.mark.parametrize("window", [4, 700])
+def test_merge_partials_of_windowed_row_splits(card, dtype, ranks, window):
+    """A windowed decode over a cache whose 2112 rows are split into 2 or
+    3 ranks' rows, each attending to its part of the window (kv_start and
+    kv_len shifted by its first row and clamped), merged by
+    ``merge_partials``: equal to the unsplit windowed result; at window 4
+    most ranks hold none of the window."""
+    B, H, Hkv, L, D = 4, 32, 8, 2112, 128
+    n = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)  # noqa: E731
+    q = n(B, H, D)
+    k = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    v = n(B, L, Hkv, D).permute(0, 2, 1, 3)
+    cache_len = torch.tensor([2100, 1500, 703, 2], dtype=torch.int32,
+                             device="cuda")
+    end = cache_len + 1
+    start = (end - window).clamp_min(0)
+    want = dec.decode_attention(q, k, v, end, kv_start=start)
+    outs, lses = [], []
+    n_rows = L // ranks
+    for r in range(ranks):
+        r0 = r * n_rows
+        o, lse = dec.decode_attention(
+            q, k[:, :, r0:r0 + n_rows], v[:, :, r0:r0 + n_rows],
+            (end - r0).clamp(0, n_rows),
+            kv_start=(start - r0).clamp(0, n_rows), with_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    if window == 4:  # a rank that holds none of a row's window
+        assert any(bool(torch.isneginf(x).any()) for x in lses)
+    merged = attention.merge_partials(outs, lses)
+    torch.testing.assert_close(merged, want.float(), **TOL[dtype])
+
+
 def test_decode_attention_refuses_groups_past_16(card):
     q = torch.zeros(1, 34, 64, device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros(1, 2, 32, 64, device="cuda", dtype=torch.bfloat16)
@@ -944,6 +1019,29 @@ def nccl_mesh():
     assert dist.get_backend() == "nccl"
     yield m
     dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("S", [77, 2048])
+def test_flash_attention_noncausal_d80_on_head_shards(nccl_mesh, S):
+    """hubert's attention (non-causal, D = 80, bf16: ``fa_mma``) on DTensors
+    split by heads over the world-1 mesh's "model" axis: the kernel runs on
+    the rank's shard, its output is that shard of the plain result."""
+    from repro_torch.distributed import sharding as sh
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(2, 16, S, 80, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    spec = sh.PartitionSpec(None, "model", None, None)
+    dq, dk, dv = (sh.distribute(t, spec, nccl_mesh) for t in (q, k, v))
+    pl = sh.placements(spec, nccl_mesh)
+    before = fa.launches
+    out = fa.flash_attention(dq, dk, dv, causal=False)
+    assert fa.launches == before + 1 and fa.route(torch.bfloat16, 80) == \
+        "fa_mma"
+    assert tuple(out.placements) == tuple(pl)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out.to_local().float(), want.float(),
+                               **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("shape", [(2048,), (2048, 5632), (1000, 37)])

@@ -1,18 +1,27 @@
-"""The decode merge over split cache rows, and what does not run sharded.
+"""The decode merge over split cache rows, sharded MoE groups, and what
+does not run sharded.
 
 * ``decode_attention_plain``'s log-sum-exp against a float64 softmax, empty
   ranges (-inf) included; a (B, H, L) case split into 2 and 3 row ranges,
   some of them empty for some rows, merges (``models/attention.py::
   merge_partials``, which the sharded decode runs over the ranks) to the
   unsplit result at ``TOL[float32]`` (tests/test_kernels.py).
-* In a gloo world of 2 processes on a (1, 2) mesh: the configs outside the
-  sharded slice (MoE, Jamba's hybrid stack, gemma3's windowed layers,
-  qwen2-vl's vision frontend, hubert's encoder) raise
-  ``NotImplementedError`` naming the config, and so does training;
+* In a gloo world of 2 processes on a (1, 2) mesh: training raises
+  ``NotImplementedError`` naming the config, for every family;
+  ``init_params(..., mesh=)``, which places each leaf as it is drawn,
+  equals ``shard_params`` of the whole draw;
   ``constrain`` raises for a plain tensor; and the kernel wrappers refuse
   DTensors split over a dimension the kernel does not treat independently
   (the sequence, the cache rows), split unlike each other, or mixed with
   plain tensors, instead of gathering them.
+* In the same world on a (2, 1) mesh, each rank holding one batch row: the
+  reduced qwen2-moe's MoE layer with groups of 4 tokens over prompts of 6,
+  so that the middle group crosses the two ranks' rows, and a decode
+  token under ``DECODE_RULES``, whose FFN width lies on "data" with the
+  batch: sharded ``moe`` equals the unsharded one (which
+  tests/test_torch_moe.py holds to the reference, groups spanning rows
+  included), output and aux loss; and none of its collectives runs over
+  the one-rank "model" axis.
 """
 import json
 import math
@@ -93,9 +102,11 @@ def test_split_rows_merge_to_the_unsplit_result(cuts):
 
 # --- what does not run sharded: a world of two gloo ranks -------------------
 
-OUTSIDE = {"qwen2-moe-a2.7b": "MoE", "jamba-v0.1-52b": "hybrid",
-           "gemma3-27b": "windowed", "qwen2-vl-7b": "vision",
-           "hubert-xlarge": "encoder-only"}
+# a config of each family beside qwen3-8b's dense stack: MoE, Jamba's
+# hybrid stack, gemma3's windowed layers, qwen2-vl's vision frontend,
+# hubert's encoder
+OUTSIDE = ("qwen2-moe-a2.7b", "jamba-v0.1-52b", "gemma3-27b", "qwen2-vl-7b",
+           "hubert-xlarge")
 
 
 def _raises(fn):
@@ -105,6 +116,44 @@ def _raises(fn):
     except Exception as e:  # noqa: BLE001 - recorded for the test to judge
         return [type(e).__name__, str(e)]
     return None
+
+
+def _moe_groups_across_ranks():
+    """{case: [max |y - unsharded y|, max |unsharded y|, |aux - unsharded
+    aux|]} of the reduced
+    qwen2-moe's first MoE layer on a (2, 1) mesh: prefill under
+    TRAIN_RULES with groups of 4 over (2, 6) tokens, and decode under
+    DECODE_RULES."""
+    from repro_torch.configs.base import get_config, reduced
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import (init_params, param_specs,
+                                           spec_to_pspecs)
+
+    mesh = make_local_mesh(2, 1, device="cpu")
+    cfg = reduced(get_config("qwen2-moe-a2.7b"))
+    layer = next(i for i, p in enumerate(param_specs(cfg)["layers"])
+                 if "moe" in p)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")["layers"][layer]["moe"]
+    gen = torch.Generator().manual_seed(1)
+    out = {}
+    for case, rules, S, gs in (("prefill", sh.TRAIN_RULES, 6, 4),
+                               ("decode", sh.DECODE_RULES, 1, 256)):
+        x = torch.randn(2, S, cfg.d_model, generator=gen)
+        want, want_aux = moe.moe(params, x, cfg, group_size=gs)
+        with sh.sharding_ctx(mesh, rules):
+            p = sh.distribute(params, spec_to_pspecs(
+                param_specs(cfg)["layers"][layer]["moe"], rules=rules,
+                mesh=mesh), mesh)
+            xd = sh.distribute(x, sh.to_pspec(("batch", "seq_sp", None),
+                                              shape=tuple(x.shape)), mesh)
+            y, aux = moe.moe(p, xd, cfg, group_size=gs)
+            y = sh.full(y)
+        out[case] = [float((y - want).abs().max()),
+                     float(want.abs().max()), float(abs(aux - want_aux))]
+    return out
 
 
 def _rank_checks(rank, store, out_dir):
@@ -134,11 +183,40 @@ def _rank_checks(rank, store, out_dir):
             if cfg.frontend == "audio_frames":
                 batch = {"frames": torch.zeros((2, 8, cfg.d_model))}
             with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
-                if name != "qwen3-8b":
-                    res[f"prefill/{name}"] = _raises(lambda: model.prefill(
-                        params, cfg, batch, device="cpu"))
                 res[f"train/{name}"] = _raises(lambda: model.train_loss(
                     params, cfg, batch, device="cpu"))
+        from repro_torch.train.tree import leaves
+
+        cfg = reduced(get_config("jamba-v0.1-52b"))
+        drawn = init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu", mesh=mesh, rules=sh.TRAIN_RULES)
+        placed = shard_params(cfg, init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"), mesh,
+            sh.TRAIN_RULES)
+        res["init_on_mesh"] = [
+            [str(a.placements), str(b.placements),
+             bool(torch.equal(a.to_local(), b.to_local()))]
+            for a, b in zip(leaves(drawn), leaves(placed), strict=True)]
+        # the collectives the MoE check issues on its (2, 1) mesh, by the
+        # size of their group: none may run over the one-rank "model" axis
+        sizes = []
+        originals = {n: getattr(dist, n) for n in (
+            "all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor")}
+
+        def counted(fn):
+            def call(*a, **kw):
+                sizes.append(dist.get_world_size(kw.get("group")))
+                return fn(*a, **kw)
+            return call
+
+        for n, fn in originals.items():
+            setattr(dist, n, counted(fn))
+        try:
+            res["moe"] = _moe_groups_across_ranks()
+        finally:
+            for n, fn in originals.items():
+                setattr(dist, n, fn)
+        res["group_sizes"] = sizes
         with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
             res["constrain"] = _raises(lambda: sh.constrain(
                 torch.ones(4, 4), "batch", None))
@@ -197,13 +275,30 @@ def checks(tmp_path_factory):
             for r in range(2)]
 
 
-@pytest.mark.parametrize("name", list(OUTSIDE))
-def test_configs_outside_the_slice_raise_under_a_mesh(checks, name):
+@pytest.mark.parametrize("case", ["prefill", "decode"])
+def test_sharded_moe_equals_unsharded_with_groups_across_ranks(checks, case):
     for res in checks:
-        kind, msg = res[f"prefill/{name}"]
-        assert kind == "NotImplementedError"
-        assert f"{name}-reduced" in msg and OUTSIDE[name] in msg
-        assert "mesh of 2 devices" in msg
+        # the width's partial sums add in another order: a few ulps
+        y_err, scale, aux_err = res["moe"][case]
+        assert y_err <= 1e-6 * scale and aux_err <= 1e-6, res["moe"]
+
+
+def test_init_params_on_a_mesh_equals_shard_params(checks):
+    """Drawing each leaf and placing it at once gives ``shard_params`` of
+    the whole draw: the same placements, and the same values on each rank
+    (the reduced jamba: attention, Mamba, MoE and dense leaves)."""
+    for res in checks:
+        assert len(res["init_on_mesh"]) > 100
+        assert any("Shard" in a for a, _, _ in res["init_on_mesh"])
+        for a, b, same in res["init_on_mesh"]:
+            assert a == b and same
+
+
+def test_no_collective_runs_over_a_one_rank_axis(checks):
+    """``redistribute`` moves nothing over a mesh axis of one rank (with
+    gloo a collective of a CUDA tensor crosses the host even there)."""
+    for res in checks:
+        assert res["group_sizes"] and set(res["group_sizes"]) == {2}
 
 
 @pytest.mark.parametrize("name", [*OUTSIDE, "qwen3-8b"])

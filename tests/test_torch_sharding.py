@@ -330,6 +330,29 @@ def test_constrain_redistributes_a_dtensor(mesh):
     assert d.placements == (Replicate(), Replicate())
 
 
+def test_distribute_in_place_equals_a_new_tree(mesh):
+    """``distribute(..., in_place=True)`` fills the caller's dicts and
+    lists with the placed leaves, which equal ``distribute``'s new tree
+    (the reduced jamba: attention, Mamba, MoE and dense leaves, placed by
+    DECODE_RULES after TRAIN_RULES, as decode re-places them)."""
+    from torch.distributed.tensor import DTensor
+
+    cfg = reduced(get_config("jamba-v0.1-52b"))
+    specs = params_lib.param_specs(cfg)
+    train, decode = (params_lib.spec_to_pspecs(specs, rules=r, mesh=mesh)
+                     for r in (sh.TRAIN_RULES, sh.DECODE_RULES))
+    tree = sh.distribute(init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu"), train, mesh)
+    layers = tree["layers"]
+    want = sh.distribute(tree, decode, mesh)
+    got = sh.distribute(tree, decode, mesh, in_place=True)
+    assert got is tree and got["layers"] is layers
+    for (path, g), (_, w) in zip(flatten_with_path(got),
+                                 flatten_with_path(want), strict=True):
+        assert isinstance(g, DTensor) and g.placements == w.placements, path
+        assert torch.equal(g.to_local(), w.to_local()), path
+
+
 def test_train_step_under_the_mesh_equals_the_step_without(mesh):
     cfg = reduced(get_config("qwen3-8b"), n_layers=2)
     batch = TokenStream(cfg, 2, 16, DataConfig()).batch_at(0)

@@ -1,25 +1,34 @@
 """Shared by tests/test_torch_sharded_*.py: the reference's sharded prefill
 and decode in a JAX subprocess, and the port's in gloo worlds.
 
-``reference(tmp, name, overrides, meshes)`` runs one JAX subprocess
-(``XLA_FLAGS=--xla_force_host_platform_device_count=4``) that initialises
-the reduced config's parameters, then on each ("data", "model") mesh of
-its host devices runs ``jax.jit(model.prefill, in_shardings=...)`` under
-``TRAIN_RULES`` (max_len = S + ``DECODE_PAD``) and two ``decode_step``s
-through ``launch/specs.py::build_lowerable``'s decode cell under
-``DECODE_RULES``, the cache placed by its ``cache_specs``.  It writes the
-parameters, the tokens, and each mesh's logits and cache (gathered) to
+``reference(tmp, name, overrides, meshes, prompt, noise)`` runs one JAX
+subprocess (``XLA_FLAGS=--xla_force_host_platform_device_count=4``) that
+initialises the reduced config's parameters and draws the batch that
+``launch/specs.py::_batch_sds`` describes: tokens, or frames for the audio
+frontend; for the vision frontend also vision embeddings over the first
+rows and three position streams, row 1's stream 0 off the row index (in
+prefill from position 5 on, in decode below the cache length).  Then on
+each ("data", "model") mesh of its host devices it runs ``jax.jit(
+model.prefill, in_shardings=...)`` under ``TRAIN_RULES`` (max_len = S +
+``DECODE_PAD``, the batch placed by ``_batch_sds``' specs) and two
+``decode_step``s through ``build_lowerable``'s decode cell under
+``DECODE_RULES``, the cache placed by its ``cache_specs`` (the
+encoder-only forward has neither cache nor decode).  With ``noise`` it
+also measures how far its own unsharded outputs move when its embeddings
+move by 1e-7 (relative), the tolerance of a chaotic stack.  It writes the
+parameters, the batches, and each mesh's logits and cache (gathered) to
 ``.npz`` files.
 
 ``world(tmp, name, overrides, shape)`` runs the port's same steps in a gloo
 world of data x model processes (``torch.multiprocessing.spawn``, a
-``FileStore``): parameters placed by ``params.shard_params``, prefill under
-``sharding_ctx(mesh, TRAIN_RULES)``, then the decode cell's ``fn`` on
-arguments placed by its ``in_shardings`` under its rules.  Each rank
-records its local parameter and cache bytes beside those its shards should
-hold by the rules, and the local shapes its kernel wrappers ran on; rank 0
-writes the gathered logits and caches.  DTensor's own collectives are
-refused in the ranks (``forbid_dtensor_collectives``).
+``FileStore``): parameters placed by ``params.shard_params`` and the batch
+by ``_batch_sds``' specs, prefill under ``sharding_ctx(mesh,
+TRAIN_RULES)``, then the decode cell's ``fn`` on arguments placed by its
+``in_shardings`` under its rules.  Each rank records its local parameter
+and cache bytes beside those its shards should hold by the rules, and the
+local shapes its kernel wrappers ran on; rank 0 writes the gathered logits
+and caches.  DTensor's own collectives are refused in the ranks
+(``forbid_dtensor_collectives``).
 
 This module imports no JAX, so that the spawned ranks do not either.
 """
@@ -46,17 +55,15 @@ import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.configs.base import ShapeConfig, get_config, reduced
-from repro.distributed.sharding import TRAIN_RULES, sharding_ctx, to_pspec
+from repro.distributed.sharding import TRAIN_RULES, sharding_ctx
 from repro.launch import specs
 from repro.models import model
 from repro.models.params import spec_to_pspecs
 
-name, overrides, B, S, n_decode, meshes, out = json.loads(sys.argv[1])
+name, overrides, B, S, n_decode, meshes, noise, out = json.loads(sys.argv[1])
 cfg = reduced(get_config(name), **overrides)
 params = model.init_params(cfg, jax.random.PRNGKey(0))
 rng = np.random.default_rng(0)
-tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-steps = rng.integers(0, cfg.vocab_size, (n_decode, B, 1)).astype(np.int32)
 L = S + specs.DECODE_PAD
 
 
@@ -69,39 +76,104 @@ def flat(tree, prefix):
     return res
 
 
+# the batches of _batch_sds: tokens or frames; vision rows and three
+# position streams, row 1's stream 0 off the row index from position 5
+# (prefill) and below the cache length (decode)
+if cfg.frontend == "audio_frames":
+    batch = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(
+        cfg.dtype)}
+else:
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)}
+steps = [{"tokens": rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)}
+         for _ in range(0 if cfg.encoder_only else n_decode)]
+if cfg.frontend == "vision":
+    batch["vision_embeds"] = rng.standard_normal(
+        (B, cfg.n_vision_tokens, cfg.d_model)).astype(cfg.dtype)
+    idx = np.arange(S, dtype=np.int32)
+    pos = np.stack([idx, idx // 4 + rng.integers(0, 3, S),
+                    idx % 4 + rng.integers(0, 5, S)], -1).astype(np.int32)
+    pos = np.broadcast_to(pos, (B, S, 3)).copy()
+    pos[1, 5:, 0] += 3
+    batch["positions"] = pos
+    for i, st in enumerate(steps):
+        st["positions"] = np.full((B, 1, 3), S + i, np.int32)
+        st["positions"][1, 0] = [5 + i, S + i, S]
+res = {"batch/" + k: v for k, v in batch.items()}
+for i, st in enumerate(steps):
+    res.update({f"step{i}/{k}": v for k, v in st.items()})
 np.savez(out + "/params.npz", **flat(params, ""))
-res = {"tokens": tokens, "steps": steps}
+
+
+# unsharded: compiled once for every noise draw
+prefill1 = jax.jit(lambda p, b: model.prefill(p, cfg, b, max_len=L))
+decode1 = jax.jit(lambda p, b, c, n: model.decode_step(p, cfg, b, c, n))
+
+
+def run(params, mesh):
+    # prefill under TRAIN_RULES, then the decode cell's steps under its
+    # rules, on mesh (None: unsharded); {key: array}
+    got = {}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    if mesh is None:
+        logits, cache = prefill1(params, jb)
+    else:
+        ns = lambda t: jax.tree_util.tree_map(
+            lambda ps: NamedSharding(mesh, ps), t,
+            is_leaf=lambda x: isinstance(x, P))
+        pps = spec_to_pspecs(model.abstract_params(cfg), rules=TRAIN_RULES,
+                             mesh=mesh)
+        bps = specs._batch_sds(cfg, ShapeConfig("prefill", S, B, "prefill"),
+                               "prefill", TRAIN_RULES, mesh)[1]
+        with mesh, sharding_ctx(mesh, TRAIN_RULES):
+            prefill = jax.jit(lambda p, b: model.prefill(p, cfg, b,
+                                                         max_len=L),
+                              in_shardings=(ns(pps), ns(bps)))
+            logits, cache = prefill(params, jb)
+    got["logits0"] = np.asarray(logits)
+    got.update(flat(cache, "prefill/"))
+    if not steps:
+        return got
+    if mesh is None:
+        for i, st in enumerate(steps):
+            logits, cache = decode1(params, {k: jnp.asarray(v) for k, v in
+                                            st.items()}, cache,
+                                   jnp.int32(S + i))
+            got[f"logits{i + 1}"] = np.asarray(logits)
+    else:
+        low = specs.build_lowerable(cfg, ShapeConfig("decode", S, B,
+                                                     "decode"), mesh)
+        sh_in = ns(low.in_shardings)
+        p_dec = jax.device_put(params, sh_in[0])
+        cache = jax.device_put(cache, sh_in[2])
+        with mesh, sharding_ctx(mesh, low.rules):
+            decode = jax.jit(low.fn, in_shardings=sh_in)
+            for i, st in enumerate(steps):
+                b = jax.device_put({k: jnp.asarray(v) for k, v in
+                                    st.items()}, sh_in[1])
+                logits, cache = decode(p_dec, b, cache, jnp.int32(S + i))
+                got[f"logits{i + 1}"] = np.asarray(logits)
+    got.update(flat(cache, "decode/"))
+    return got
+
+
 for shape in meshes:
     n = shape[0] * shape[1]
     mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
                 ("data", "model"))
-    ns = lambda t: jax.tree_util.tree_map(
-        lambda ps: NamedSharding(mesh, ps), t,
-        is_leaf=lambda x: isinstance(x, P))
     tag = f"{shape[0]}x{shape[1]}"
-    pps = spec_to_pspecs(model.abstract_params(cfg), rules=TRAIN_RULES,
-                         mesh=mesh)
-    bps = {"tokens": to_pspec(("batch", None), rules=TRAIN_RULES, mesh=mesh,
-                              shape=(B, S))}
-    with mesh, sharding_ctx(mesh, TRAIN_RULES):
-        prefill = jax.jit(lambda p, b: model.prefill(p, cfg, b, max_len=L),
-                          in_shardings=(ns(pps), ns(bps)))
-        logits, cache = prefill(params, {"tokens": jnp.asarray(tokens)})
-    res[f"{tag}/logits0"] = np.asarray(logits)
-    res.update(flat(cache, f"{tag}/prefill/"))
-    low = specs.build_lowerable(cfg, ShapeConfig("decode", S, B, "decode"),
-                                mesh)
-    sh_in = ns(low.in_shardings)
-    p_dec = jax.device_put(params, sh_in[0])
-    cache = jax.device_put(cache, sh_in[2])
-    with mesh, sharding_ctx(mesh, low.rules):
-        decode = jax.jit(low.fn, in_shardings=sh_in)
-        for i in range(n_decode):
-            batch = jax.device_put({"tokens": jnp.asarray(steps[i])},
-                                   sh_in[1])
-            logits, cache = decode(p_dec, batch, cache, jnp.int32(S + i))
-            res[f"{tag}/logits{i + 1}"] = np.asarray(logits)
-    res.update(flat(cache, f"{tag}/decode/"))
+    res.update({f"{tag}/{k}": v for k, v in run(params, mesh).items()})
+if noise:
+    # the reference's own move, unsharded, when its embeddings move by
+    # 1e-7 (relative): the most over ``noise`` draws, for each output
+    clean = run(params, None)
+    for seed in range(noise):
+        noisy = dict(params)
+        noisy["embed"] = params["embed"] * (1 + 1e-7 * jax.random.normal(
+            jax.random.PRNGKey(seed), params["embed"].shape))
+        for k, v in run(noisy, None).items():
+            d = float(np.abs(v.astype(np.float64) - clean[k]).max())
+            res["move/" + k] = max(d, float(res.get("move/" + k, 0.0)))
 np.savez(out + "/ref.npz", **res)
 """
 
@@ -111,13 +183,15 @@ def tag(shape) -> str:
 
 
 def reference(tmp: Path, name: str, overrides: dict, meshes,
-              prompt: int = S) -> subprocess.Popen:
-    """Start the reference's subprocess (prompts of ``prompt`` tokens); it
-    writes tmp/params.npz, then tmp/ref.npz."""
+              prompt: int = S, noise: int = 0) -> subprocess.Popen:
+    """Start the reference's subprocess (prompts of ``prompt`` positions;
+    with ``noise`` draws, also its unsharded outputs' move under 1e-7
+    noise on the embeddings, ``move/<key>``); it writes tmp/params.npz,
+    then tmp/ref.npz."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
     arg = json.dumps([name, overrides, B, prompt, N_DECODE,
-                      [list(m) for m in meshes], str(tmp)])
+                      [list(m) for m in meshes], noise, str(tmp)])
     return subprocess.Popen([sys.executable, "-c", REF_SCRIPT, arg], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -171,13 +245,15 @@ def _rule_bytes(spec_tree, mesh, rules) -> int:
 
 def _record_shapes():
     """Wrap the kernels' plain versions to record the local shapes they
-    run on; returns {kernel: [shape, ...]}."""
+    run on, and the rows each decode_attention call attends to, as
+    (kv_start or None, kv_len) lists; returns {kernel: [shape, ...],
+    "decode_rows": [...]}."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ssm
 
     seen: dict = {"flash_attention": [], "decode_attention": [],
-                  "ssm_scan": []}
+                  "ssm_scan": [], "decode_rows": []}
     for mod, fn, key in ((fa, "flash_attention_plain", "flash_attention"),
                          (dec, "decode_attention_plain", "decode_attention"),
                          (ssm, "ssm_scan_plain", "ssm_scan")):
@@ -185,6 +261,10 @@ def _record_shapes():
 
         def wrapped(*a, _orig=orig, _key=key, **kw):
             seen[_key].append([list(a[0].shape), list(a[1].shape)])
+            if _key == "decode_attention":
+                start = kw.get("kv_start")
+                seen["decode_rows"].append([
+                    None if start is None else start.tolist(), a[3].tolist()])
             return _orig(*a, **kw)
 
         setattr(mod, fn, wrapped)
@@ -215,6 +295,21 @@ def forbid_dtensor_collectives():
                 setattr(mod, n, refuse)
 
 
+def _batches(ref):
+    """The prefill batch and the decode steps' batches the reference
+    drew, as torch tensors."""
+    import torch
+
+    def pick(prefix):
+        return {k[len(prefix):]: torch.from_numpy(ref[k]) for k in ref.files
+                if k.startswith(prefix)}
+
+    steps = []
+    while f"step{len(steps)}/tokens" in ref.files:
+        steps.append(pick(f"step{len(steps)}/"))
+    return pick("batch/"), steps
+
+
 def _rank_main(rank, world, shape, store, name, overrides, tmp):
     import torch
     import torch.distributed as dist
@@ -232,46 +327,49 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         cfg = reduced(get_config(name), **overrides)
         full = P.from_jax_params(cfg, _tree(np.load(f"{tmp}/params.npz")),
                                  device="cpu")
-        ref = np.load(f"{tmp}/ref.npz")
-        tokens, steps = ref["tokens"], ref["steps"]
-        S = tokens.shape[1]
+        batch, steps = _batches(np.load(f"{tmp}/ref.npz"))
+        S = next(iter(batch.values())).shape[1]
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
         forbid_dtensor_collectives()
         out: dict = {}
         params = P.shard_params(cfg, full, mesh, sh.TRAIN_RULES)
         L = S + specs.DECODE_PAD
+        # the batch placed as the reference's _batch_sds places it
+        batch = sh.distribute(batch, specs._batch_sds(
+            cfg, ShapeConfig("prefill", S, B, "prefill"), "prefill",
+            sh.TRAIN_RULES, mesh)[1], mesh)
         with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
-            logits, cache = model.prefill(
-                params, cfg, {"tokens": torch.from_numpy(tokens)}, max_len=L,
-                device="cpu")
+            logits, cache = model.prefill(params, cfg, batch, max_len=L,
+                                          device="cpu")
         out["bytes/params_train"] = [_local_bytes(params), _rule_bytes(
             P.param_specs(cfg), mesh, sh.TRAIN_RULES)]
-        out["bytes/cache_train"] = [_local_bytes(cache), _rule_bytes(
-            model.cache_specs(cfg, B, L), mesh, sh.TRAIN_RULES)]
         got = {"logits0": sh.full(logits)}
-        for i, layer in enumerate(cache):
-            for leaf, t in layer.items():
-                # a copy: a leaf replicated over every rank is the rank's
-                # own tensor, which decode updates in place
-                got[f"prefill/{i}/{leaf}"] = sh.full(t).clone()
-        low = specs.build_lowerable(cfg, ShapeConfig("decode", S, B,
-                                                     "decode"), mesh)
-        params = sh.distribute(params, low.in_shardings[0], mesh)
-        cache = sh.distribute(cache, low.in_shardings[2], mesh)
-        for i in range(N_DECODE):
-            batch = sh.distribute({"tokens": torch.from_numpy(steps[i])},
-                                  low.in_shardings[1], mesh)
-            with sh.sharding_ctx(mesh, low.rules):
-                logits, cache = low.fn(params, batch, cache, S + i)
-            got[f"logits{i + 1}"] = sh.full(logits)
-        for i, layer in enumerate(cache):
-            for leaf, t in layer.items():
-                got[f"decode/{i}/{leaf}"] = sh.full(t)
-        out["bytes/params_decode"] = [_local_bytes(params), _rule_bytes(
-            P.param_specs(cfg), mesh, sh.DECODE_RULES)]
-        out["bytes/cache_decode"] = [_local_bytes(cache), _rule_bytes(
-            model.cache_specs(cfg, B, L), mesh, sh.DECODE_RULES)]
+        if cache is not None:
+            out["bytes/cache_train"] = [_local_bytes(cache), _rule_bytes(
+                model.cache_specs(cfg, B, L), mesh, sh.TRAIN_RULES)]
+            for i, layer in enumerate(cache):
+                for leaf, t in layer.items():
+                    # a copy: a leaf replicated over every rank is the
+                    # rank's own tensor, which decode updates in place
+                    got[f"prefill/{i}/{leaf}"] = sh.full(t).clone()
+        if steps:
+            low = specs.build_lowerable(cfg, ShapeConfig("decode", S, B,
+                                                         "decode"), mesh)
+            params = sh.distribute(params, low.in_shardings[0], mesh)
+            cache = sh.distribute(cache, low.in_shardings[2], mesh)
+            for i, step in enumerate(steps):
+                step = sh.distribute(step, low.in_shardings[1], mesh)
+                with sh.sharding_ctx(mesh, low.rules):
+                    logits, cache = low.fn(params, step, cache, S + i)
+                got[f"logits{i + 1}"] = sh.full(logits)
+            for i, layer in enumerate(cache):
+                for leaf, t in layer.items():
+                    got[f"decode/{i}/{leaf}"] = sh.full(t)
+            out["bytes/params_decode"] = [_local_bytes(params), _rule_bytes(
+                P.param_specs(cfg), mesh, sh.DECODE_RULES)]
+            out["bytes/cache_decode"] = [_local_bytes(cache), _rule_bytes(
+                model.cache_specs(cfg, B, L), mesh, sh.DECODE_RULES)]
         out["bytes/params_full"] = _local_bytes(full)
         out["shapes"] = seen
         with open(f"{tmp}/rank{rank}.json", "w") as fh:
@@ -283,36 +381,55 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         dist.destroy_process_group()
 
 
-def world(tmp: Path, name: str, overrides: dict, shape) -> None:
-    """Run the port's gloo world of shape[0] x shape[1] ranks to its end
-    (after the reference has written its files) in tmp."""
+def _spawn(tmp: Path, name: str, overrides: dict, shape):
     import torch.multiprocessing as mp
 
     n = shape[0] * shape[1]
-    ctx = mp.spawn(_rank_main, args=(n, tuple(shape), str(tmp / "store"),
-                                     name, overrides, str(tmp)),
-                   nprocs=n, join=False)
+    return mp.spawn(_rank_main, args=(n, tuple(shape), str(tmp / "store"),
+                                      name, overrides, str(tmp)),
+                    nprocs=n, join=False)
+
+
+def _join(ctxs: dict) -> None:
+    """Wait for every world ({shape: spawn context}) to end; kill them all
+    and fail past ``JOIN_S``."""
     deadline = time.monotonic() + JOIN_S
-    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-        if time.monotonic() > deadline:
+    try:
+        for shape, ctx in ctxs.items():
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"the {shape} world did not end in {JOIN_S} s")
+    finally:
+        for ctx in ctxs.values():
             for p in ctx.processes:
-                p.kill()
-            raise AssertionError(
-                f"the {shape} world did not end in {JOIN_S} s")
+                if p.is_alive():
+                    p.kill()
+
+
+def world(tmp: Path, name: str, overrides: dict, shape) -> None:
+    """Run the port's gloo world of shape[0] x shape[1] ranks to its end
+    (after the reference has written its files) in tmp."""
+    _join({tuple(shape): _spawn(tmp, name, overrides, shape)})
 
 
 def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None):
     """The reference on every mesh (``proc``, where it was started
-    already), then the port's world on each: returns ({mesh tag: (the
-    port's outputs, each rank's record)}, the reference's outputs)."""
+    already), then the port's worlds on every mesh at once: returns ({mesh
+    tag: (the port's outputs, each rank's record)}, the reference's
+    outputs)."""
     wait_reference(proc or reference(tmp, name, overrides, meshes))
-    out = {}
+    ctxs = {}
     for shape in meshes:
         d = tmp / tag(shape)
         d.mkdir()
         for f in ("params.npz", "ref.npz"):
             (d / f).symlink_to(tmp / f)
-        world(d, name, overrides, shape)
+        ctxs[tuple(shape)] = _spawn(d, name, overrides, shape)
+    _join(ctxs)
+    out = {}
+    for shape in meshes:
+        d = tmp / tag(shape)
         ranks = [json.loads((d / f"rank{r}.json").read_text())
                  for r in range(shape[0] * shape[1])]
         out[tag(shape)] = (np.load(d / "port.npz"), ranks)
@@ -336,3 +453,100 @@ def ref_layer(ref, prefix: str, cfg, i: int) -> dict:
             if key in ref.files:
                 out[leaf] = ref[key]
     return out
+
+
+TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_kernels.py TOL[float32]
+
+
+def _stacked(prefix: str, cfg, i: int, leaf: str) -> tuple:
+    """(key, index or None) of layer i's ``leaf`` in the reference's
+    stacked cache under ``prefix``."""
+    from repro_torch.configs.base import scan_period
+
+    P = scan_period(cfg)
+    n_rep = cfg.n_layers // P
+    if i < n_rep * P:
+        return f"{prefix}body/{i % P}/{leaf}", i // P
+    return f"{prefix}rem/{i - n_rep * P}/{leaf}", None
+
+
+def assert_outputs_match(port, ref, shape, cfg, n_decode=N_DECODE,
+                         widen=()):
+    """Every logit and cache leaf of the port's run on ``shape`` against
+    the reference's sharded run on the same mesh: within ``TOL``, the SSM
+    state h's atol scaled by its largest entry
+    (tests/test_torch_sharded_mamba.py).  The outputs named in ``widen``
+    ("logits", "cache") are held to ``TOL`` plus 4x the reference's own
+    move under 1e-7 noise on its embeddings (``reference(..., noise=)``),
+    for a config whose reference differs from mesh to mesh by more than
+    ``TOL`` there.  The outputs are exactly the logits of prefill and of
+    each decode step and one of each layer's cache leaves after each."""
+    t = tag(shape)
+    n_logits = 1 if cfg.encoder_only else 1 + n_decode
+    want = [f"logits{i}" for i in range(n_logits)]
+    for step in () if cfg.encoder_only else ("prefill", "decode"):
+        for i in range(cfg.n_layers):
+            for leaf in ref_layer(ref, f"{t}/{step}/", cfg, i):
+                want.append(f"{step}/{i}/{leaf}")
+    assert sorted(port.files) == sorted(want)
+    for key in want:
+        if key.startswith("logits"):
+            w, move = ref[f"{t}/{key}"], f"move/{key}"
+        else:
+            step, i, leaf = key.split("/")
+            w = ref_layer(ref, f"{t}/{step}/", cfg, int(i))[leaf]
+            move = _stacked(f"move/{step}/", cfg, int(i), leaf)[0]
+        atol = TOL["atol"]
+        if key.endswith("/h"):
+            atol *= max(1.0, float(np.abs(w).max()))
+        if ("logits" if key.startswith("logits") else "cache") in widen:
+            atol += 4 * float(ref[move])
+        np.testing.assert_allclose(port[key], w, rtol=TOL["rtol"], atol=atol,
+                                   err_msg=f"{t} {key}")
+
+
+def assert_rule_bytes(ranks, encoder_only=False):
+    """Each rank's parameter and cache bytes, under both rule tables, equal
+    those its shards hold by the rules."""
+    keys = ("params_train",) if encoder_only else (
+        "params_train", "cache_train", "params_decode", "cache_decode")
+    for r, rec in enumerate(ranks):
+        for key in keys:
+            got, want = rec[f"bytes/{key}"]
+            assert got == want, f"rank {r} {key}"
+
+
+def kernel_shapes(cfg, shape, S: int) -> dict:
+    """The local (first two arguments') shapes each kernel wrapper runs on,
+    a call each, in a rank of ``shape`` for prompts of S positions: prefill's
+    flash_attention on the rank's batch rows and heads (every head where
+    "model" does not divide them at G = 1; the reference's padding at G >
+    1; one KV head paired with each rank's query heads where it splits
+    those and not the KV heads); decode_attention on every head over the
+    rank's cache rows (all of them where "model" does not divide them, and
+    then on the rank's heads); ssm_scan on the rank's batch rows and inner
+    channels."""
+    from repro_torch.configs.base import layer_specs
+
+    dp, tp = shape
+    Bl, L, D = B // dp, S + 16, cfg.head_dim
+    H, Hkv, G = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
+    if H % tp == 0:
+        heads = H // tp
+        kv = Hkv // tp if Hkv % tp == 0 else -(-heads // G)
+    else:
+        heads = kv = H if G == 1 else -(-H // tp)
+    if L % tp == 0:
+        dec = [[Bl, H, D], [Bl, Hkv, L // tp, D]]
+    elif H % tp == 0:
+        dec = [[Bl, H // tp, D], [Bl, kv, L, D]]
+    else:  # decode does not pad
+        dec = [[Bl, H, D], [Bl, Hkv, L, D]]
+    I = cfg.d_inner // tp if cfg.d_inner % tp == 0 else cfg.d_inner
+    scan = [Bl, S, I, cfg.ssm_state]
+    specs = layer_specs(cfg)
+    n_attn = sum(s.kind == "attn" for s in specs)
+    n_decode = 0 if cfg.encoder_only else N_DECODE
+    return {"flash_attention": [[[Bl, heads, S, D], [Bl, kv, S, D]]] * n_attn,
+            "decode_attention": [dec] * (n_attn * n_decode),
+            "ssm_scan": [[scan, scan]] * (len(specs) - n_attn)}
