@@ -201,8 +201,8 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     that ``flops_model``'s MODEL_FLOPS gives at the step times of phases
     25 (stablelm-1.6b train), 9 (Qwen3-8B prefill) and 7 (Qwen3-8B decode),
     as ``mfu=``; (c) on the card, while the child runs:
-    ``benchmarks_torch.fig11_baselines``' ``fig11.torch.*`` rows of rr
-    and lags-static (phase 11 holds all seven codes) equal to
+    ``benchmarks_torch.fig11_baselines``' ``fig11.torch.*`` row of
+    lags-static (phase 11 holds all seven codes) equal to
     ``REF_FIG11``, ``benchmarks_torch.serving_lags`` at 24
     tenants equal to the reference's rows (``REF_SERVING``), and
     ``examples_torch/quickstart.py`` with its loss falling;
@@ -237,7 +237,28 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     each job prints the cosine, the share of equal argmax tokens, a rank's
     bytes against the rules, each kernel's local launch shapes, and a
     rank's prefill and step times;
-32. the script's wall seconds, a ``{"kernels": [...]}`` line (each
+32. the train step over a ("data", "model") mesh of two processes sharing
+    the card over gloo, as phases 30-31 run theirs (``TRAIN_JOBS``):
+    stablelm-1.6b on 4 layers at full width on a (2, 1) mesh (FSDP: the
+    weights gathered over "data", their gradients reduce-scattered, the
+    batch split) and falcon-mamba-7b on 4 layers at full width on a (1, 2)
+    mesh (the inner channels split: the scan and its backward on half of
+    them), B=2, S=512, two steps each through ``build_lowerable``'s train
+    cell, against the same steps unsharded in this process: in bf16 with
+    the reference's init (printed, beside its witness: the same stack in
+    f32, unsharded, against itself with every parameter moved by 1e-7),
+    and in f32 with each dense weight at std 1/sqrt(its contraction
+    width), held (the first step's loss, grad norm and each gradient leaf
+    within 1e-4, the second's loss and grad norm within 1e-4 plus 4x the
+    unsharded run's own move under that noise, the entries whose first
+    gradients' signs differ counted, the update's cosine >= 0.99); each
+    rank's parameter and moment bytes against the rules, its peak above
+    the state, its step times, the launches of the attention and scan
+    kernels forward and backward (by route) and their local shapes;
+    ``--only-train-sharded`` builds the kernels, runs only this phase and
+    stops;
+33. the script's wall seconds (each phase's on a ``wall:`` line), a
+    ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16`` and with its log-sum-exp output under ``lse`` (timed in turns
@@ -1396,15 +1417,34 @@ def sim_check(name, got, want, what):
             f"{name}: {what} {got!r}, the reference {want!r}")
 
 
-def fig11(torch, card):
-    """All seven policy codes at Fig. 11's size on the card, held to the
-    reference; lags and cfs on the CPU too.  Returns the ticks/s and the
-    LAGS run's trace and params for the profile."""
-    import numpy as np
+def side_by_side(fn, tasks):
+    """``fn(*task)`` for every task, each in a process of its own, all
+    started at once (spawned, one torch thread each), the results in the
+    tasks' order.  The tick loops are bound by their host's issue of small
+    kernels (the card is busy 5-7% under one), so independent loops run
+    side by side on the host's cores and share the card."""
+    import concurrent.futures
+    import multiprocessing
 
+    with concurrent.futures.ProcessPoolExecutor(
+            len(tasks), mp_context=multiprocessing.get_context("spawn"),
+            initializer=_one_thread) as pool:
+        futures = [pool.submit(fn, *t) for t in tasks]
+        return [f.result() for f in futures]
+
+
+def _one_thread():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def fig11_inputs(dev):
+    """Fig. 11's node on ``dev``: its slot trace and ``params(code,
+    n_ticks)``."""
     from repro_torch.core import simkernel_torch as st
     from repro_torch.core.traces import lightest_band_fns, make_workload
-    from repro_torch.sched.torch_backend import CODE_OF, LAGS, LAGS_STATIC
+    from repro_torch.sched.torch_backend import LAGS_STATIC
 
     wl = make_workload("azure2021", 120, duration_s=30.0, n_cores=12, seed=1,
                        exec_s=0.1, threads_per_fn=4)
@@ -1415,114 +1455,176 @@ def fig11(torch, card):
                             policy=code, burst_us=120.0, depth=2.0,
                             rt_fns=rt if code == LAGS_STATIC else ())
 
-    trace = {dev: st.build_slot_trace(wl, 120, 4, device=dev)
-             for dev in ("cuda", "cpu")}
-    st.simulate(trace["cuda"], params(LAGS, 50))  # warm-up: first launches
-    done, rate = {}, {}
-    for name, code in sorted(CODE_OF.items(), key=lambda kv: kv[1]):
-        for dev in ("cuda", "cpu") if name in ("lags", "cfs") else ("cuda",):
-            calls = []
-            with simulate_clock(calls):
-                out = st.simulate(trace[dev], params(code))
-            secs = calls[0][3]
-            rate[name, dev] = 7500 / secs
-            d = out["done_tick"].cpu().numpy()
-            lat = st.latencies_from(trace[dev], d)
-            got = (len(lat), int(d[d >= 0].sum()),
-                   float(np.percentile(lat, 50)), float(np.percentile(lat, 95)))
-            ref = REF_FIG11[name]
-            require(got == ref[:4], f"fig11 {name} on {dev}: (completed, sum "
-                    f"of completion ticks, p50, p95) {got}, the reference "
-                    f"{ref[:4]}")
-            sim_check(f"fig11 {name} on {dev}", float(out["busy_s"]), ref[4],
-                      "busy_s")
-            sim_check(f"fig11 {name} on {dev}", float(out["overhead_s"]),
-                      ref[5], "overhead_s")
-            if dev == "cpu":
-                require(np.array_equal(d, done[name]),
-                        f"fig11 {name}: completion ticks differ on the card "
-                        f"and the CPU")
-            done[name] = d
-            print(f"fig11 {name} T=480 R={trace[dev].arrival_tick.shape[1]} "
-                  f"7500 ticks on the {dev}: {got[0]} completed, p50 "
-                  f"{got[2]:.4f} s, p95 {got[3]:.4f} s, overhead "
-                  f"{float(out['overhead_s']) / (12 * 30.0):.6f}; "
-                  f"{secs:.3f} s wall, {rate[name, dev]:.1f} ticks/s [{card}]")
-    print("fig11: all seven codes equal the reference on the card "
-          "(completions, sum of completion ticks, p50, p95; busy and "
-          "overhead within rtol 1e-5); lags and cfs complete on the same "
-          "ticks on the CPU")
-    return rate, trace["cuda"], params(LAGS)
+    return st.build_slot_trace(wl, 120, 4, device=dev), params
 
 
-def fig7(torch, card):
-    """The consolidation sweep on the card against the reference, and its
-    10-node LAGS fleet on the CPU.  Returns the ticks/s of the 10-node LAGS
-    loop on the card and the CPU, and its trace and params."""
+def fig11_run(name, dev):
+    """One Fig. 11 run (``side_by_side``): the policy ``name`` over 7500
+    ticks on ``dev``.  Returns the completion ticks, (completed, sum of
+    completion ticks, p50, p95), busy and overhead seconds, the loop's
+    wall seconds, the arrival slots and the process's kernel launches."""
     import numpy as np
 
-    from repro_torch.fleet import (CLUSTER_EXEC_S, consolidation_sweep,
-                                   make_policy, min_nodes_meeting_slo, place,
-                                   simulate_fleet)
+    from repro_torch.core import simkernel_torch as st
+    from repro_torch.kernels import ops
+    from repro_torch.sched.torch_backend import CODE_OF, LAGS
 
+    trace, params = fig11_inputs(dev)
+    if dev == "cuda":
+        st.simulate(trace, params(LAGS, 50))  # warm-up: first launches
+    ops.reset_launch_counts()
     calls = []
     with simulate_clock(calls):
-        t0 = time.perf_counter()
-        res = consolidation_sweep(total_fns=800, node_counts=(14, 10),
-                                  backend="torch", duration_s=30.0)
-        wall = time.perf_counter() - t0
-    require(len(res) == len(calls) == 4, f"{len(calls)} simulate calls")
-    rate = {}
-    for r, (trace, p, out, secs) in zip(res, calls):
-        p50, p95, ovh = REF_FIG7[r.policy, r.n_nodes]
-        require((r.p50, r.p95) == (p50, p95),
-                f"fig7 {r.policy} n={r.n_nodes}: p50, p95 {(r.p50, r.p95)}, "
-                f"the reference {(p50, p95)}")
-        sim_check(f"fig7 {r.policy} n={r.n_nodes}", r.overhead_frac, ovh,
+        out = st.simulate(trace, params(CODE_OF[name]))
+    d = out["done_tick"].cpu().numpy()
+    lat = st.latencies_from(trace, d)
+    got = (len(lat), int(d[d >= 0].sum()), float(np.percentile(lat, 50)),
+           float(np.percentile(lat, 95)))
+    return dict(done=d, got=got, busy=float(out["busy_s"]),
+                overhead=float(out["overhead_s"]), secs=calls[0][3],
+                R=trace.arrival_tick.shape[1], launches=ops.launch_counts())
+
+
+def fig11(torch, card):
+    """All seven policy codes at Fig. 11's size on the card, held to the
+    reference; lags and cfs on the CPU too; every run in a process of its
+    own, side by side (``side_by_side``).  Returns the ticks/s, the
+    launches, and the LAGS run's trace and params for the profile."""
+    import numpy as np
+
+    from repro_torch.sched.torch_backend import CODE_OF, LAGS
+
+    runs = [(name, dev) for name, _ in sorted(CODE_OF.items(),
+                                              key=lambda kv: kv[1])
+            for dev in (("cuda", "cpu") if name in ("lags", "cfs")
+                        else ("cuda",))]
+    t0 = time.perf_counter()
+    results = side_by_side(fig11_run, runs)
+    wall = time.perf_counter() - t0
+    done, rate, launches = {}, {}, {}
+    for (name, dev), r in zip(runs, results):
+        add_counts(launches, r["launches"])
+        secs, got = r["secs"], r["got"]
+        rate[name, dev] = 7500 / secs
+        ref = REF_FIG11[name]
+        require(got == ref[:4], f"fig11 {name} on {dev}: (completed, sum "
+                f"of completion ticks, p50, p95) {got}, the reference "
+                f"{ref[:4]}")
+        sim_check(f"fig11 {name} on {dev}", r["busy"], ref[4], "busy_s")
+        sim_check(f"fig11 {name} on {dev}", r["overhead"], ref[5],
+                  "overhead_s")
+        if dev == "cpu":
+            require(np.array_equal(r["done"], done[name]),
+                    f"fig11 {name}: completion ticks differ on the card "
+                    f"and the CPU")
+        done[name] = r["done"]
+        print(f"fig11 {name} T=480 R={r['R']} 7500 ticks on the {dev}: "
+              f"{got[0]} completed, p50 {got[2]:.4f} s, p95 {got[3]:.4f} s, "
+              f"overhead {r['overhead'] / (12 * 30.0):.6f}; {secs:.3f} s "
+              f"wall, {rate[name, dev]:.1f} ticks/s [{card}]")
+    print(f"fig11: all seven codes equal the reference on the card "
+          f"(completions, sum of completion ticks, p50, p95; busy and "
+          f"overhead within rtol 1e-5); lags and cfs complete on the same "
+          f"ticks on the CPU; the {len(runs)} runs side by side, each in a "
+          f"process of its own: {wall:.1f} s wall")
+    trace, params = fig11_inputs("cuda")
+    return rate, launches, trace, params(LAGS)
+
+
+FIG7_RUNS = (("cfs", 14, "cuda"), ("cfs", 10, "cuda"), ("lags", 14, "cuda"),
+             ("lags", 10, "cuda"), ("lags", 10, "cpu"))
+
+
+def fig7_run(policy, n_nodes, dev):
+    """One configuration of the Fig. 7 sweep (``side_by_side``): the
+    ``consolidation_sweep`` row of ``policy`` on ``n_nodes`` nodes on
+    ``dev``.  Returns its ``ClusterResult``, the completion ticks, the
+    loop's shape, ticks and wall seconds, its trace (on the host) and
+    params, and the process's kernel launches."""
+    from repro_torch.fleet import consolidation_sweep
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    calls = []
+    with simulate_clock(calls):
+        res = consolidation_sweep(total_fns=800, node_counts=(n_nodes,),
+                                  policies=(policy,), backend="torch",
+                                  duration_s=30.0, device=dev)
+    require(len(res) == len(calls) == 1, f"{len(calls)} simulate calls")
+    trace, p, out, secs = calls[0]
+    return dict(res=res[0], done=out["done_tick"].cpu().numpy(),
+                shape=tuple(trace.arrival_tick.shape), n_ticks=p.n_ticks,
+                secs=secs, trace=type(trace)(*(t.cpu() for t in trace)),
+                params=p, launches=ops.launch_counts())
+
+
+def fig7(torch, card, results, wall):
+    """The consolidation sweep on the card against the reference, and its
+    10-node LAGS fleet on the CPU, from ``FIG7_RUNS``' ``results`` (run
+    side by side, ``wall`` seconds).  Returns the ticks/s of the 10-node
+    LAGS loop on the card and the CPU, its trace on the card and params,
+    and the launches."""
+    import numpy as np
+
+    from repro_torch.fleet import min_nodes_meeting_slo
+
+    rate, launches, by = {}, {}, dict(zip(FIG7_RUNS, results))
+    for (pol, n, dev), r in by.items():
+        add_counts(launches, r["launches"])
+        res, (N, T, R), secs = r["res"], r["shape"], r["secs"]
+        if dev == "cpu":
+            continue
+        p50, p95, ovh = REF_FIG7[pol, n]
+        require((res.p50, res.p95) == (p50, p95),
+                f"fig7 {pol} n={n}: p50, p95 {(res.p50, res.p95)}, the "
+                f"reference {(p50, p95)}")
+        sim_check(f"fig7 {pol} n={n}", res.overhead_frac, ovh,
                   "overhead share")
-        N, T, R = trace.arrival_tick.shape
-        rate[r.policy, r.n_nodes] = p.n_ticks / secs
-        print(f"fig7 {r.policy} n={r.n_nodes}: p50 {r.p50:.4f} s, p95 "
-              f"{r.p95:.4f} s, overhead share {r.overhead_frac:.6f}, "
-              f"util {r.util_effective:.4f}, done {r.done_ratio:.4f}; one "
+        rate[pol, n] = r["n_ticks"] / secs
+        print(f"fig7 {pol} n={n}: p50 {res.p50:.4f} s, p95 "
+              f"{res.p95:.4f} s, overhead share {res.overhead_frac:.6f}, "
+              f"util {res.util_effective:.4f}, done {res.done_ratio:.4f}; one "
               f"loop over N={N} nodes (T={T}, R={R}) on the card: {secs:.3f} "
-              f"s, {p.n_ticks / secs:.1f} ticks/s, "
-              f"{N * p.n_ticks / secs:.0f} node-ticks/s [{card}]")
+              f"s, {rate[pol, n]:.1f} ticks/s, "
+              f"{N * rate[pol, n]:.0f} node-ticks/s [{card}]")
+    res = [r["res"] for (_, _, dev), r in by.items() if dev == "cuda"]
     mins = {pol: min_nodes_meeting_slo(res, pol) for pol in ("cfs", "lags")}
     require(mins == {"cfs": 14, "lags": 14},
             f"min_nodes_meeting_slo {mins}, the reference 14 for both")
-    print(f"fig7: sweep {wall:.3f} s wall on the card; p50 and p95 equal the "
-          f"reference's, overhead within rtol 1e-5; min_nodes_meeting_slo "
-          f"{mins}")
-
-    card_call = calls[res.index(next(r for r in res if r.policy == "lags"
-                                     and r.n_nodes == 10))]
-    asg = place("round-robin", 800, 10, policy=make_policy("lags"),
-                exec_s=CLUSTER_EXEC_S, seed=7)
-    cpu_calls = []
-    with simulate_clock(cpu_calls):
-        simulate_fleet("lags", asg, duration_s=30.0, exec_s=CLUSTER_EXEC_S,
-                       backend="torch", device="cpu")
-    _, p, out, secs = cpu_calls[0]
-    require(np.array_equal(out["done_tick"].numpy(),
-                           card_call[2]["done_tick"].cpu().numpy()),
+    print(f"fig7: the sweep's four loops and the CPU's side by side, each in "
+          f"a process of its own, with phase 14's, {wall:.3f} s wall; p50 "
+          f"and p95 equal the reference's, overhead within rtol 1e-5; "
+          f"min_nodes_meeting_slo {mins}")
+    card_run, cpu_run = by["lags", 10, "cuda"], by["lags", 10, "cpu"]
+    require(np.array_equal(cpu_run["done"], card_run["done"]),
             "fig7 lags n=10: completion ticks differ on the card and the CPU")
-    rate["lags", 10, "cpu"] = p.n_ticks / secs
+    secs = cpu_run["secs"]
+    rate["lags", 10, "cpu"] = cpu_run["n_ticks"] / secs
     print(f"fig7 lags n=10 on the CPU: the card's completion ticks; "
-          f"{secs:.3f} s, {p.n_ticks / secs:.1f} ticks/s, "
-          f"{10 * p.n_ticks / secs:.0f} node-ticks/s [{card}]")
-    return rate, card_call[0], card_call[1]
+          f"{secs:.3f} s, {rate['lags', 10, 'cpu']:.1f} ticks/s, "
+          f"{10 * rate['lags', 10, 'cpu']:.0f} node-ticks/s [{card}]")
+    trace = type(card_run["trace"])(*(t.cuda() for t in card_run["trace"]))
+    return rate, launches, trace, card_run["params"]
 
 
 def simulators(torch, ops, card):
-    """Phases 11 to 13: the tick simulator and the batched fleet."""
+    """Phases 11 to 14: the tick simulator, the batched fleet and the chaos
+    layer.  Fig. 11's nine runs side by side, then Fig. 7's five and the
+    three chaos runs side by side (``side_by_side``); the profile of 200
+    ticks in this process, between the two."""
     from repro_torch.core import simkernel_torch as st
 
-    ops.reset_launch_counts()
-    rate11, trace1, p1 = fig11(torch, card)
-    rate7, trace10, p10 = fig7(torch, card)
-    n = ops.launch_counts()
+    rate11, n, trace1, p1 = fig11(torch, card)
+    t0 = time.perf_counter()
+    results = side_by_side(_fleet_or_chaos,
+                           [("fig7", *r) for r in FIG7_RUNS]
+                           + [("chaos", *r) for r in CHAOS_RUNS])
+    wall = time.perf_counter() - t0
+    rate7, n7, trace10, p10 = fig7(torch, card, results[:len(FIG7_RUNS)],
+                                   wall)
+    add_counts(n, n7)
     require(not any(n.values()), f"the simulators launched {n}")
+    ops.reset_launch_counts()
     busy = {}
     for label, trace, p in (("one node, Fig. 11 lags", trace1, p1),
                             ("10-node fleet, Fig. 7 lags", trace10, p10)):
@@ -1532,6 +1634,7 @@ def simulators(torch, ops, card):
                                    lambda: st.simulate(trace, p200),
                                    n_steps=1)
         busy[label] = 100 * busy_ms / wall_ms
+    add_counts(n, ops.launch_counts())
     print(f"simulators: Fig. 11 one node {rate11['lags', 'cuda']:.1f} ticks/s "
           f"on the card, {rate11['lags', 'cpu']:.1f} on the CPU (lags); "
           f"Fig. 7 10-node fleet {rate7['lags', 10]:.1f} ticks/s on the card, "
@@ -1539,6 +1642,11 @@ def simulators(torch, ops, card):
           + ", ".join(f"{k} {v:.1f}%" for k, v in busy.items())
           + f" (profiler on); hand-written kernel launches {json.dumps(n)} "
           f"[{card}]")
+    chaos(card, results[len(FIG7_RUNS):])
+
+
+def _fleet_or_chaos(kind, *args):
+    return fig7_run(*args) if kind == "fig7" else chaos_run(*args)
 
 
 # -- phase 14 -------------------------------------------------------------
@@ -1678,12 +1786,16 @@ def chaos_summary(res):
     }
 
 
-def chaos_run(torch, story, device=None):
+def chaos_run(story, device=None):
     """One ``simulate_fleet_chaos(backend="torch")`` run of phase 14 on
     ``device`` (``None``: the card).  Returns the result, the wall seconds,
     the seconds inside the batched tick loops and inside the
-    ``simulate_fleet`` calls, and the ``chaos.*`` obs counters."""
+    ``simulate_fleet`` calls, the ``chaos.*`` obs counters and the
+    process's kernel launches."""
+    import torch
+
     from repro_torch import obs
+    from repro_torch.kernels import ops
     from repro_torch.core import simkernel_torch as st
     from repro_torch.fleet import (CLUSTER_EXEC_S, FaultEvent, FaultSchedule,
                                    Topology, place, rebalance,
@@ -1705,6 +1817,7 @@ def chaos_run(torch, story, device=None):
         sched = FaultSchedule.single_partition((2, 3), 20.0, 10.0, 10, topo)
 
     loops, fleets = [], []
+    ops.reset_launch_counts()
     obs.enable()
     obs.registry().reset()
     try:
@@ -1723,7 +1836,7 @@ def chaos_run(torch, story, device=None):
             f"chaos {story}: {len(loops)} tick loops in {len(fleets)} "
             f"simulate_fleet calls, expected {CHAOS_EPOCHS}")
     return (res, wall, sum(c[-1] for c in loops), sum(c[-1] for c in fleets),
-            counters)
+            counters, ops.launch_counts())
 
 
 def check_chaos(story, res, where):
@@ -1740,23 +1853,26 @@ def check_chaos(story, res, where):
     return got
 
 
-def chaos(torch, ops, card):
-    """Phase 14: the chaos layer on the batched torch fleet at full size."""
+CHAOS_RUNS = (("rack", None), ("partition", None), ("partition", "cpu"))
+
+
+def chaos(card, results):
+    """Phase 14: the chaos layer on the batched torch fleet at full size,
+    from ``CHAOS_RUNS``' ``results`` (``chaos_run``, run side by side)."""
     import numpy as np
 
-    ops.reset_launch_counts()
-    runs = {}
-    for story, device in (("rack", None), ("partition", None),
-                          ("partition", "cpu")):
+    runs, launches = {}, {}
+    for (story, device), (res, wall, loop, fleet, counters, n) in zip(
+            CHAOS_RUNS, results):
+        add_counts(launches, n)
         where = "the card" if device is None else "the CPU"
-        res, wall, loop, fleet, counters = chaos_run(torch, story, device)
         s = check_chaos(story, res, where)
         for name, attr in (("replayed", "replayed_arrivals"),
                            ("carried", "carried_arrivals"),
                            ("deferred", "deferred_arrivals")):
-            n = counters.get(f"chaos.{name}_arrivals", 0.0)
-            require(n == getattr(res, attr), f"chaos {story}: counter "
-                    f"chaos.{name}_arrivals {n}, the result "
+            c = counters.get(f"chaos.{name}_arrivals", 0.0)
+            require(c == getattr(res, attr), f"chaos {story}: counter "
+                    f"chaos.{name}_arrivals {c}, the result "
                     f"{getattr(res, attr)}")
         runs[story, where] = res
         ticks = CHAOS_EPOCHS * CHAOS_EPOCH_TICKS
@@ -1776,13 +1892,14 @@ def chaos(torch, ops, card):
     card_b, cpu_b = runs["partition", "the card"], runs["partition", "the CPU"]
     require(np.array_equal(card_b.latencies, cpu_b.latencies),
             "chaos partition: latencies differ on the card and the CPU")
-    n = ops.launch_counts()
-    require(not any(n.values()), f"the chaos phase launched {n}")
+    require(not any(launches.values()), f"the chaos phase launched "
+            f"{launches}")
     print("chaos: the rack story and the partition equal the reference on "
           "the card (counts, liveness, node sets, migrations, arrival "
           "ledger, latencies and percentiles; busy and switch within rtol "
-          "1e-5); the partition's latencies on the CPU equal the card's; "
-          f"hand-written kernel launches {json.dumps(n)}")
+          "1e-5); the partition's latencies on the CPU equal the card's "
+          "(the three runs side by side with Fig. 7's, each in a process "
+          f"of its own); hand-written kernel launches {json.dumps(launches)}")
 
 
 # -- phases 15 to 21 ------------------------------------------------------
@@ -3176,9 +3293,9 @@ def roofline_and_mfu(report, card):
 
 
 # phase 11 holds all seven Fig. 11 codes on the card; fig11_baselines'
-# torch rows repeat the same host-bound tick loop, so phase 29(c) runs two
-# of them: a plain policy and the one given static right-sizing
-FIG11_ROW_POLICIES = ("rr", "lags-static")
+# torch rows repeat the same host-bound tick loop, so phase 29(c) runs one
+# of them: the one given static right-sizing
+FIG11_ROW_POLICIES = ("lags-static",)
 
 
 def drivers_on_card(torch, ops, card):
@@ -3790,6 +3907,484 @@ def sharded_on_card(torch, ops, card, phase=30):
     return total
 
 
+# -- phase 32: the train step sharded over two ranks on the card -----------
+
+
+class TrainJob(NamedTuple):
+    """One run of phase 32: ``config`` at full width with ``overrides``
+    (its cut depth, the dtypes), on a ("data", "model") mesh of ``mesh``
+    over the two ranks, ``TRAIN_STEPS`` steps of a B x S batch; with
+    ``fan_in``, each dense weight drawn by the reference's rule is scaled
+    to std 1/sqrt(its contraction width) (``fan_in_init``); ``held``:
+    whether its loss, grad norm and update are held to the world-1 run
+    (else printed only)."""
+    config: str
+    overrides: dict
+    mesh: tuple
+    B: int
+    S: int
+    fan_in: bool
+    held: bool
+
+
+# stablelm-1.6b on (2, 1): FSDP, each weight gathered over "data" before
+# its product and its gradient reduce-scattered, the batch split;
+# falcon-mamba-7b on (1, 2): the inner channels split over "model", so the
+# scan and its backward run on half of them.  B = 2, S = 512 and 4 layers:
+# gloo stages every collective of a CUDA tensor on the host, and a step
+# with remat moves each layer's weights three times (the gather, its
+# recomputation, the gradient's reduce-scatter).  Under the reference's
+# init rule a cut-depth stack has large weights (std 1/sqrt(4) at 4
+# layers, at widths of 2048 and 4096): its attention saturates and its
+# scan's gradients reach 1e5-1e6.  Whether a last-bit difference then
+# grows from layer to layer is what the witness shows: the same stacks in
+# f32 at that init, world 1 against world 1 with every parameter moved by
+# 1e-7 of itself (``TRAIN_NOISE``; bf16 cannot hold such a move), printed
+# beside the bf16 runs.  Those runs are printed; the function is held in
+# f32 on the same widths and depth with each dense weight at std
+# 1/sqrt(its contraction width).
+TRAIN_STEPS = 2
+TRAIN_JOBS = (
+    TrainJob("stablelm-1.6b", {"n_layers": 4}, (2, 1), 2, 512, False, False),
+    TrainJob("stablelm-1.6b", {"n_layers": 4, **F32}, (2, 1), 2, 512, True,
+             True),
+    TrainJob("falcon-mamba-7b", {"n_layers": 4}, (1, 2), 2, 512, False,
+             False),
+    TrainJob("falcon-mamba-7b", {"n_layers": 4, **F32}, (1, 2), 2, 512, True,
+             True))
+# A held run against the world-1 run: the first step's loss and grad norm
+# within TRAIN_RTOL (relative), and each gradient leaf within TRAIN_RTOL of
+# its largest |g| (tests/test_torch_train.py's rule); the second step's
+# loss and grad norm within TRAIN_RTOL plus 4x the world-1 run's own move
+# under TRAIN_NOISE (the same rule's other arm): AdamW's first update is
+# about +-lr on every entry whatever its gradient's size, so an entry near
+# 0 whose sign the ranks' sums flip moves by 2 lr, and the second step
+# shows it (the flipped entries are counted and printed); the update (the
+# parameters after the steps less before, every leaf flattened) at cosine
+# >= 0.99 to the world-1 run's.
+TRAIN_RTOL = 1e-4
+TRAIN_NOISE = 1e-7
+# the update's cosine is taken over the first entries of each leaf's rank
+# shard, at most this many, and the gradients over their first
+# GRAD_SAMPLE: enough for the checks, and the ranks' results cross the disk
+UPDATE_SAMPLE = 1 << 20
+GRAD_SAMPLE = 1 << 18
+# the dense weights and how many leading dims each contracts
+DENSE_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
+                  "w_down": 1, "in_proj": 1, "x_proj": 1, "dt_proj": 1,
+                  "out_proj": 1, "conv_w": 1}
+
+
+def fan_in_init(torch, cfg, params):
+    """Scale each layer's dense weights, drawn by ``init_params`` (std
+    1/sqrt(fan_in) with the reference's ``fan_in``: the stacked layer
+    count inside the scanned stack), to std 1/sqrt(the product of the dims
+    it contracts), in place (a DTensor's rank shard: every rank scales
+    alike)."""
+    from repro_torch.configs.base import scan_period
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.tree import flatten_with_path
+
+    n_rep = cfg.n_layers // scan_period(cfg)
+    n_stacked = n_rep * scan_period(cfg)
+    with torch.no_grad():
+        for i, layer in enumerate(params["layers"]):
+            for path, w in flatten_with_path(layer):
+                k = DENSE_CONTRACT.get(path[-1])
+                if k is None:
+                    continue
+                ref = n_rep if i < n_stacked else w.shape[0]
+                sh.local(w).mul_(math.sqrt(max(ref, 1)
+                                           / math.prod(w.shape[:k])))
+
+
+def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
+    """``TRAIN_STEPS`` steps of ``job`` on the card: the state from seed 0
+    (placed leaf by leaf as it is drawn with ``mesh``; with ``noise``,
+    every parameter then moved by that much of itself, seeded), seeded
+    batches of the data pipeline with a loss mask; with ``mesh``, the
+    train cell of ``launch/specs.build_lowerable`` on arguments placed by
+    its ``in_shardings``, under its rules.  Returns the losses and grad
+    norms, the ms of each step, the launches of the steps (counted from 0
+    just before them), the local shapes each kernel wrapper ran on, the
+    bytes of the parameters and moments against the rules, the peak bytes
+    above the state during a step, the first step's gradients before
+    clipping (``grad_hook``; f32, CPU) and the update of each leaf (bf16,
+    CPU); with ``mesh`` the first entries of the rank's shards, with its
+    mesh coordinate and placements."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs
+    from repro_torch.models.params import ParamSpec, param_specs
+    from repro_torch.train import optimizer, train_loop
+    from repro_torch.train.data import DataConfig, TokenStream
+    from repro_torch.train.tree import flatten_with_path, map_tree
+
+    cfg = dataclasses.replace(get_config(job.config), **job.overrides)
+    B, S = job.B, job.S
+    tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
+        lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS))
+    state = train_loop.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        mesh=mesh, rules=sh.TRAIN_RULES)
+    if job.fan_in:
+        fan_in_init(torch, cfg, state.params)
+    if noise:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        with torch.no_grad():
+            for _, t in flatten_with_path(state.params):
+                t.mul_(1 + noise * torch.randn(t.shape, generator=gen,
+                                               device="cuda", dtype=t.dtype))
+    stream = TokenStream(cfg, B, S, DataConfig())
+    batches = []
+    for i in range(TRAIN_STEPS):
+        b = {k: torch.as_tensor(v, device="cuda")
+             for k, v in stream.batch_at(i).items()}
+        # rows keep unlike shares of their positions
+        keep = torch.linspace(0.9, 0.4, B, device="cuda")[:, None]
+        b["loss_mask"] = (torch.rand(B, S, generator=torch.Generator(
+            device="cuda").manual_seed(20 + i), device="cuda") < keep).float()
+        batches.append(b)
+    out = {}
+    if mesh is None:
+        step = train_loop.make_train_step(cfg, tc)
+    else:
+        low = specs.build_lowerable(cfg, ShapeConfig("train", S, B, "train"),
+                                    mesh, tc)
+        step = low.fn
+        batches = [sh.distribute(b, low.in_shardings[1], mesh)
+                   for b in batches]
+        specs_ = param_specs(cfg)
+        f32 = map_tree(lambda s: ParamSpec(s.shape, torch.float32,
+                                           s.logical), specs_)
+        out["param_bytes"] = [tree_bytes(state.params), rule_bytes(
+            specs_, mesh, sh.TRAIN_RULES)]
+        out["moment_bytes"] = [tree_bytes((state.opt.mu, state.opt.nu)),
+                               2 * rule_bytes(f32, mesh, sh.TRAIN_RULES)]
+    out["full_bytes"] = spec_bytes(param_specs(cfg))
+    before = {"/".join(map(str, p)): sh.local(t).detach().float().clone()
+              for p, t in flatten_with_path(state.params)}
+
+    def layout(t):  # the rank's mesh coordinate and the tensor's split
+        return (mesh.get_coordinate(), tuple(mesh.shape),
+                [q.dim if q.is_shard() else None for q in t.placements])
+
+    out["grads"], hook_s = {}, [0.0]
+
+    @torch.no_grad()
+    def first_grads(tree):  # its time is taken out of the step's
+        if out["grads"]:
+            return
+        t0 = time.perf_counter()
+        for p, g in flatten_with_path(tree):
+            lay = None
+            if mesh is not None:  # in the parameter's layout: no partial sum
+                require(not any(q.is_partial() for q in g.placements),
+                        f"the gradient of {p} is a partial sum")
+                lay = layout(g)
+            g = sh.local(g).detach()
+            lo, hi = torch.aminmax(g)
+            scale = max(-float(lo), float(hi))
+            g = g.flatten()[:GRAD_SAMPLE] if mesh is not None else g
+            # copied to the host before widening: no device memory is added
+            out["grads"]["/".join(map(str, p))] = (g.cpu().float(), lay,
+                                                   scale)
+        hook_s[0] += time.perf_counter() - t0
+
+    step.grad_hook = first_grads
+    seen = {name: set() for name in ("flash_attention", "ssm_scan")}
+    originals = {name: getattr(ops, name) for name in seen}
+
+    def recorder(name):
+        def call(*a, **kw):
+            seen[name].add(tuple(tuple(sh.local(t).shape) for t in a[:2]))
+            return originals[name](*a, **kw)
+        return call
+
+    for name in seen:
+        setattr(ops, name, recorder(name))
+    def ctx():
+        return (sh.sharding_ctx(mesh, sh.TRAIN_RULES) if mesh is not None
+                else contextlib.nullcontext())
+
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out["loss"], out["grad_norm"], out["step_ms"] = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx():
+                state, m = step(state, b)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+            out["step_ms"].append((time.perf_counter() - t0 - hook_s[0])
+                                  * 1e3)
+            hook_s[0] = 0.0
+        out["counts"] = ops.launch_counts()
+        out["peak_above_state"] = torch.cuda.max_memory_allocated() - base
+    finally:
+        step.grad_hook = None
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+    out["shapes"] = {k: sorted(v) for k, v in seen.items()}
+    out["update"] = {}
+    for p, t in flatten_with_path(state.params):
+        key = "/".join(map(str, p))
+        upd, lay = sh.local(t).detach().float() - before[key], None
+        if mesh is not None:  # the first entries of the rank's shard
+            lay, upd = layout(t), upd.flatten()[:UPDATE_SAMPLE]
+        # bf16 on the host: the cosine needs no more
+        out["update"][key] = (upd.bfloat16().cpu(), lay)
+    del state, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sharded_rank(rank, store, out_dir):
+    """One rank of phase 32: a gloo group of ``SHARDED_RANKS`` processes on
+    cuda:0, every job of ``TRAIN_JOBS`` on its mesh; writes its results to
+    out_dir/rank{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, SHARDED_RANKS),
+                            rank=rank, world_size=SHARDED_RANKS)
+    try:
+        from repro_torch.kernels import ops
+        from repro_torch.launch.mesh import make_local_mesh
+
+        res = {}
+        for k, job in enumerate(TRAIN_JOBS):
+            res[k] = train_job_steps(torch, ops, job,
+                                     make_local_mesh(*job.mesh))
+            dist.barrier()
+        torch.save(res, f"{out_dir}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_of(t, layout):
+    """The rank's shard of the whole tensor ``t`` by ``layout`` (the mesh
+    coordinate, the mesh's shape, and the tensor dim each mesh dimension
+    splits or None), as DTensor splits it."""
+    coord, shape, dims = layout
+    for m, d in enumerate(dims):
+        if d is not None:
+            t = t.chunk(shape[m], dim=d)[coord[m]]
+    return t
+
+
+def train_launches(torch, cfg, S):
+    """{kernel: launches} of ``TRAIN_STEPS`` steps with remat, per rank."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.mamba import CHUNK
+
+    specs = layer_specs(cfg)
+    n_attn = sum(s.kind == "attn" for s in specs)
+    chunks = (len(specs) - n_attn) * -(-S // CHUNK)
+    route = fa.bwd_route(getattr(torch, cfg.dtype), cfg.head_dim, False)
+    want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "ssm_scan_ckpt": 2 * chunks, "ssm_scan_bwd": chunks}
+    want.update({r: n_attn * (r == route) for r in
+                 ("fa_bwd_wgmma", "fa_bwd_mma", "fa_bwd_f32")})
+    return {k: v * TRAIN_STEPS for k, v in want.items()}
+
+
+def grad_diff(got, want, sample):
+    """Step 1's gradients of two runs ({leaf: (tensor, layout, largest
+    |entry|)}): ``got``'s first ``sample`` entries of each leaf (of the
+    rank's shard by its layout, or of the whole leaf) against the same
+    entries of ``want``'s whole leaves.  Returns (the largest |got - want|
+    over the leaf's largest |want|, over the leaves, and its leaf; the
+    entries whose signs differ; the entries compared)."""
+    worst, leaf, flips, n = 0.0, None, 0, 0
+    for key, (g, layout, _) in got.items():
+        w, _, scale = want[key]
+        w = (shard_of(w, layout) if layout else w).flatten()[:sample]
+        g = g.flatten()[:sample]
+        err = float((g - w).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, leaf = err, key
+        flips += int((g.sign() != w.sign()).sum())
+        n += g.numel()
+    return worst, leaf, flips, n
+
+
+def run_moves(a, b):
+    """How far run ``b`` is from run ``a`` (``train_job_steps``' results):
+    each step's larger relative difference of the loss and the grad norm,
+    step 1's gradients (``grad_diff``) and the update's cosine."""
+    moves = [max(abs(x - y) / abs(y) for x, y in pairs) for pairs in zip(
+        zip(b["loss"], a["loss"]), zip(b["grad_norm"], a["grad_norm"]))]
+    dot = na = nb = 0.0
+    for key, (upd, layout) in b["update"].items():
+        w = a["update"][key][0]
+        upd = upd.flatten()[:UPDATE_SAMPLE].double()
+        w = (shard_of(w, layout) if layout else w).flatten()[:upd.numel()]
+        dot += float((upd * w.double()).sum())
+        na += float(upd.square().sum())
+        nb += float(w.double().square().sum())
+    return {"steps": moves, "grads": grad_diff(b["grads"], a["grads"],
+                                               GRAD_SAMPLE),
+            "cos": dot / max(math.sqrt(na * nb), 1e-300)}
+
+
+def train_sharded_on_card(torch, ops, card):
+    """Phase 32: the train step over a ("data", "model") mesh of two
+    processes sharing cuda:0 over gloo (NCCL refuses two ranks on one
+    device), each job of ``TRAIN_JOBS`` first unsharded in this process
+    (the world-1 run: the same seeded weights and batches), then in both
+    ranks; beside each, its witness (world 1 against world 1 with every
+    parameter moved by ``TRAIN_NOISE``: the f32 job itself, or for a bf16
+    job the same stack in f32 at the same init).  Checks: each rank's
+    parameter and moment bytes equal to its shards' by the rules; the
+    launches of the attention and scan kernels, forward and backward (by
+    route), on the steps, and their local shapes (half the batch rows on
+    (2, 1), half the inner channels on (1, 2)); no gradient a partial sum;
+    finite losses; for a held job the first step's loss, grad norm and
+    gradients within ``TRAIN_RTOL`` of the world-1 run, the second step's
+    loss and grad norm within ``TRAIN_RTOL`` plus 4x the witness's move,
+    and the update's cosine >= 0.99.  Returns the launches of both ranks'
+    steps, summed."""
+    import dataclasses
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import get_config
+
+    t_phase = time.perf_counter()
+    world1, witness = [], []
+    for job in TRAIN_JOBS:
+        world1.append(train_job_steps(torch, ops, job))
+        base = world1[-1]
+        if not job.held:  # bf16 cannot hold the move: f32 at the same init
+            job = job._replace(overrides={**job.overrides, **F32})
+            base = train_job_steps(torch, ops, job)
+        witness.append(run_moves(base, train_job_steps(
+            torch, ops, job, noise=TRAIN_NOISE)))
+        del base
+        torch.cuda.empty_cache()
+    t_world1 = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as d:
+        ctx = mp.spawn(train_sharded_rank, args=(f"{d}/store", d),
+                       nprocs=SHARDED_RANKS, join=False)
+        deadline = time.monotonic() + SHARDED_JOIN_S
+        try:
+            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+                require(time.monotonic() < deadline, f"the {SHARDED_RANKS} "
+                        f"ranks did not end in {SHARDED_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(SHARDED_RANKS)]
+    t_ranks = time.perf_counter() - t_phase - t_world1
+    total, fails = {}, []
+
+    def need(cond, msg):  # every job is printed before the phase fails
+        if not cond:
+            fails.append(msg)
+
+    for k, job in enumerate(TRAIN_JOBS):
+        cfg = dataclasses.replace(get_config(job.config), **job.overrides)
+        want, wit = world1[k], witness[k]
+        label = (f"{cfg.name} ({cfg.n_layers} of "
+                 f"{get_config(job.config).n_layers} layers, {cfg.dtype}, "
+                 f"{'fan-in' if job.fan_in else 'reference'} init, "
+                 f"B={job.B}, S={job.S}, mesh {job.mesh})")
+        limits = [TRAIN_RTOL] + [TRAIN_RTOL + 4 * m for m in wit["steps"][1:]]
+        n_want = train_launches(torch, cfg, job.S)
+        for r, res in enumerate(ranks):
+            got = res[k]
+            add_counts(total, got["counts"])
+            for key in ("param_bytes", "moment_bytes"):
+                need(got[key][0] == got[key][1], f"{label} rank {r}: "
+                     f"{key} {got[key][0]} held, {got[key][1]} by the rules")
+            for kernel, w in n_want.items():
+                need(got["counts"][kernel] == w, f"{label} rank {r}: "
+                     f"{kernel} launched {got['counts'][kernel]} times, want "
+                     f"{w}")
+            need(all(math.isfinite(x) for x in got["loss"] + got["grad_norm"]),
+                 f"{label} rank {r}: a loss or grad norm is not finite")
+            got.update(run_moves(want, got))
+            if job.held:
+                for i, (m, lim) in enumerate(zip(got["steps"], limits)):
+                    need(m <= lim, f"{label} rank {r}: step {i + 1}'s loss "
+                         f"{got['loss'][i]} and grad norm "
+                         f"{got['grad_norm'][i]} against the world-1 run's "
+                         f"{want['loss'][i]}, {want['grad_norm'][i]}: "
+                         f"relative difference {m:.3g} > {lim:.3g}")
+                need(got["grads"][0] <= TRAIN_RTOL, f"{label} rank {r}: "
+                     f"step 1's gradient {got['grads'][1]} differs from the "
+                     f"world-1 run's by {got['grads'][0]:.3g} of its largest "
+                     f"entry > {TRAIN_RTOL}")
+                need(got["cos"] >= 0.99, f"{label} rank {r}: the update's "
+                     f"cosine to the world-1 run's {got['cos']:.6f} < 0.99")
+            sizes = {n: v for n, v in got["counts"].items() if v}
+            print(f"phase 32 {label} rank {r}: parameters "
+                  f"{got['param_bytes'][0] / 1e9:.4f} GB of "
+                  f"{got['full_bytes'] / 1e9:.4f} (rules "
+                  f"{got['param_bytes'][1] / 1e9:.4f}), moments "
+                  f"{got['moment_bytes'][0] / 1e9:.4f} GB (rules "
+                  f"{got['moment_bytes'][1] / 1e9:.4f}), peak above the "
+                  f"state {got['peak_above_state'] / 1e9:.3f} GB (world 1 "
+                  f"{want['peak_above_state'] / 1e9:.3f}); steps "
+                  + ", ".join(f"{x:.1f}" for x in got["step_ms"])
+                  + " ms (world 1 " + ", ".join(
+                      f"{x:.1f}" for x in want["step_ms"]) + "); launches "
+                  f"{sizes}; local launch shapes {got['shapes']} [{card}]")
+        r0 = ranks[0][k]
+
+        def worst(key, i=None):
+            vals = [res[k][key] if i is None else res[k][key][i]
+                    for res in ranks]
+            return max(vals, key=lambda v: v[0] if isinstance(v, tuple)
+                       else v)
+
+        g = worst("grads")
+        wg = wit["grads"]
+        print(f"phase 32 {label}: 2 ranks vs world 1"
+              + ("" if job.held else " (printed, not held: the witness "
+                 "below)")
+              + f": losses {[f'{x:.6f}' for x in r0['loss']]} / "
+              f"{[f'{x:.6f}' for x in want['loss']]}, grad norms "
+              f"{[f'{x:.6f}' for x in r0['grad_norm']]} / "
+              f"{[f'{x:.6f}' for x in want['grad_norm']]}; relative "
+              f"difference by step "
+              + ", ".join(f"{worst('steps', i):.3g}" for i in range(
+                  TRAIN_STEPS))
+              + (" (limits " + ", ".join(f"{x:.3g}" for x in limits) + ")"
+                 if job.held else "")
+              + f"; step 1's gradients within {g[0]:.3g} of a leaf's "
+              f"largest entry (worst {g[1]}), {g[2]} of {g[3]} sampled "
+              f"entries of opposite sign; the update's cosine "
+              f"{min(res[k]['cos'] for res in ranks):.6f}; the two ranks "
+              f"share one card and move their collectives through gloo on "
+              f"the host: not a multi-card speed [{card}]")
+        print(f"phase 32 {label}: witness, world 1 against world 1 with "
+              f"every parameter moved by {TRAIN_NOISE:g} of itself"
+              + ("" if job.held else " (the same stack in float32)")
+              + ": relative move by step "
+              + ", ".join(f"{x:.3g}" for x in wit["steps"])
+              + f"; step 1's gradients within {wg[0]:.3g} (worst {wg[1]}), "
+              f"{wg[2]} of {wg[3]} sampled entries of opposite sign; the "
+              f"update's cosine {wit['cos']:.6f} [{card}]")
+    print(f"phase 32 the train step sharded over 2 ranks: "
+          f"{time.perf_counter() - t_phase:.1f} s wall (the world-1 runs "
+          f"and witnesses {t_world1:.1f} s, the ranks' from their spawn "
+          f"{t_ranks:.1f} s)")
+    require(not fails, "phase 32: " + "; ".join(fails))
+    return total
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
@@ -3804,6 +4399,11 @@ def main():
         "--only-figures", action="store_true",
         help="build the kernels, run only phase 29 (the dry run, the "
              "roofline and the figure drivers), and stop without the closing "
+             "lines")
+    parser.add_argument(
+        "--only-train-sharded", action="store_true",
+        help="build the kernels, run only phase 32 (the train step sharded "
+             "over two ranks on the card), and stop without the closing "
              "lines")
     parser.add_argument(
         "--only-sharded", action="store_true",
@@ -3901,11 +4501,22 @@ def main():
     if args.only_figures:
         figures(torch, ops, card)
         return
+    if args.only_train_sharded:
+        train_sharded_on_card(torch, ops, card)
+        return
     if args.only_sharded:
         check_decode(torch, dec)  # the log-sum-exp output phase 30 merges
         sharded_on_card(torch, ops, card)
         sharded_on_card(torch, ops, card, 31)
         return
+
+    # each phase's wall seconds, from the end of the one before
+    t_lap = [time.perf_counter()]
+
+    def lap(phases):
+        now = time.perf_counter()
+        print(f"wall: phases {phases} {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # phases 3-5: kernels against their plain versions, then times
     lags_err = check_lags(torch, lags)
@@ -3958,14 +4569,17 @@ def main():
     # (each path counted from 0 just before it runs)
     counts = {}
 
+    lap("3-5")
     # phase 6: the serving entry point on the cost model
     add_counts(counts, serve_cost_model(torch, ops, serve, t4096["ms"]))
 
+    lap("6")
     # phase 7: the main path at full width
     check_model_small(torch)
     n, qwen = serve_qwen3_8b(torch, ops, serve, times["lags_select"]["ms"])
     add_counts(counts, n)
 
+    lap("7")
     # phases 8-10: prefill, reduced on card and CPU, then at full size
     check_prefill_small(torch)
     cfg = get_config("qwen3-8b")
@@ -3976,23 +4590,25 @@ def main():
     torch.cuda.empty_cache()
     add_counts(counts, mamba_full(torch, ops))
 
-    # phases 11-13: the tick simulator and the batched fleet
+    lap("8-10")
+    # phases 11-14: the tick simulator, the batched fleet and the chaos
+    # layer, their tick loops side by side
     simulators(torch, ops, card)
 
-    # phase 14: the chaos layer on the batched fleet
-    chaos(torch, ops, card)
-
+    lap("11-14")
     # phase 15: the reduced families, card against CPU
     t0 = time.perf_counter()
     check_families_small(torch)
     print(f"phase 15 reduced families: {time.perf_counter() - t0:.1f} s wall")
 
+    lap("15")
     # phase 16: qwen2-moe-a2.7b served and prefilled at full size
     t0 = time.perf_counter()
     add_counts(counts, serve_moe(torch, ops, serve))
     torch.cuda.empty_cache()
     print(f"phase 16 qwen2-moe-a2.7b: {time.perf_counter() - t0:.1f} s wall")
 
+    lap("16")
     # phases 17-18: full width, the first 8 layers
     for phase, name in ((17, "jamba-v0.1-52b"), (18, "qwen3-moe-235b-a22b")):
         t0 = time.perf_counter()
@@ -4000,52 +4616,68 @@ def main():
         print(f"phase {phase} {name} (8 of {get_config(name).n_layers} "
               f"layers): {time.perf_counter() - t0:.1f} s wall")
 
+    lap("17-18")
     # phases 19-21: gemma3, qwen2-vl and hubert at full size
     families_full(torch, ops, counts)
 
+    lap("19-21")
     # phase 22: the training kernels against their plain versions
     check_flash_train(torch, fa)
     fa_bwd_err = check_flash_bwd_wgmma(torch, fa)
     check_decode_positions(torch, dec)
     ssm_bwd_err = check_ssm_train(torch, ssm)
 
+    lap("22")
     # phase 23: the backward kernels' times at the training shapes
     (times["flash_attention_bwd"], fa_bwd_qwen,
      times["ssm_scan_bwd"]) = backward_times(torch, fa, ssm, card)
 
+    lap("23")
     # phase 24: reduced train steps, card against CPU
     t0 = time.perf_counter()
     check_train_small(torch)
     print(f"phase 24 reduced train steps: {time.perf_counter() - t0:.1f} s "
           f"wall")
 
+    lap("24")
     # phase 25: stablelm-1.6b at full width and depth through the train CLI
     add_counts(counts, train_stablelm(torch, ops))
     torch.cuda.empty_cache()
 
+    lap("25")
     # phase 26: full width, cut depth
     for name, n_layers, B, S in (("qwen3-8b", 4, 4, 2048),
                                  ("falcon-mamba-7b", 8, 2, 1024)):
         add_counts(counts, train_cut_depth(torch, ops, name, n_layers, B, S))
         torch.cuda.empty_cache()
 
+    lap("26")
     # phase 27: checkpoint, kill and resume on the card
     resume_on_card()
 
+    lap("27")
     # phase 28: the multi-device layer on a world-1 NCCL group
     n, _ = distributed_on_card(torch, ops, card)
     add_counts(counts, n)
 
+    lap("28")
     # phase 29: the dry run, the roofline and the figure drivers
     add_counts(counts, figures(torch, ops, card))
 
+    lap("29")
     # phase 30: prefill and decode sharded over two ranks on the card
     add_counts(counts, sharded_on_card(torch, ops, card))
 
+    lap("30")
     # phase 31: the MoE, hybrid, windowed, vision and encoder-only families
     # sharded over two ranks on the card
     add_counts(counts, sharded_on_card(torch, ops, card, 31))
 
+    lap("31")
+    # phase 32: the train step sharded over two ranks on the card
+    add_counts(counts, train_sharded_on_card(torch, ops, card))
+
+    lap("32")
     kernels = [
         dict(name="lags_select", route="cuda", kernel="lags_cluster_select",
              source="src/repro_torch/kernels/csrc/lags_select.cu",

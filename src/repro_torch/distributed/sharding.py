@@ -22,9 +22,9 @@ names.  Without a mesh it returns ``x`` itself; a DTensor is redistributed
 to the resolved placements (the collectives that XLA's partitioner inserts
 in the reference); a plain tensor under a mesh of one device is returned as
 it is (the constraint holds trivially, as it does in JAX).  A plain tensor
-under a larger mesh raises ``NotImplementedError``: prefill and decode run
-sharded with every activation a DTensor from the embedding on, so a plain
-tensor there is a leak; sharded training is not ported.
+under a larger mesh raises ``NotImplementedError``: prefill, decode and
+training run sharded with every activation a DTensor from the embedding
+on, so a plain tensor there is a leak.
 
 Every redistribution (``redistribute``: ``constrain``'s, ``distribute``'s
 and ``full``'s) runs its collectives through ``torch.distributed``'s own
@@ -44,6 +44,21 @@ rank's shard (``local``) with the collective explicit (``psum``, ``pmax``
 over the mesh axes that shard a dimension, ``shard_axes``) and wrap the
 result back (``from_local``); ``local_offset`` gives where a rank's shard
 starts, and ``zeros`` allocates only the rank's shard of a tensor.
+
+Under autograd (sharded training) every move carries its gradient.  A
+redistribution is the identity on the whole tensor, so its gradient is the
+incoming gradient redistributed to the input's placements
+(``_Redistribute``): a gather's gradient is reduce-scattered where it
+arrives as a partial sum and chunked where it arrives the same on every
+rank, a reduction's (``Partial()`` in) is the replicated gradient, a
+chunk's is gathered.  ``from_local`` does the same for the rank's shard.
+``local`` states what the rank's gradient of its shard is: the shard of
+the whole gradient, or, on the mesh axes named in its ``partial``, where
+the tensor is replicated but each rank works on its own part, the rank's
+term of a sum.  ``psum``'s gradient passes as it is (every rank's
+consumers of the sum are the same), and ``reduce_grad`` sums a gradient
+over the ranks whose consumers differ (Megatron's f and g).  No move goes
+through DTensor's own redistribution, forward or backward.
 """
 from __future__ import annotations
 
@@ -52,6 +67,9 @@ import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
+import torch.distributed as dist
 
 # logical axis -> physical mesh axis (or tuple of axes)
 TRAIN_RULES = {
@@ -151,6 +169,17 @@ def active_mesh():
     return _CTX.mesh
 
 
+def recompute_context():
+    """A ``context_fn`` for ``torch.utils.checkpoint`` (non-reentrant) that
+    makes the active mesh and rules active again while the backward pass
+    recomputes the forward: on a card autograd runs that in its own
+    thread, where the thread-local context is empty."""
+    from contextlib import nullcontext
+
+    mesh, rules = _CTX.mesh, _CTX.rules
+    return lambda: (nullcontext(), sharding_ctx(mesh, rules))
+
+
 def to_pspec(logical, rules: Optional[dict] = None, mesh=None,
              shape: Optional[tuple] = None) -> PartitionSpec:
     """Resolve logical axis names to a PartitionSpec for the mesh.
@@ -233,8 +262,7 @@ def constrain(x, *logical):
         return x
     raise NotImplementedError(
         f"a plain tensor under a mesh of {mesh.size()} devices (spec "
-        f"{spec}): on several devices only DTensors run (prefill and decode); "
-        f"sharded training is not ported")
+        f"{spec}): on several devices only DTensors run")
 
 
 def named_sharding(logical, mesh=None, rules=None) -> NamedSharding:
@@ -253,10 +281,19 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def local(x):
+def local(x, partial=()):
     """The rank's shard of a DTensor (``to_local()``); anything else as it
-    is."""
-    return x.to_local() if is_dtensor(x) else x
+    is.  Under autograd the shard's gradient is the rank's shard of the
+    whole gradient, except on the mesh axes named in ``partial`` where
+    ``x`` is replicated: there each rank works on its own part of the
+    tensor's uses, and its gradient is the rank's term of a sum
+    (``Partial()``), which the next redistribution of the gradient sums."""
+    if not is_dtensor(x):
+        return x
+    if not _needs_grad(x):
+        return x.to_local()
+    return x.to_local(grad_placements=_grad_placements(
+        x.placements, x.device_mesh, partial))
 
 
 def _chunk(t, mesh, pl):
@@ -283,7 +320,6 @@ def _contiguous_strides(shape) -> tuple:
 
 
 def _place(t, spec, mesh):
-    import torch
     from torch.distributed.tensor import DTensor
 
     if not isinstance(t, torch.Tensor):
@@ -334,6 +370,41 @@ def _alone(placements, m, d, ndim) -> bool:
                    for k, q in enumerate(placements) if k != m)
 
 
+def _grad_placements(pl, mesh=None, partial=()) -> tuple:
+    """The placements of the gradient of a tensor placed by ``pl``: a
+    ``Partial()`` term's gradient is the whole (replicated) gradient; on
+    the mesh axes of more than one rank named in ``partial`` where ``pl``
+    replicates, the rank's term of a sum (``Partial()``)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    def summed(m):
+        return bool(partial) and mesh.mesh_dim_names[m] in partial and \
+            mesh.size(m) > 1
+
+    return tuple(Partial() if summed(m) and p.is_replicate() else
+                 Replicate() if p.is_partial() else p
+                 for m, p in enumerate(pl))
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+class _Redistribute(torch.autograd.Function):
+    """``redistribute`` with its gradient: the incoming gradient
+    redistributed to the input's placements."""
+
+    @staticmethod
+    def forward(ctx, x, target):
+        ctx.placements = tuple(x.placements)
+        return _move(x, target)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, _grad_placements(ctx.placements)), None
+
+
 def redistribute(x, target):
     """The DTensor ``x`` with placements ``target`` on its mesh: first each
     mesh dimension that changes is summed (Partial: ``all_reduce``, or
@@ -342,15 +413,24 @@ def redistribute(x, target):
     dimensions first; then each that the target splits takes the rank's
     chunk.  A mesh dimension of one rank moves nothing: its shard or its
     sum is the whole (with gloo, a collective of a CUDA tensor would cross
-    the host even then).  Values as ``DTensor.redistribute``'s."""
-    import torch
-    import torch.distributed as dist
+    the host even then).  Values as ``DTensor.redistribute``'s.  Under
+    autograd its gradient is the incoming gradient redistributed to
+    ``x``'s placements (a ``Partial()`` one's replicated), by the same
+    collectives."""
+    target = tuple(target)
+    if tuple(x.placements) == target:
+        return x
+    if _needs_grad(x):
+        return _Redistribute.apply(x, target)
+    return _move(x, target)
+
+
+def _move(x, target):
+    """``redistribute``'s collectives, outside autograd."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    mesh, target = x.device_mesh, tuple(target)
+    mesh = x.device_mesh
     cur = list(x.placements)
-    if tuple(cur) == target:
-        return x
     t = x.to_local()
     for m in reversed(range(mesh.ndim)):
         p = cur[m]
@@ -407,16 +487,21 @@ def full(x):
 def gathered(w):
     """A parameter with its FSDP split gathered: the mesh axes that the
     active rules give "embed_p" replicated, the others as they are (the
-    weights' all-gather before a product, as XLA places it)."""
+    weights' all-gather before a product, as XLA places it).  A split over
+    a mesh axis of one rank is taken as replicated too (nothing moves):
+    the rules keep such a split (one KV head over a one-rank "model"
+    axis), and DTensor refuses to reshape a split dimension of size 1."""
     if not is_dtensor(w):
         return w
     from torch.distributed.tensor import Replicate
 
     fsdp = _CTX.rules.get("embed_p")
     fsdp = (fsdp,) if isinstance(fsdp, str) else tuple(fsdp or ())
-    names = w.device_mesh.mesh_dim_names
-    return redistribute(w, [Replicate() if names[m] in fsdp else p
-                            for m, p in enumerate(w.placements)])
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    return redistribute(w, [
+        Replicate() if names[m] in fsdp or mesh.size(m) == 1 else p
+        for m, p in enumerate(w.placements)])
 
 
 def shard_axes(x, dim: int) -> tuple:
@@ -444,38 +529,132 @@ def local_offset(x, dim: int) -> int:
     return idx * x.to_local().shape[dim]
 
 
-def _all_reduce(t, axes, op):
-    import torch.distributed as dist
-
-    mesh = _CTX.mesh
+def _all_reduce(t, axes, op, mesh=None):
+    mesh = mesh if mesh is not None else _CTX.mesh
     for a in axes:
         if axis_sizes(mesh)[a] > 1:
             dist.all_reduce(t, op=op, group=mesh.get_group(a))
     return t
 
 
-def psum(t, axes):
-    """Sum the plain tensor ``t`` (in place) over the ranks of the active
-    mesh's ``axes``: the explicit all-reduce of a partial product."""
-    import torch.distributed as dist
+def _summed(axes, mesh=None):
+    """The axes of ``axes`` with more than one rank on ``mesh`` (default:
+    the active mesh)."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    return tuple(a for a in axes if sizes.get(a, 1) > 1)
 
-    return _all_reduce(t, axes, dist.ReduceOp.SUM)
+
+class _PSum(torch.autograd.Function):
+    """All-reduce forward; the gradient passes as it is."""
+
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        return _all_reduce(t.clone(), axes, dist.ReduceOp.SUM, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """The identity forward; the gradient all-reduced (the mesh kept: on a
+    card the backward runs in autograd's own thread, where no sharding
+    context is active)."""
+
+    @staticmethod
+    def forward(ctx, t, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.axes, dist.ReduceOp.SUM,
+                           ctx.mesh), None, None
+
+
+def psum(t, axes, mesh=None):
+    """Sum the plain tensor ``t`` over the ranks of ``axes`` of ``mesh``
+    (default: the active mesh): the explicit all-reduce of a partial
+    product, in place outside autograd.  Under autograd the sum is a new
+    tensor and its gradient passes to each rank's term as it is
+    (Megatron's g): every rank's consumers of the sum must be the same, so
+    that the gradient that arrives is the whole one on every rank."""
+    mesh = mesh if mesh is not None else _CTX.mesh
+    axes = _summed(axes, mesh)
+    if axes and _needs_grad(t):
+        return _PSum.apply(t, axes, mesh)
+    return _all_reduce(t, axes, dist.ReduceOp.SUM, mesh)
+
+
+def reduce_grad(t, axes):
+    """``t`` as it is, for a value that is the same on every rank of the
+    active mesh's ``axes`` and that each rank uses for its own part of the
+    work: under autograd its gradient, each rank's term, is summed over
+    those ranks (Megatron's f)."""
+    axes = _summed(axes)
+    if axes and _needs_grad(t):
+        return _ReduceGrad.apply(t, axes, _CTX.mesh)
+    return t
 
 
 def pmax(t, axes):
-    """``psum``'s maximum."""
-    import torch.distributed as dist
-
+    """``psum``'s maximum, in place and without a gradient (the choices it
+    serves, a softmax's shift and the position masks, take none)."""
     return _all_reduce(t, axes, dist.ReduceOp.MAX)
 
 
-def from_local(t, shape, *logical, partial=()):
+class _FromLocal(torch.autograd.Function):
+    """``DTensor.from_local`` whose gradient is moved to the placements of
+    ``_grad_placements`` by ``redistribute`` (not by DTensor's own
+    collectives) before its local shard is handed back."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, pl, shape, grad_pl):
+        from torch.distributed.tensor import DTensor
+
+        ctx.grad_pl = grad_pl
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                  stride=_contiguous_strides(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        return (redistribute(g, ctx.grad_pl).to_local(), None, None, None,
+                None)
+
+
+def wrap_local(t, mesh, pl, shape=None, partial_grad=()):
+    """``DTensor.from_local(t, mesh, pl)`` (``t`` the rank's shard, which
+    must split evenly where no ``shape`` is given).  Under autograd the
+    gradient that comes back is redistributed to ``pl`` (a ``Partial()``
+    placement's to the replicated gradient), except on the mesh axes
+    named in ``partial_grad``, where ``t`` is the same on every rank but
+    each rank's consumers of it differ: there the rank keeps its term."""
+    from torch.distributed.tensor import DTensor
+
+    pl = tuple(pl)
+    if shape is None:
+        shape = list(t.shape)
+        for m, p in enumerate(pl):
+            if p.is_shard():
+                shape[p.dim % t.dim()] *= mesh.size(m)
+    shape = tuple(shape)
+    if not _needs_grad(t):
+        return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
+                                  stride=_contiguous_strides(shape))
+    return _FromLocal.apply(t, mesh, pl, shape, _grad_placements(
+        pl, mesh, partial_grad))
+
+
+def from_local(t, shape, *logical, partial=(), partial_grad=()):
     """``t``, the rank's shard of a ``shape`` tensor laid out by the logical
     axes under the active mesh and rules, as a DTensor.  On the mesh axes
     named in ``partial`` it is instead a partial sum (``Partial()``): each
     rank holds a term, which the next ``constrain`` sums over those axes
-    (``redistribute``: an all-reduce, or a reduce-scatter onto a split)."""
-    from torch.distributed.tensor import DTensor, Partial
+    (``redistribute``: an all-reduce, or a reduce-scatter onto a split).
+    Under autograd, ``wrap_local``'s gradient (``partial_grad``: the axes
+    where each rank keeps its term of the gradient)."""
+    from torch.distributed.tensor import Partial
 
     mesh = _CTX.mesh
     shape = tuple(shape)
@@ -486,15 +665,12 @@ def from_local(t, shape, *logical, partial=()):
                 raise ValueError(f"mesh axis {name} both splits and sums a "
                                  f"{shape} tensor")
             pl[m] = Partial()
-    return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
-                              stride=_contiguous_strides(shape))
+    return wrap_local(t, mesh, pl, shape, partial_grad)
 
 
 def zeros(shape, dtype, logical, device):
     """A DTensor of zeros of ``shape``, laid out by the logical axes under
     the active mesh and rules, allocating only the rank's shard."""
-    import torch
-
     mesh = _CTX.mesh
     pl = placements(to_pspec(logical, shape=tuple(shape)), mesh)
     local_shape = list(shape)

@@ -10,6 +10,15 @@ kernel on a card, its plain version on the CPU) and wraps each output with
 ``DTensor.from_local``.  Any other placement raises: no argument is
 gathered to a full tensor, and nothing falls back.  The launch counters
 count each rank's launches.
+
+Under autograd the wrapper's own gradient (``FlashAttentionFn``,
+``SSMScanFn``: the backward kernels on a card) runs on the same shards,
+and the gradients go back through ``sharding.local`` and
+``sharding.wrap_local``, never through DTensor's redistribution: each
+output's gradient is moved to the output's placements, and an argument's
+gradient is the rank's shard of the whole one, or, for an argument
+replicated over a mesh dimension that splits the work (the scan's C over
+the inner channels), the rank's term of a sum (``Partial()``).
 """
 from __future__ import annotations
 
@@ -67,14 +76,19 @@ def on_shards(name: str, fn, args, shards, out_shards):
                 raise NotImplementedError(
                     f"{name}: mesh dimension {m} shards {role}, but a "
                     f"{tuple(a.shape)} argument has {p} there")
-    out = fn(*(None if a is None else a.to_local() for a in args))
+    from repro_torch.distributed import sharding as sh
+
+    split = tuple(n for n, role in zip(mesh.mesh_dim_names, roles)
+                  if role is not None)
+    out = fn(*(None if a is None else sh.local(a, partial=split)
+               for a in args))
 
     def wrap(t, s):
         pl = [Replicate()] * mesh.ndim
         for m, role in enumerate(roles):
             if role is not None:
                 pl[m] = Shard(_dim_of(s, role))
-        return DTensor.from_local(t, mesh, pl, run_check=False)
+        return sh.wrap_local(t, mesh, pl)
 
     if isinstance(out_shards, dict):
         return wrap(out, out_shards)

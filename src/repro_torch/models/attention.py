@@ -72,6 +72,13 @@ each rank's shards:
   heads as prefill, the same range given as kv_start and kv_len.
 * Windows and given positions in prefill need nothing more: the kernel
   takes the window, and the positions (B, S) split by batch as q is.
+* Training (no cache) runs prefill's path with gradients: they come back
+  through the kernel's backward on each rank's shards, through the
+  gathers of ``_qkv`` and ``_out`` (``sharding.redistribute``'s
+  transposes), and, where a rank reads its slice of heads replicated over
+  "model" (``_paired``, ``_padded``), summed over "model"
+  (``sharding.reduce_grad``); the padded heads' gradients are dropped
+  with them.
 """
 from __future__ import annotations
 
@@ -188,8 +195,10 @@ def _paired(q, k, v, cfg: ModelConfig):
         return k, v
     hl = cfg.n_heads // tp
     heads = range(r * hl, (r + 1) * hl)
-    return tuple(_heads_dtensor(_kv_for(sh.local(t), heads, cfg.q_per_kv), tp,
-                                q.shape[0]) for t in (k, v))
+    # each rank reads its own KV heads: their gradients summed over "model"
+    return tuple(_heads_dtensor(_kv_for(sh.reduce_grad(
+        sh.local(t), ("model",)), heads, cfg.q_per_kv), tp, q.shape[0])
+        for t in (k, v))
 
 
 def _padded(q, k, v, cfg: ModelConfig):
@@ -201,7 +210,8 @@ def _padded(q, k, v, cfg: ModelConfig):
     tp, r = _model_rank(q)
     H, hl = cfg.n_heads, -(-cfg.n_heads // tp)
     heads = range(r * hl, min((r + 1) * hl, H))
-    ql, kl, vl = (sh.local(t) for t in (q, k, v))
+    # each rank reads its own heads: their gradients summed over "model"
+    ql, kl, vl = (sh.reduce_grad(sh.local(t), ("model",)) for t in (q, k, v))
     idx = torch.tensor([h // cfg.q_per_kv for h in heads], dtype=torch.long,
                        device=kl.device)
 

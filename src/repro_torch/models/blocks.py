@@ -18,13 +18,17 @@ no layer is MoE.
 keeping its activations, the reference's per-layer ``jax.checkpoint``: the
 layer runs under ``torch.utils.checkpoint`` (non-reentrant), which keeps
 only the layer's input, and gives the gradients of ``remat=False``.
+Under a mesh the recomputation issues the layer's collectives again, in the
+same order on every rank, with the sharding context made active again
+(``sharding.recompute_context``: on a card autograd recomputes in its own
+thread).
 """
 from __future__ import annotations
 
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_specs
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, recompute_context
 from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import rms_norm
 
@@ -66,7 +70,8 @@ def apply_stack(cfg: ModelConfig, layers: list, x, rope, cache,
     for spec, p, c in zip(specs, layers, cache, strict=True):
         if remat:
             x, a = checkpoint(apply_layer, cfg, spec, p, x, rope, c,
-                              cache_len, kv_len, pos, use_reentrant=False)
+                              cache_len, kv_len, pos, use_reentrant=False,
+                              context_fn=recompute_context())
         else:
             x, a = apply_layer(cfg, spec, p, x, rope, c, cache_len, kv_len,
                                pos)

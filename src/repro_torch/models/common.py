@@ -5,15 +5,17 @@ statistics and ``apply_rope`` in the GPT-NeoX convention, with cos/sin cast
 to the activation dtype as the reference casts them.  The reference's
 ``apply_rope`` computes its angles inside; the port splits them out
 (``rope_angles``, M-RoPE's sections included) so that a forward computes
-them once for every layer.  ``softmax_cross_entropy`` is the reference's
-loss, the ratio of ``masked_nll``'s (sum, count), which the chunked loss
-sums over its chunks.
+them once for every layer.  The reference's ``softmax_cross_entropy`` is
+the ratio of ``masked_nll``'s (sum, count), which the chunked loss sums
+over its chunks; ``masked_nll`` takes logits split over the vocab across
+ranks, the unsplit logits being its one-rank case.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as sh
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -69,20 +71,29 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def masked_nll(logits, labels, mask=None):
+def masked_nll(logits, labels, mask=None, vocab=(), v0=0):
     """(sum of the NLL over masked positions, sum of the mask), f32; logits
-    (..., V) promoted to f32.  No mask counts every position."""
+    (..., V) promoted to f32.  No mask counts every position.
+
+    The logits may be the rank's columns v0.. of logits split over the mesh
+    axes ``vocab`` of the active mesh, the labels and mask its rows: the
+    log-sum-exp takes its shift, the largest logit of every rank, without
+    a gradient, and sums the exponentials over the ranks with one
+    (``sharding.psum``); each label's logit comes from the rank that holds
+    its column.  Unsplit (no axes, v0 = 0) every sum is the rank's own.
+    The sums are over the rank's rows."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    m = sh.pmax(logits.detach().amax(dim=-1), vocab)
+    lse = torch.log(sh.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                            vocab)) + m
+    idx = labels.long() - v0
+    hit = (idx >= 0) & (idx < logits.shape[-1])
+    ll = torch.gather(logits, -1, idx.clamp(
+        0, logits.shape[-1] - 1)[..., None])[..., 0]
+    ll = sh.psum(torch.where(hit, ll, torch.zeros_like(ll)), vocab)
     nll = lse - ll
     if mask is None:
         return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
     mask = mask.float()
     return (nll * mask).sum(), mask.sum()
 
-
-def softmax_cross_entropy(logits, labels, mask=None):
-    """Mean CE over masked positions.  logits: (..., V) promoted to f32."""
-    total, count = masked_nll(logits, labels, mask)
-    return total / count.clamp_min(1.0)

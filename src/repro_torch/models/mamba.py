@@ -31,6 +31,16 @@ channels, so its partial output is summed over the ranks (an explicit
 all-reduce) before the dt, B and C split; ``ssm_scan`` gets DTensors split
 over batch and inner channels and runs on each rank's shard; ``out_proj``
 is row-parallel, its partial sums reduced by the output's constraint.
+
+In training the gradients take the same way back: ``in_proj``'s gathered
+output takes the rank's chunk of the gradient of x and z, the FSDP gathers
+reduce-scatter the weights' gradients, and the scan's backward runs on
+each rank's shards.  Inside the rank's channels, a tensor that is the same
+on every rank of "model" (x_proj's summed output and its dt, B and C
+parts) carries each rank's term of its gradient, summed once where the sum
+was taken (``sharding.reduce_grad``); the parameters replicated over the
+batch axes carry the rank's rows' term, which the train step's constraint
+of the gradients sums.
 """
 from __future__ import annotations
 
@@ -81,12 +91,14 @@ def _scan(dA, dBx, C, h0, B: int, I: int, sharded: bool):
     if not sharded:
         return ops.ssm_scan(dA, dBx, C, h0)
     S, N = dA.shape[1], dA.shape[3]
+    dA, dBx = (sh.from_local(t, (B, S, I, N), "batch", "seq", "ssm_inner",
+                             "ssm_state") for t in (dA, dBx))
     y, h = ops.ssm_scan(
-        sh.from_local(dA, (B, S, I, N), "batch", "seq", "ssm_inner",
-                      "ssm_state"),
-        sh.from_local(dBx, (B, S, I, N), "batch", "seq", "ssm_inner",
-                      "ssm_state"),
-        sh.from_local(C, (B, S, N), "batch", "seq", "ssm_state"),
+        dA, dBx,
+        # the same C on every rank of the inner axes, read for the rank's
+        # channels: its gradient stays each rank's term (see mamba_mixer)
+        sh.from_local(C, (B, S, N), "batch", "seq", "ssm_state",
+                      partial_grad=sh.shard_axes(dA, 2)),
         sh.from_local(h0, (B, I, N), "batch", "ssm_inner", "ssm_state"))
     return sh.local(y), sh.local(h)
 
@@ -105,9 +117,13 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
                    None)
     xin = constrain(xz[..., :I], "batch", "seq", "ssm_inner")
     z = constrain(xz[..., I:], "batch", "seq", "ssm_inner")
-    # from here on each rank's inner channels, with the parameters' shards
+    # from here on each rank's inner channels, with the parameters' shards;
+    # a parameter replicated over the batch axes takes the gradient of the
+    # rank's rows only, which the gradients' constraint sums
     sharded, inner = sh.is_dtensor(xin), sh.shard_axes(xin, 2)
-    p = {k: sh.local(v) for k, v in params.items()}
+    rows = sh.shard_axes(xin, 0)
+    p = {k: sh.local(v, partial=rows) for k, v in params.items()
+         if k not in ("in_proj", "out_proj")}
     xin, z = sh.local(xin), sh.local(z)
     Bl, Il = xin.shape[0], xin.shape[2]
     conv0 = (torch.zeros((Bl, W - 1, Il), dtype=dt_, device=xin.device)
@@ -117,7 +133,10 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     xc = F.silu(_conv_shift(x_pad, p["conv_w"].to(dt_), p["conv_b"].to(dt_),
                             S))
 
-    xdb = sh.psum(xc @ p["x_proj"].to(dt_), inner)  # partial over inner
+    # partial over inner; then the same on every rank, but each reads it
+    # for its own channels (dt_proj, dBx and the scan's C): its gradient,
+    # each rank's term, is summed over inner
+    xdb = sh.reduce_grad(sh.psum(xc @ p["x_proj"].to(dt_), inner), inner)
     dt_raw, Bm, Cm = xdb[..., :R], xdb[..., R:R + N], xdb[..., R + N:]
     dt = F.softplus((dt_raw @ p["dt_proj"].to(dt_)).float()
                     + p["dt_bias"])  # (B, S, I) f32

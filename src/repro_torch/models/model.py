@@ -43,8 +43,16 @@ updated in place (the reference returns a new one).
   embeddings and the positions are distributed by ("batch", None, None),
   each rank writes the vision rows of its batch rows and builds cos and
   sin from its rows' positions, and the MoE layers run each rank's
-  experts (``models/moe.py``).  Training raises ``NotImplementedError``
-  under a mesh of several devices.
+  experts (``models/moe.py``).
+* Training runs sharded too, for the stacks of attention layers without a
+  window and Mamba layers with dense MLPs or none, on tokens
+  (``trains_sharded``: qwen3-8b, stablelm-1.6b, mistral-nemo-12b,
+  falcon-mamba-7b): the gradients flow back through the same collectives
+  (``sharding.redistribute``'s transposes), and the loss is taken over
+  logits split by vocab and rows split by batch (``common.masked_nll``,
+  ``chunked_lm_loss``), summed over the batch ranks before the division.
+  The other families raise ``NotImplementedError`` under a mesh of
+  several devices.
 """
 from __future__ import annotations
 
@@ -58,7 +66,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import blocks
 from repro_torch.models.common import (dtype_of, masked_nll, rms_norm,
-                                       rope_angles, softmax_cross_entropy)
+                                       rope_angles)
 from repro_torch.models.params import ParamSpec, param_specs
 from repro_torch.train.tree import map_tree
 
@@ -117,21 +125,31 @@ def unembed_matrix(params, cfg: ModelConfig):
     return sh.gathered(params["unembed"])
 
 
+def trains_sharded(cfg: ModelConfig) -> bool:
+    """Whether the config trains over a mesh: a token stack of attention
+    layers without a window and Mamba layers, with dense MLPs or none."""
+    return (cfg.frontend == "none" and not cfg.encoder_only and all(
+        s.window is None and s.mlp in ("dense", "none")
+        for s in layer_specs(cfg)))
+
+
 def _mesh_check(params, cfg: ModelConfig, training: bool = False) -> bool:
     """Whether the entry point runs sharded: the parameters are DTensors
     (placed by ``distribute``), under an active mesh.  Training raises
-    ``NotImplementedError`` under a mesh of several devices."""
+    ``NotImplementedError`` under a mesh of several devices where the
+    config is not one that ``trains_sharded``."""
     mesh = sh.active_mesh()
     sharded = sh.is_dtensor(params["embed"])
     if sharded and mesh is None:
         raise ValueError("DTensor parameters need an active mesh "
                          "(sharding_ctx(mesh, rules))")
     n = mesh.size() if mesh is not None else 1
-    if training and (n > 1 or sharded):
+    if training and (n > 1 or sharded) and not trains_sharded(cfg):
         raise NotImplementedError(
-            f"{cfg.name} under a mesh of {n} devices: sharded training (FSDP "
-            f"over \"data\", gradients through the collectives): not ported "
-            f"yet; prefill and decode run sharded")
+            f"{cfg.name} under a mesh of {n} devices: sharded training runs "
+            f"the dense attention and Mamba stacks only; the MoE, windowed, "
+            f"vision and encoder-only families are not ported yet (prefill "
+            f"and decode run sharded)")
     return sharded
 
 
@@ -291,30 +309,52 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
     return _logits(params, cfg, x), cache
 
 
-def _chunk_nll(xc, w, tc, mc):
-    """``masked_nll`` of one chunk; its (B, chunk, V) logits in f32 live
-    only inside this call."""
-    return masked_nll(constrain(xc @ w, "batch", "seq", "vocab"), tc, mc)
+def _chunk_nll(xc, w, tc, mc, vocab, v0):
+    """``masked_nll`` of one chunk, every argument the rank's local shard
+    (the logits split over the mesh axes ``vocab``, columns v0.. of the
+    whole); its (B, chunk, V) logits in f32 live only inside this call."""
+    return masked_nll(xc @ w, tc, mc, vocab=vocab, v0=v0)
 
 
 def chunked_lm_loss(params, cfg: ModelConfig, x, targets, mask,
                     chunk: int = 512):
     """Mean masked NLL of the unembedded x (B, S, M); above ``chunk`` rows S
     must be a multiple of it, and each chunk's logits are recomputed in the
-    backward pass instead of kept (the reference's ``jax.checkpoint``)."""
+    backward pass instead of kept (the reference's ``jax.checkpoint``).
+
+    On DTensors x is gathered over the sequence, so that each rank holds
+    whole rows of its batch shard, times its columns of the vocab-split
+    (M, V) unembedding; each chunk's NLL is taken on the rank's shards
+    (``masked_nll`` over the vocab axes), and the masked sum and the count
+    are summed over the batch axes before the division, as the
+    reference's global mean.  x's gradient on each rank is its columns'
+    term (summed over the vocab axes by the gather's transpose), the
+    unembedding's its rows' term (summed over the batch axes by the FSDP
+    gather's).  Plain tensors are the one-rank case: no axes, every sum
+    the rank's own."""
     B, S, M = x.shape
-    w = unembed_matrix(params, cfg).to(x.dtype)
-    if S <= chunk:
-        return softmax_cross_entropy(
-            constrain(x @ w, "batch", "seq", "vocab"), targets, mask)
-    if S % chunk:
+    if S > chunk and S % chunk:
         raise ValueError(f"S={S} must be a multiple of the loss chunk {chunk}")
-    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    w = unembed_matrix(params, cfg).to(x.dtype)
+    x = constrain(x, "batch", "seq", None)
+    vocab, rows = sh.shard_axes(w, 1), sh.shard_axes(x, 0)
+    if sh.shard_axes(targets, 0) != rows or sh.shard_axes(mask, 0) != rows:
+        raise ValueError("the targets and the mask must split their rows as "
+                         "the activations do")
+    xl, wl = sh.local(x, partial=vocab), sh.local(w, partial=rows)
+    tl, ml = sh.local(targets), sh.local(mask)
+    v0 = sh.local_offset(w, 1)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=xl.device)
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
-        t, n = checkpoint(_chunk_nll, x[:, sl], w, targets[:, sl], mask[:, sl],
-                          use_reentrant=False)
+        args = (xl[:, sl], wl, tl[:, sl], ml[:, sl], vocab, v0)
+        if S <= chunk:
+            t, n = _chunk_nll(*args)
+        else:  # every rank recomputes its chunks' collectives in order
+            t, n = checkpoint(_chunk_nll, *args, use_reentrant=False,
+                              context_fn=sh.recompute_context())
         tot, cnt = tot + t, cnt + n
+    tot, cnt = sh.psum(torch.stack([tot, cnt]), rows)
     return tot / cnt.clamp_min(1.0)
 
 
@@ -324,20 +364,24 @@ def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     batch: "tokens" (B, S) (or "frames" (B, S, M)), "targets" (B, S), and
     optionally "loss_mask" (B, S), "positions", "vision_embeds".  Returns
     (loss = nll + 0.01 aux, {"nll", "aux"}) as 0-dim f32 tensors; with
-    ``remat`` each layer is recomputed in the backward pass."""
-    _mesh_check(params, cfg, training=True)
+    ``remat`` each layer is recomputed in the backward pass.  Sharded
+    (DTensor parameters under a mesh; ``trains_sharded`` configs), the
+    batch entries are placed by their logical axes unless they are
+    DTensors already, and the loss is replicated: every rank's the
+    same."""
+    sharded = _mesh_check(params, cfg, training=True)
     dev = _start(params, cfg, device)
-    x = _embed(params, cfg, batch, dev)
+    x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
-    rope, pos = _rope(cfg, batch, B, S, 0, dev)
+    rope, pos = _rope(cfg, batch, B, S, 0, dev, sharded)
     x, aux = blocks.apply_stack(cfg, params["layers"], x, rope, None, pos=pos,
                                 remat=remat)
     x = constrain(rms_norm(x, params["final_norm"], cfg.norm_eps), "batch",
                   "seq_sp", None)
-    targets = torch.as_tensor(batch["targets"], device=dev)
-    mask = (torch.as_tensor(batch["loss_mask"], device=dev)
-            if "loss_mask" in batch
-            else torch.ones((B, S), dtype=torch.float32, device=dev))
+    targets = _batch_tensor(batch["targets"], dev, sharded, "batch", None)
+    mask = _batch_tensor(batch["loss_mask"] if "loss_mask" in batch else
+                         torch.ones((B, S), dtype=torch.float32, device=dev),
+                         dev, sharded, "batch", None)
     nll = chunked_lm_loss(params, cfg, x, targets, mask)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
     loss = nll + 0.01 * aux

@@ -6,6 +6,12 @@ operations, and cast back.  ``apply_updates`` writes the new parameters and
 moments into the tensors it is given (the reference's jitted step donates
 its state), so a step holds no second copy of the 12 bytes a parameter of
 state; the tensors of the returned state are those of the one passed in.
+
+Sharded (DTensor leaves, the gradients in the parameters' placements), the
+moments and the update are elementwise on each rank's local shards, and
+``step`` is replicated.  The clip norm is the whole tree's: each leaf sums
+the squares of its local shard, and those sums are added over the mesh
+axes that split the leaf (a replicated leaf counts once).
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.train.tree import leaves, map_tree
 
 
@@ -37,11 +44,20 @@ class OptState(NamedTuple):
 
 
 def init_state(params) -> OptState:
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                    device=p.device)
-    dev = leaves(params)[0].device
-    return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    mu=map_tree(zeros32, params), nu=map_tree(zeros32, params))
+    """Zero moments in f32 (a DTensor parameter's laid out as it is, each
+    rank allocating its shard) and step 0 (replicated where the parameters
+    are DTensors)."""
+    zeros32 = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=torch.float32, requires_grad=False)
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if sh.is_dtensor(first):
+        from torch.distributed.tensor import Replicate
+
+        step = sh.wrap_local(step, first.device_mesh,
+                             [Replicate()] * first.device_mesh.ndim)
+    return OptState(step=step, mu=map_tree(zeros32, params),
+                    nu=map_tree(zeros32, params))
 
 
 def schedule(cfg: OptConfig, step):
@@ -55,9 +71,26 @@ def schedule(cfg: OptConfig, step):
 
 
 def global_norm(tree) -> torch.Tensor:
-    total = 0
+    """The square root of the sum of every leaf's squares, in f32.  A
+    DTensor leaf's local sum is added over the mesh axes that split it
+    (one all-reduce for each set of axes; a replicated leaf counts once),
+    and a plain tensor comes back, the same on every rank; a ``Partial()``
+    leaf raises (constrain the gradients to the parameters' layout
+    first)."""
+    total, split = 0, {}
     for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.float()))
+        if not sh.is_dtensor(g):
+            total = total + torch.sum(torch.square(g.float()))
+            continue
+        if any(p.is_partial() for p in g.placements):
+            raise ValueError(f"a partial sum {g.placements} has no norm yet")
+        mesh = g.device_mesh
+        axes = tuple(mesh.mesh_dim_names[m] for m, p in enumerate(g.placements)
+                     if p.is_shard())
+        split.setdefault((mesh, axes), []).append(
+            torch.sum(torch.square(sh.local(g).float())))
+    for (mesh, axes), sums in split.items():
+        total = total + sh.psum(torch.stack(sums), axes, mesh=mesh).sum()
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
@@ -69,16 +102,23 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig,
     leaf's ``ndims`` entry (default: its own number of dimensions) is at
     least 2; the model's train step passes the reference tree's
     (``models.params.reference_ndims``)."""
-    step = state.step + 1
+    step = state.step + 1  # a replicated DTensor stays one
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    lr = schedule(cfg, step).to(gnorm.device)
-    b1c = 1.0 - cfg.b1 ** step.float()
-    b2c = 1.0 - cfg.b2 ** step.float()
+    lr = schedule(cfg, sh.local(step)).to(gnorm.device)
+    b1c = 1.0 - cfg.b1 ** sh.local(step).float()
+    b2c = 1.0 - cfg.b2 ** sh.local(step).float()
     nd = ([p.dim() for p in leaves(params)] if ndims is None
           else leaves(ndims))
     for p, g, m, v, n in zip(leaves(params), leaves(grads), leaves(state.mu),
                              leaves(state.nu), nd, strict=True):
+        if sh.is_dtensor(p):  # elementwise on the rank's shards
+            if not all(t.placements == p.placements for t in (g, m, v)):
+                raise ValueError(
+                    f"a parameter {p.placements}, its gradient "
+                    f"{g.placements} and moments {m.placements}, "
+                    f"{v.placements} are laid out unlike")
+            p, g, m, v = (sh.local(t) for t in (p, g, m, v))
         g32 = g.float() * scale
         m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g32)
         v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g32))

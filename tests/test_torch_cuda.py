@@ -1139,3 +1139,82 @@ def test_train_step_under_the_cuda_mesh_equals_the_step_without(nccl_mesh):
     assert torch.equal(m0["loss"], m1["loss"])
     for a, b in zip(leaves(plain), leaves(meshed), strict=True):
         assert torch.equal(a.detach(), b.detach())
+
+
+# -- the kernels' gradients on DTensor shards (sharded training) -------------
+
+
+def _dtensors(nccl_mesh, spec, *tensors):
+    """Each tensor placed on the world-1 mesh by ``spec``, a leaf that
+    takes a gradient."""
+    from repro_torch.distributed import sharding as sh
+
+    return [sh.distribute(t.detach(), spec, nccl_mesh).requires_grad_(True)
+            for t in tensors]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "fa_bwd_wgmma"),
+                                         (torch.float32, "fa_bwd_f32")])
+def test_flash_attention_backward_on_dtensor_shards(nccl_mesh, dtype, route):
+    """Sharded training's attention: q, k, v DTensors split by batch and
+    heads on the world-1 mesh, the forward kernel on the rank's shards
+    (``kernels/_dtensor.on_shards``) and under autograd the backward
+    kernel of its route on the same shards, one launch each; the output
+    and the gradients, which come back in the arguments' placements, are
+    the plain version's (f32 at TOL, bf16 at TOL and the 64-row tile
+    limit)."""
+    from repro_torch.distributed import sharding as sh
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = _bwd_inputs(gen, 2, 8, 2, 256, 64)
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    spec = sh.PartitionSpec("data", "model", None, None)
+    dq, dk, dv = _dtensors(nccl_mesh, spec, q, k, v)
+    ddo = sh.distribute(do, spec, nccl_mesh)
+    n0 = (fa.launches, getattr(fa, route.replace("fa_", "") + "_launches"))
+    out = fa.flash_attention(dq, dk, dv, window=100)
+    got = torch.autograd.grad(out, (dq, dk, dv), ddo)
+    assert (fa.launches, getattr(fa, route.replace("fa_", "") +
+                                 "_launches")) == (n0[0] + 1, n0[1] + 1)
+    assert fa.bwd_route(dtype, 64, False) == route
+    assert all(tuple(g.placements) == tuple(t.placements)
+               for g, t in zip(got, (dq, dk, dv)))
+    qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ref = fa.flash_attention_plain(qp, kp, vp, window=100)
+    want = torch.autograd.grad(ref, (qp, kp, vp), do)
+    _assert_kernel_close(out.to_local(), ref.detach(), dtype, "forward")
+    for name, g, w in zip("qkv", got, want):
+        _assert_kernel_close(g.to_local(), w, dtype, f"d{name}")
+
+
+def test_ssm_scan_backward_on_dtensor_shards(nccl_mesh):
+    """Sharded training's scan: dA, dBx and h0 DTensors split by batch and
+    inner channels, C by batch, on the world-1 mesh; the checkpoint-writing
+    forward and the backward kernels on the rank's shards, one launch of
+    each; outputs and gradients equal autograd of the plain version."""
+    from repro_torch.distributed import sharding as sh
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dA, dBx = (torch.rand(2, 40, 64, 16, generator=gen, device="cuda") * 0.9
+               for _ in range(2))
+    C = torch.randn(2, 40, 16, generator=gen, device="cuda")
+    h0 = torch.randn(2, 64, 16, generator=gen, device="cuda")
+    gy = torch.randn(2, 40, 64, generator=gen, device="cuda")
+    inner = sh.PartitionSpec("data", None, "model", None)
+    ins = (*_dtensors(nccl_mesh, inner, dA, dBx),
+           *_dtensors(nccl_mesh, sh.PartitionSpec("data", None, None), C),
+           *_dtensors(nccl_mesh, sh.PartitionSpec("data", "model", None), h0))
+    n0 = (ssm.ckpt_launches, ssm.bwd_launches)
+    y, h = ssm.ssm_scan(*ins)
+    got = torch.autograd.grad(
+        (y * sh.distribute(gy, sh.PartitionSpec("data", None, "model"),
+                           nccl_mesh)).sum() + h.sum(), ins)
+    assert (ssm.ckpt_launches, ssm.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    plain = [t.detach().requires_grad_(True) for t in (dA, dBx, C, h0)]
+    y_p, h_p = ssm.ssm_scan_plain(*plain)
+    want = torch.autograd.grad((y_p * gy).sum() + h_p.sum(), plain)
+    torch.testing.assert_close(y.to_local(), y_p.detach(), rtol=1e-4,
+                               atol=1e-4)
+    for g, t, w in zip(got, ins, want):
+        assert tuple(g.placements) == tuple(t.placements)
+        torch.testing.assert_close(g.to_local(), w, rtol=1e-4, atol=1e-4)

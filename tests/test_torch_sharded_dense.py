@@ -30,13 +30,10 @@ TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_prefill.py TOL
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    tmp = {case: tmp_path_factory.mktemp(f"sharded_{case}") for case in CASES}
-    # every reference at once, then the worlds
-    procs = {case: world.reference(tmp[case], name, overrides, meshes, S)
-             for case, (name, overrides, meshes, S) in CASES.items()}
-    return {case: world.run_all(tmp[case], name, overrides, meshes,
-                                procs[case])
-            for case, (name, overrides, meshes, _) in CASES.items()}
+    # a case's worlds beside the next case's reference
+    return world.run_cases(tmp_path_factory, {
+        case: (name, overrides, meshes, (S,))
+        for case, (name, overrides, meshes, S) in CASES.items()})
 
 
 @pytest.mark.parametrize("case,shape", [

@@ -52,12 +52,10 @@ NOISE = 3  # draws of the reference's noise, where an output is widened
 def runs(tmp_path_factory):
     """{case: ({mesh tag: (the port's outputs, each rank's record)}, the
     reference's outputs)}."""
-    tmp = {c: tmp_path_factory.mktemp(f"sharded_{c}") for c in CASES}
-    procs = {c: world.reference(tmp[c], name, ov, MESHES, S,
-                                NOISE if widen else 0)
-             for c, (name, ov, S, widen) in CASES.items()}  # all at once
-    return {c: world.run_all(tmp[c], name, ov, MESHES, procs[c])
-            for c, (name, ov, _, _) in CASES.items()}
+    # a case's worlds beside the next case's reference
+    return world.run_cases(tmp_path_factory, {
+        c: (name, ov, MESHES, (S, NOISE if widen else 0))
+        for c, (name, ov, S, widen) in CASES.items()})
 
 
 def _cfg(case):

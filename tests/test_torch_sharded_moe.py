@@ -19,7 +19,9 @@ against the port's gloo worlds of 2, 4 and 3 processes.  The cases:
   expert;
 * the same with a 384-token prompt: groups of 256 tokens, the middle one
   crossing the two batch rows, so that on (2, 2) it crosses the ranks'
-  rows and every rank gathers the batch before grouping.
+  rows and every rank gathers the batch before grouping;
+* qwen3-moe at G = 16 also on meshes (1, 1) and (2, 1), whose "model" axis
+  has one rank (ROADMAP Queue C item 16).
 
 Each output is held at ``TOL[float32]`` (2e-5), or, where the reference
 itself differs from mesh to mesh by more than that, at ``TOL`` plus 4x the
@@ -36,6 +38,7 @@ import torch_sharded_world as world
 from repro_torch.configs.base import get_config, reduced
 
 MESHES = ((1, 2), (2, 2), (1, 3))
+ONE_RANK_MODEL = ((1, 1), (2, 1))
 # config, overrides, prompt, the outputs held to TOL plus 4x the
 # reference's noise move (the others at TOL)
 CASES = {"qwen2-moe": ("qwen2-moe-a2.7b", {}, world.S, ("logits", "cache")),
@@ -52,12 +55,13 @@ NOISE = 3  # draws of the reference's noise, where an output is widened
 def runs(tmp_path_factory):
     """{case: ({mesh tag: (the port's outputs, each rank's record)}, the
     reference's outputs)}."""
-    tmp = {c: tmp_path_factory.mktemp(f"sharded_{c}") for c in CASES}
-    procs = {c: world.reference(tmp[c], name, ov, MESHES, S,
-                                NOISE if widen else 0)
-             for c, (name, ov, S, widen) in CASES.items()}  # all at once
-    return {c: world.run_all(tmp[c], name, ov, MESHES, procs[c])
-            for c, (name, ov, _, _) in CASES.items()}
+    # a case's worlds beside the next case's reference; the one-KV-head
+    # case also on meshes whose "model" axis has one rank
+    cases = {c: (name, ov, MESHES, (S, NOISE if widen else 0))
+             for c, (name, ov, S, widen) in CASES.items()}
+    cases["kv1-one-rank-model"] = (*CASES["qwen3-moe-G16"][:2],
+                                   ONE_RANK_MODEL, (world.S, 0))
+    return world.run_cases(tmp_path_factory, cases)
 
 
 def _cfg(case):
@@ -90,6 +94,24 @@ def test_kernels_ran_on_local_shards(runs, case, shape):
     rank's cache rows."""
     want = world.kernel_shapes(_cfg(case), shape, CASES[case][2])
     for rec in runs[case][0][world.tag(shape)][1]:
+        for kernel, shapes in want.items():
+            assert rec["shapes"][kernel] == shapes, kernel
+
+
+@pytest.mark.parametrize("shape", ONE_RANK_MODEL, ids=world.tag)
+def test_one_kv_head_on_a_one_rank_model_axis(runs, shape):
+    """qwen3-moe's 16 query heads on one KV head where "model" has one
+    rank: the rules keep wk's split of its one KV head over that axis (1
+    divides 1), and no DTensor placement splits over one rank, so the
+    projections' views run as the reference's do.  Logits and caches at
+    TOL, the rank bytes by the rules, the kernels on the rank's rows."""
+    case = "kv1-one-rank-model"
+    (port, ranks), ref = runs[case][0][world.tag(shape)], runs[case][1]
+    cfg = _cfg("qwen3-moe-G16")
+    world.assert_outputs_match(port, ref, shape, cfg)
+    world.assert_rule_bytes(ranks)
+    want = world.kernel_shapes(cfg, shape, world.S)
+    for rec in ranks:
         for kernel, shapes in want.items():
             assert rec["shapes"][kernel] == shapes, kernel
 

@@ -17,6 +17,8 @@ import torch.distributed as dist
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import torch_sharded_world as world
+
 import jax
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as JP
@@ -367,3 +369,45 @@ def test_train_step_under_the_mesh_equals_the_step_without(mesh):
     assert torch.equal(m0["loss"], m1["loss"])
     for a, b in zip(leaves(s0), leaves(s1), strict=True):
         assert torch.equal(a.detach(), b.detach())
+
+
+# --- the collectives' gradients: a world of two gloo ranks -------------------
+
+@pytest.fixture(scope="module")
+def collective_grads(tmp_path_factory):
+    import json
+    import time
+
+    import torch.multiprocessing as mp
+
+    tmp = tmp_path_factory.mktemp("collective_grads")
+    ctx = mp.spawn(world.grad_world, args=(str(tmp / "store"), str(tmp)),
+                   nprocs=2, join=False)
+    deadline = time.monotonic() + 120
+    while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail("the two gloo ranks did not end in 120 s")
+    return [json.loads((tmp / f"grads{r}.json").read_text())
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("case", sorted(world.GRAD_CASES))
+def test_collective_gradient_equals_the_unsharded_gradient(collective_grads,
+                                                           case):
+    """The gradient of sum(W * Y) with Y the redistributed (or summed) X
+    is W on every rank, as unsharded: the rank's rows of W for an X split
+    over the rows, the whole W for a replicated X and for each rank's term
+    of a partial sum; a DTensor's gradient comes back in its placements (a
+    partial sum's replicated), whether the gradient that arrives is the
+    same on every rank or each rank's term, and no DTensor collective of
+    its own runs."""
+    src = world.GRAD_CASES[case][0]
+    want_pl = {"shard": ["Replicate()", "Shard(dim=0)"],
+               "replicate": ["Replicate()", "Replicate()"],
+               "partial": ["Replicate()", "Replicate()"]}.get(src)
+    for res in collective_grads:
+        err, pl = res[case]
+        assert err < 1e-12, res[case]
+        assert pl == want_pl

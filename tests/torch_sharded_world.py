@@ -45,9 +45,14 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-JOIN_S = 120  # a world fails, instead of hanging, past this
+JOIN_S = 120  # a world or a reference fails, instead of hanging, past this
 B, S = 2, 8  # batch and prompt; the cache holds S + DECODE_PAD = 24 rows
 N_DECODE = 2
+# one thread a process: a file's reference and its worlds' ranks run beside
+# the other test workers' processes, and XLA's and torch's own thread pools
+# (one thread a core each) would oversubscribe the cores many times over
+ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
+              "OPENBLAS_NUM_THREADS": "1"}
 
 REF_SCRIPT = r"""
 import json, sys
@@ -178,8 +183,132 @@ np.savez(out + "/ref.npz", **res)
 """
 
 
+# The reference's train step on each mesh: build_lowerable's train cell
+# under jax.jit with its in_shardings (and the state's out_shardings), two
+# steps on two batches; before each, the gradients the step takes (the
+# step's own grads_of: value_and_grad, microbatches summed in f32 and
+# divided, then constrain_like), under the same shardings.
+REF_TRAIN_SCRIPT = r"""
+import json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.configs.base import ShapeConfig, get_config, reduced
+from repro.distributed.sharding import sharding_ctx
+from repro.launch import specs
+from repro.models import model
+from repro.models.params import constrain_like
+from repro.train import train_loop
+
+name, overrides, B, S, accum, meshes, out = json.loads(sys.argv[1])
+cfg = reduced(get_config(name), **overrides)
+state = train_loop.init_state(cfg, jax.random.PRNGKey(0))
+tc = train_loop.TrainConfig(accum_steps=accum)
+rng = np.random.default_rng(0)
+
+
+def flat(tree, prefix):
+    res = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        key = "/".join(str(getattr(p, "key", getattr(p, "idx", p)))
+                       for p in path)
+        res[prefix + key] = np.asarray(leaf)
+    return res
+
+
+def draw():
+    # the first half of the rows keeps most positions, the second few: the
+    # microbatches and the batch ranks' rows count unlike
+    keep = np.where(np.arange(B)[:, None] < B // 2, 0.9, 0.3)
+    draw = lambda: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"tokens": draw(), "targets": draw(),
+            "loss_mask": (rng.random((B, S)) < keep).astype(np.float32)}
+
+
+batches = [draw() for _ in range(2)]
+res = {f"batch{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()}
+np.savez(out + "/params.npz", **flat(state.params, ""))
+param_specs = model.abstract_params(cfg)
+vg = jax.value_and_grad(
+    lambda p, b: model.train_loss(p, cfg, b, remat=tc.remat), has_aux=True)
+
+
+def grads(p, b):
+    if accum == 1:
+        g = vg(p, b)[1]
+    else:
+        g = None
+        for j in range(accum):
+            mb = jax.tree_util.tree_map(
+                lambda x: x.reshape(accum, B // accum, *x.shape[1:])[j], b)
+            gj = jax.tree_util.tree_map(lambda t: t.astype(jnp.float32),
+                                        vg(p, mb)[1])
+            g = gj if g is None else jax.tree_util.tree_map(jnp.add, g, gj)
+        g = jax.tree_util.tree_map(lambda t: t / accum, g)
+    return constrain_like(g, param_specs)
+
+
+def run(state, mesh):
+    got = {}
+    ns = lambda t: jax.tree_util.tree_map(
+        lambda ps: NamedSharding(mesh, ps), t,
+        is_leaf=lambda x: isinstance(x, P))
+    low = specs.build_lowerable(cfg, ShapeConfig("train", S, B, "train"),
+                                mesh, tc)
+    sin = ns(low.in_shardings)
+    step = jax.jit(low.fn, in_shardings=sin,
+                   out_shardings=(sin[0], NamedSharding(mesh, P())))
+    gfn = jax.jit(grads, in_shardings=(sin[0].params, sin[1]))
+    with mesh, sharding_ctx(mesh, low.rules):
+        st = jax.device_put(state, sin[0])
+        for i, b in enumerate(batches):
+            jb = jax.device_put({k: jnp.asarray(v) for k, v in b.items()},
+                                sin[1])
+            got.update(flat(gfn(st.params, jb), f"grads{i}/"))
+            st, m = step(st, jb)
+            got.update({f"metrics{i}/{k}": np.asarray(m[k])
+                        for k in ("loss", "grad_norm", "lr")})
+            got.update(flat(st.params, f"params{i}/"))
+            got.update(flat(st.opt.mu, f"mu{i}/"))
+            got.update(flat(st.opt.nu, f"nu{i}/"))
+    return got
+
+
+for shape in meshes:
+    n = shape[0] * shape[1]
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
+                ("data", "model"))
+    res.update({f"{shape[0]}x{shape[1]}/{k}": v
+                for k, v in run(state, mesh).items()})
+np.savez(out + "/ref.npz", **res)
+"""
+TRAIN_B = 4  # (2, 2) splits the batch; two microbatches of two rows
+
+
+def reference_train(tmp: Path, name: str, overrides: dict, meshes,
+                    accum: int = 1) -> subprocess.Popen:
+    """Start the reference's train subprocess (REF_TRAIN_SCRIPT, B =
+    ``TRAIN_B``, S = ``S``); it writes tmp/params.npz, then tmp/ref.npz."""
+    return _start(REF_TRAIN_SCRIPT, [name, overrides, TRAIN_B, S, accum,
+                                     [list(m) for m in meshes], str(tmp)])
+
+
 def tag(shape) -> str:
     return f"{shape[0]}x{shape[1]}"
+
+
+def _start(script: str, arg) -> subprocess.Popen:
+    """A JAX subprocess running ``script`` on ``arg`` (JSON), on four host
+    devices, one thread: XLA's CPU client otherwise runs a pool of one
+    thread a core."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=4 "
+                         "--xla_cpu_multi_thread_eigen=false", **ONE_THREAD)
+    proc = subprocess.Popen([sys.executable, "-c", script, json.dumps(arg)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    proc.started = time.monotonic()
+    return proc
 
 
 def reference(tmp: Path, name: str, overrides: dict, meshes,
@@ -188,27 +317,37 @@ def reference(tmp: Path, name: str, overrides: dict, meshes,
     with ``noise`` draws, also its unsharded outputs' move under 1e-7
     noise on the embeddings, ``move/<key>``); it writes tmp/params.npz,
     then tmp/ref.npz."""
-    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
-    arg = json.dumps([name, overrides, B, prompt, N_DECODE,
-                      [list(m) for m in meshes], noise, str(tmp)])
-    return subprocess.Popen([sys.executable, "-c", REF_SCRIPT, arg], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    return _start(REF_SCRIPT, [name, overrides, B, prompt, N_DECODE,
+                               [list(m) for m in meshes], noise, str(tmp)])
 
 
 def wait_reference(proc: subprocess.Popen) -> None:
-    out, _ = proc.communicate(timeout=JOIN_S)
+    """Wait for a reference to end, at most ``JOIN_S`` from its start."""
+    if getattr(proc, "waited", False):
+        return
+    left = JOIN_S - (time.monotonic() - getattr(proc, "started",
+                                                time.monotonic()))
+    try:
+        out, _ = proc.communicate(timeout=max(left, 0.1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the reference did not end in {JOIN_S} s")
     if proc.returncode != 0:
         raise AssertionError(f"the reference failed:\n{out[-3000:]}")
+    proc.waited = True
 
 
-def _tree(npz) -> dict:
-    """The nested parameter tree from the reference's flattened keys."""
+def _tree(npz, prefix: str = "") -> dict:
+    """The nested parameter tree from the reference's flattened keys (those
+    under ``prefix``, without it)."""
     root: dict = {}
     for key in npz.files:
+        if not key.startswith(prefix):
+            continue
         node = root
-        parts = [int(p) if p.isdigit() else p for p in key.split("/")]
+        parts = [int(p) if p.isdigit() else p
+                 for p in key[len(prefix):].split("/")]
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = npz[key]
@@ -245,15 +384,18 @@ def _rule_bytes(spec_tree, mesh, rules) -> int:
 
 def _record_shapes():
     """Wrap the kernels' plain versions to record the local shapes they
-    run on, and the rows each decode_attention call attends to, as
-    (kv_start or None, kv_len) lists; returns {kernel: [shape, ...],
-    "decode_rows": [...]}."""
+    run on, the rows each decode_attention call attends to, as (kv_start
+    or None, kv_len) lists, and, under autograd, the local shape of the
+    gradient that comes back to each forward's (first) output, which the
+    backward runs on; returns {kernel: [shape, ...], "decode_rows": [...],
+    "<kernel>_grad": [shape, ...]}."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssm_scan as ssm
 
     seen: dict = {"flash_attention": [], "decode_attention": [],
-                  "ssm_scan": [], "decode_rows": []}
+                  "ssm_scan": [], "decode_rows": [],
+                  "flash_attention_grad": [], "ssm_scan_grad": []}
     for mod, fn, key in ((fa, "flash_attention_plain", "flash_attention"),
                          (dec, "decode_attention_plain", "decode_attention"),
                          (ssm, "ssm_scan_plain", "ssm_scan")):
@@ -265,7 +407,12 @@ def _record_shapes():
                 start = kw.get("kv_start")
                 seen["decode_rows"].append([
                     None if start is None else start.tolist(), a[3].tolist()])
-            return _orig(*a, **kw)
+            res = _orig(*a, **kw)
+            first = res[0] if isinstance(res, tuple) else res
+            if first.requires_grad:  # the gradient the backward runs on
+                first.register_hook(lambda g, _k=_key: seen[
+                    _k + "_grad"].append(list(g.shape)))
+            return res
 
         setattr(mod, fn, wrapped)
     return seen
@@ -314,6 +461,7 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
     import torch
     import torch.distributed as dist
 
+    torch.set_num_threads(1)  # see ONE_THREAD
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
@@ -381,13 +529,132 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         dist.destroy_process_group()
 
 
-def _spawn(tmp: Path, name: str, overrides: dict, shape):
+def _state_bytes(cfg, mesh, rules) -> int:
+    """The bytes of a rank's shards of the train state by the rules: the
+    parameters, two f32 moments laid out alike, and the step."""
+    import torch
+
+    from repro_torch.models import params as P
+    from repro_torch.train.tree import map_tree
+
+    specs = P.param_specs(cfg)
+    f32 = map_tree(lambda s: P.ParamSpec(s.shape, torch.float32, s.logical),
+                   specs)
+    return (_rule_bytes(specs, mesh, rules)
+            + 2 * _rule_bytes(f32, mesh, rules) + 4)
+
+
+def _train_rank_main(rank, world, shape, store, name, overrides, accum,
+                     chunk, tmp):
+    """The port's two train steps in a rank of a gloo world: the state from
+    the reference's initial parameters (``state_from_jax(..., mesh=)``),
+    placed with the batches by the train cell's in_shardings, each step
+    under its rules; rank 0 writes the metrics, the gathered parameters
+    and moments after each step and the gradients before it, and then the
+    same from the port's unsharded step.  The loss runs in chunks of
+    ``chunk`` rows (``chunked_lm_loss``; below S, each chunk recomputed in
+    the backward pass) in both runs."""
+    import functools
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # see ONE_THREAD
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.configs.base import ShapeConfig, get_config, reduced
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.launch import specs
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.models import model
+        from repro_torch.train import train_loop
+        from repro_torch.train.tree import flatten_with_path, map_tree
+
+        model.chunked_lm_loss = functools.partial(model.chunked_lm_loss,
+                                                  chunk=chunk)
+        cfg = reduced(get_config(name), **overrides)
+        tree = _tree(np.load(f"{tmp}/params.npz"))
+        zeros = map_tree(lambda a: np.zeros(a.shape, np.float32), tree)
+        jstate = types.SimpleNamespace(params=tree, opt=types.SimpleNamespace(
+            step=np.int32(0), mu=zeros, nu=zeros))
+        ref = np.load(f"{tmp}/ref.npz")
+        batches = [{k: torch.from_numpy(ref[f"batch{i}/{k}"]) for k in
+                    ("tokens", "targets", "loss_mask")} for i in range(2)]
+        tc = train_loop.TrainConfig(accum_steps=accum)
+        mesh = make_local_mesh(*shape, device="cpu")
+        seen = _record_shapes()
+        forbid_dtensor_collectives()
+        low = specs.build_lowerable(cfg, ShapeConfig("train", S, TRAIN_B,
+                                                     "train"), mesh, tc)
+        state = train_loop.state_from_jax(cfg, jstate, device="cpu",
+                                          mesh=mesh, rules=low.rules)
+        out = {"bytes/state": [_local_bytes(state),
+                               _state_bytes(cfg, mesh, low.rules)]}
+        got: dict = {}
+
+        def record(prefix):
+            @torch.no_grad()
+            def hook(tree):
+                # copies: a replicated leaf is the rank's own tensor, which
+                # the next step updates in place
+                for path, t in flatten_with_path(tree):
+                    got[prefix + "/".join(map(str, path))] = sh.full(
+                        t).clone()
+            return hook
+
+        for i, batch in enumerate(batches):
+            low.fn.grad_hook = record(f"grads{i}/")
+            batch = sh.distribute(batch, low.in_shardings[1], mesh)
+            with sh.sharding_ctx(mesh, low.rules):
+                state, metrics = low.fn(state, batch)
+            for k in ("loss", "grad_norm", "lr"):
+                got[f"metrics{i}/{k}"] = metrics[k]
+            for part, t in (("params", state.params), ("mu", state.opt.mu),
+                            ("nu", state.opt.nu)):
+                record(f"{part}{i}/")(t)
+        out["bytes/state_after"] = _local_bytes(state)
+        out["shapes"] = json.loads(json.dumps(seen))  # before the plain run
+        if rank == 0:  # the port's own unsharded step on the same inputs
+            plain = train_loop.state_from_jax(cfg, jstate, device="cpu")
+            step = train_loop.make_train_step(cfg, tc)
+            for i, batch in enumerate(batches):
+                step.grad_hook = record(f"plain/grads{i}/")
+                plain, metrics = step(plain, batch)
+                for k in ("loss", "grad_norm", "lr"):
+                    got[f"plain/metrics{i}/{k}"] = metrics[k]
+                for part, t in (("params", plain.params),
+                                ("mu", plain.opt.mu), ("nu", plain.opt.nu)):
+                    record(f"plain/{part}{i}/")(t)
+            np.savez(f"{tmp}/port.npz", **{
+                k: v.detach().numpy() for k, v in got.items()})
+        with open(f"{tmp}/rank{rank}.json", "w") as fh:
+            json.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn(tmp: Path, name: str, overrides: dict, shape, main=None,
+           extra=()):
     import torch.multiprocessing as mp
 
     n = shape[0] * shape[1]
-    return mp.spawn(_rank_main, args=(n, tuple(shape), str(tmp / "store"),
-                                      name, overrides, str(tmp)),
-                    nprocs=n, join=False)
+    # the ranks' own libraries read them too, as each rank starts; the
+    # caller's process keeps its own
+    saved = {k: os.environ.get(k) for k in ONE_THREAD}
+    os.environ.update(ONE_THREAD)
+    try:
+        return mp.spawn(main or _rank_main,
+                        args=(n, tuple(shape), str(tmp / "store"), name,
+                              overrides, *extra, str(tmp)),
+                        nprocs=n, join=False)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _join(ctxs: dict) -> None:
@@ -413,10 +680,12 @@ def world(tmp: Path, name: str, overrides: dict, shape) -> None:
     _join({tuple(shape): _spawn(tmp, name, overrides, shape)})
 
 
-def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None):
+def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None,
+            main=None, extra=()):
     """The reference on every mesh (``proc``, where it was started
-    already), then the port's worlds on every mesh at once: returns ({mesh
-    tag: (the port's outputs, each rank's record)}, the reference's
+    already), then the port's worlds on every mesh at once (each rank runs
+    ``main``, default ``_rank_main``, with ``extra`` arguments): returns
+    ({mesh tag: (the port's outputs, each rank's record)}, the reference's
     outputs)."""
     wait_reference(proc or reference(tmp, name, overrides, meshes))
     ctxs = {}
@@ -425,7 +694,7 @@ def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None):
         d.mkdir()
         for f in ("params.npz", "ref.npz"):
             (d / f).symlink_to(tmp / f)
-        ctxs[tuple(shape)] = _spawn(d, name, overrides, shape)
+        ctxs[tuple(shape)] = _spawn(d, name, overrides, shape, main, extra)
     _join(ctxs)
     out = {}
     for shape in meshes:
@@ -434,6 +703,37 @@ def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None):
                  for r in range(shape[0] * shape[1])]
         out[tag(shape)] = (np.load(d / "port.npz"), ranks)
     return out, np.load(tmp / "ref.npz")
+
+
+def run_cases(tmp_path_factory, cases: dict, start=None, main=None,
+              extra_of=None) -> dict:
+    """``run_all`` for each case of {case: (config name, overrides,
+    meshes, reference arguments)}, one case after the other, the next
+    case's reference started as this case's worlds start (``start(tmp,
+    name, overrides, meshes, *arguments)``, default ``reference``): at most
+    one reference and one case's worlds run at a time.  The ranks run
+    ``main`` with ``extra_of(case)``'s arguments.  Returns {case:
+    run_all's result}."""
+    start = start or reference
+    tmp = {c: tmp_path_factory.mktemp(f"sharded_{c}") for c in cases}
+    names = list(cases)
+    procs = {names[0]: start(tmp[names[0]], *cases[names[0]][:3],
+                             *cases[names[0]][3])}
+    out = {}
+    for i, c in enumerate(names):
+        name, overrides, meshes, _ = cases[c]
+        wait_reference(procs[c])
+        if i + 1 < len(names):
+            nxt = names[i + 1]
+            procs[nxt] = start(tmp[nxt], *cases[nxt][:3], *cases[nxt][3])
+        try:
+            out[c] = run_all(tmp[c], name, overrides, meshes, procs[c],
+                             main, extra_of(c) if extra_of else ())
+        except BaseException:
+            for p in procs.values():
+                p.kill()
+            raise
+    return out
 
 
 def ref_layer(ref, prefix: str, cfg, i: int) -> dict:
@@ -516,7 +816,8 @@ def assert_rule_bytes(ranks, encoder_only=False):
             assert got == want, f"rank {r} {key}"
 
 
-def kernel_shapes(cfg, shape, S: int) -> dict:
+def kernel_shapes(cfg, shape, S: int, batch: int = B,
+                  n_decode=None) -> dict:
     """The local (first two arguments') shapes each kernel wrapper runs on,
     a call each, in a rank of ``shape`` for prompts of S positions: prefill's
     flash_attention on the rank's batch rows and heads (every head where
@@ -525,11 +826,12 @@ def kernel_shapes(cfg, shape, S: int) -> dict:
     those and not the KV heads); decode_attention on every head over the
     rank's cache rows (all of them where "model" does not divide them, and
     then on the rank's heads); ssm_scan on the rank's batch rows and inner
-    channels."""
+    channels.  ``batch``: the global batch; ``n_decode``: the decode steps
+    (default: ``N_DECODE``, none for the encoder-only forward)."""
     from repro_torch.configs.base import layer_specs
 
     dp, tp = shape
-    Bl, L, D = B // dp, S + 16, cfg.head_dim
+    Bl, L, D = batch // dp, S + 16, cfg.head_dim
     H, Hkv, G = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
     if H % tp == 0:
         heads = H // tp
@@ -546,7 +848,103 @@ def kernel_shapes(cfg, shape, S: int) -> dict:
     scan = [Bl, S, I, cfg.ssm_state]
     specs = layer_specs(cfg)
     n_attn = sum(s.kind == "attn" for s in specs)
-    n_decode = 0 if cfg.encoder_only else N_DECODE
+    if n_decode is None:
+        n_decode = 0 if cfg.encoder_only else N_DECODE
     return {"flash_attention": [[[Bl, heads, S, D], [Bl, kv, S, D]]] * n_attn,
             "decode_attention": [dec] * (n_attn * n_decode),
             "ssm_scan": [[scan, scan]] * (len(specs) - n_attn)}
+
+
+def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1) -> dict:
+    """The local shapes each kernel wrapper runs on in a rank of ``shape``
+    over ``calls`` forward passes of a microbatch of the train batch cut
+    into ``accum`` (a step with remat: two a microbatch, the forward and
+    its recomputation), and the local shape of the gradient that comes
+    back to each first pass's output: flash_attention's (b, heads, S, D),
+    ssm_scan's y (b, S, I)."""
+    one = kernel_shapes(cfg, shape, S, batch=TRAIN_B // accum, n_decode=0)
+    n_fwd = calls // 2
+    out = {k: v * calls for k, v in one.items() if k != "decode_attention"}
+    out["flash_attention_grad"] = [v[0] for v in one["flash_attention"]] * \
+        n_fwd
+    out["ssm_scan_grad"] = [v[0][:3] for v in one["ssm_scan"]] * n_fwd
+    return out
+
+
+# each case: the input's placements on the (1, 2) mesh's "model" axis, the
+# output's, and whether every rank's consumer of the output is the same
+# ("replicated": the whole loss on every rank) or each rank's own part
+# ("partial": each rank's loss reads its half of the rows, and the ranks'
+# losses sum to the whole); every loss is sum(W * Y) of the whole Y = X
+GRAD_CASES = {
+    "gather-replicated": ("shard", "replicate", "replicated"),
+    "gather-partial": ("shard", "replicate", "partial"),
+    "chunk": ("replicate", "shard", "replicated"),
+    "all_reduce-replicated": ("partial", "replicate", "replicated"),
+    "all_reduce-partial": ("partial", "replicate", "partial"),
+    "reduce_scatter": ("partial", "shard", "replicated"),
+    "psum-replicated": ("psum", None, "replicated"),
+    "reduce_grad-partial": ("reduce_grad", None, "partial"),
+}
+
+
+def grad_world(rank, store, out_dir):
+    """A rank of the world of ``GRAD_CASES``: writes {case: [the largest
+    |gradient - W| of its shard, the gradient's placements]}."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # see ONE_THREAD
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    try:
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.launch.mesh import make_local_mesh
+
+        forbid_dtensor_collectives()
+        mesh = make_local_mesh(1, 2, device="cpu")
+        pl = {"shard": Shard(0), "replicate": Replicate(),
+              "partial": Partial()}
+        gen = torch.Generator().manual_seed(0)  # the same on every rank
+        X = torch.randn(4, 3, generator=gen, dtype=torch.float64)
+        W = torch.randn(4, 3, generator=gen, dtype=torch.float64)
+        mine = torch.zeros(4, 1, dtype=torch.float64)
+        mine[2 * rank:2 * rank + 2] = 1.0  # the rank's half of the rows
+        res = {}
+        for case, (src, dst, consumer) in GRAD_CASES.items():
+            with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
+                if src in ("psum", "reduce_grad"):
+                    # psum: each rank holds a term, X / 2; reduce_grad: X
+                    x = (X / 2 if src == "psum" else X).clone()
+                    x.requires_grad_(True)
+                    y = getattr(sh, src)(x, ("model",))
+                    got_pl = None
+                else:
+                    local = {"shard": X[2 * rank:2 * rank + 2],
+                             "replicate": X, "partial": X / 2}[src]
+                    x = DTensor.from_local(local.clone(), mesh,
+                                           [Replicate(), pl[src]],
+                                           run_check=False, shape=X.shape,
+                                           stride=X.stride())
+                    x.requires_grad_(True)
+                    yd = sh.redistribute(x, [Replicate(), pl[dst]])
+                    y = sh.local(yd, partial=("model",) if consumer ==
+                                 "partial" else ())
+                    if dst == "shard":
+                        y = torch.zeros_like(X).index_copy(
+                            0, torch.arange(2 * rank, 2 * rank + 2), y)
+                        consumer = "partial"  # each rank holds its rows
+                w = W * mine if consumer == "partial" else W
+                (w * y).sum().backward()
+                g = x.grad
+                if isinstance(g, DTensor):
+                    got_pl = [repr(p) for p in g.placements]
+                    g = g.to_local()
+                want = W[2 * rank:2 * rank + 2] if src == "shard" else W
+                res[case] = [float((g - want).abs().max()), got_pl]
+        with open(os.path.join(out_dir, f"grads{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()
