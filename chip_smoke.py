@@ -144,8 +144,12 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     attention, autograd of ``scaled_dot_product_attention`` as a yardstick
     the port never calls; attention's wgmma and ``mma`` routes timed in
     turns (wgmma, mma, mma, wgmma), and the forward with and without L;
-    ``ssm_scan_bwd`` given the forward's checkpoints, below the time of
-    the two-pass kernel it replaced, in turns with the scan's forward with
+    the ``mma`` route also where phase 32's bf16 runs launch it, at
+    hubert-xlarge's (non-causal, D=80) and qwen2-vl-7b's (positions)
+    training shapes, checked against its plain version and beside SDPA's
+    backward with the same mask; ``ssm_scan_bwd`` given the forward's
+    checkpoints, below the time of the two-pass kernel it replaced, in
+    turns with the scan's forward with
     and without checkpoints, with what each timed call saw (its ms, the
     host's time to queue it, whether the card reached it first, the SM
     clock, Python's collections) and what ``nvidia-smi`` read of the card
@@ -213,7 +217,7 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     (``params.init_params(..., mesh=)``), prefill under ``TRAIN_RULES``
     and 8 decode steps through ``build_lowerable``'s decode cell: the
     reduced Qwen3-8B (G=2) and falcon-mamba-7b in f32, Qwen3-8B (B=4,
-    S=2048) and falcon-mamba-7b (B=4, S=1024) at full width and depth in
+    S=2048) and falcon-mamba-7b (B=4, S=1024) at full width on 8 layers in
     bf16, and falcon-mamba-7b at full width on 2, 4 and 8 layers in f32,
     each against the same run unsharded in this process
     (``sharded_on_card``: the checks, and why falcon-mamba-7b's logits are
@@ -226,14 +230,14 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     (vision rows, positions off the row index on one row) and hubert in
     f32, each held to TOL (jamba to TOL widened by 4x the world-1 run's
     own move under 1e-7 noise); then at full width in bf16
-    qwen2-moe-a2.7b (24 layers, B=4, S=2048), jamba-v0.1-52b and
-    qwen3-moe-235b-a22b on 8 layers (B=2, S=2048), gemma3-27b on 12 layers
-    (B=2, S=1536, decode past its window of 1024), qwen2-vl-7b (28 layers,
-    B=4, S=2048, 1024 vision rows) and hubert-xlarge (48 layers, B=4,
-    S=2048, the encoder forward); gemma3's and qwen2-vl's held at cosine
-    >= 0.99 to their world-1 run, the chaotic MoE stacks', jamba's and
-    hubert's printed and held in f32 at full width on their first layers
-    (hubert on all 48) at cosine >= 0.99 (``FAMILY_JOBS`` says why);
+    qwen2-moe-a2.7b (B=4, S=2048), jamba-v0.1-52b and
+    qwen3-moe-235b-a22b (B=2, S=2048), qwen2-vl-7b (B=4, S=2048, 1024
+    vision rows) and hubert-xlarge (B=4, S=2048, the encoder forward) on 4
+    layers, gemma3-27b on 6 (B=2, S=1536, decode past its window of 1024);
+    gemma3's and qwen2-vl's held at cosine >= 0.99 to their world-1 run,
+    the chaotic MoE stacks', jamba's and hubert's printed and held in f32
+    at full width on their first layers at cosine >= 0.99 (``FAMILY_JOBS``
+    says why);
     each job prints the cosine, the share of equal argmax tokens, a rank's
     bytes against the rules, each kernel's local launch shapes, and a
     rank's prefill and step times;
@@ -241,29 +245,40 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     the card over gloo, as phases 30-31 run theirs (``TRAIN_JOBS``):
     stablelm-1.6b on 4 layers at full width on a (2, 1) mesh (FSDP: the
     weights gathered over "data", their gradients reduce-scattered, the
-    batch split) and falcon-mamba-7b on 4 layers at full width on a (1, 2)
-    mesh (the inner channels split: the scan and its backward on half of
-    them), B=2, S=512, two steps each through ``build_lowerable``'s train
-    cell, against the same steps unsharded in this process: in bf16 with
-    the reference's init (printed, beside its witness: the same stack in
-    f32, unsharded, against itself with every parameter moved by 1e-7),
-    and in f32 with each dense weight at std 1/sqrt(its contraction
-    width), held (the first step's loss, grad norm and each gradient leaf
-    within 1e-4, the second's loss and grad norm within 1e-4 plus 4x the
-    unsharded run's own move under that noise, the entries whose first
-    gradients' signs differ counted, the update's cosine >= 0.99); each
-    rank's parameter and moment bytes against the rules, its peak above
-    the state, its step times, the launches of the attention and scan
-    kernels forward and backward (by route) and their local shapes;
-    ``--only-train-sharded`` builds the kernels, runs only this phase and
-    stops;
+    batch split) and falcon-mamba-7b on 4 layers on a (1, 2) mesh (the
+    inner channels split: the scan and its backward on half of them),
+    B=2, S=512; then the other six configs at full width on (1, 2) (heads,
+    FFN width, experts and vocab split), each cut to the depth whose train
+    state fits ``STATE_BUDGET`` (printed): gemma3-27b (B=1, S=1536, past
+    its window), hubert-xlarge (frames, non-causal, D=80, all 48 layers),
+    qwen2-vl-7b (B=1, S=1536: its 1024 vision rows, and positions off the
+    row index), qwen2-moe-a2.7b, qwen3-moe-235b-a22b (one layer) and
+    jamba-v0.1-52b (a Mamba layer with a dense MLP, one with MoE); two
+    steps each through ``build_lowerable``'s train cell, against the same
+    steps unsharded in this process.  In f32 with each dense weight at std
+    1/sqrt(its contraction width), held: the first step's loss, grad norm
+    and each gradient leaf within 1e-4, the second's loss and grad norm
+    within 1e-4 plus 4x the unsharded run's own move when every parameter
+    moves by 1e-7 (its witness), the entries whose first gradients' signs
+    differ counted, the update's cosine >= 0.99.  In bf16 with the
+    reference's init, printed, only where a bf16 run launches a backward
+    route that no f32 run does: stablelm-1.6b (``fa_bwd_wgmma``),
+    gemma3-27b's pattern of windowed layers on 8 layers (the windowed
+    ``fa_bwd_wgmma``), hubert-xlarge and qwen2-vl-7b (``fa_bwd_mma``).
+    Each rank's parameter and moment bytes against the rules, its peak
+    above the state, its step times, the launches of the attention and
+    scan kernels forward and backward (by route) and the local shapes of
+    both; ``--only-train-sharded`` builds the kernels, runs only this
+    phase and stops;
 33. the script's wall seconds (each phase's on a ``wall:`` line), a
     ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
     summed over every path above, ``decode_attention``'s G=16 time under
     ``g16`` and with its log-sum-exp output under ``lse`` (timed in turns
-    with the launch without it); the two backward kernels at the stablelm-1.6b and falcon-mamba
-    training shapes, attention's ``mma`` route under ``mma``), then
+    with the launch without it); the two backward kernels at the
+    stablelm-1.6b and falcon-mamba training shapes, attention's ``mma``
+    route under ``mma``, with its times at hubert-xlarge's and
+    qwen2-vl-7b's under ``hubert`` and ``qwen2_vl``), then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -275,6 +290,7 @@ import argparse
 import contextlib
 import ctypes
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -2441,16 +2457,107 @@ def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
                 forward_ms={k: mean(v) for k, v in fwd.items()})
 
 
+# the attention shapes of phase 32's world-1 training steps that run the
+# mma backward route in bf16: hubert-xlarge (non-causal, D=80) and
+# qwen2-vl-7b (causal over given positions, M-RoPE's stream 0 off the row
+# index in row 1: ``vision_positions``)
+HUBERT_TRAIN = dict(B=2, H=16, Hkv=16, S=512, D=80, causal=False,
+                    positions=False)
+QWEN2VL_TRAIN = dict(B=1, H=28, Hkv=4, S=1536, D=128, causal=True,
+                     positions=True)
+
+
+def vision_positions(torch, B, S):
+    """(B, S) int32 stream 0 of phase 32's vision batches: the row index,
+    row 1's (row 0's where B = 1) moved up by 3 from position 5 (so every
+    rank takes the position masks)."""
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(B, 1)
+    pos[min(1, B - 1), 5:] += 3
+    return pos
+
+
+def time_flash_bwd_mma(torch, fa, timer, B, H, Hkv, S, D, causal,
+                       positions):
+    """Phase 23: the ``fa_bwd_mma`` route as training runs it where the
+    forward is ``fa_mma`` (bf16, a head dim other than 64 or 128, or given
+    positions), checked against its plain version as ``close_kernel``
+    holds it, timed beside that plain version and, as a yardstick the port
+    never calls, the backward of one ``scaled_dot_product_attention`` call
+    with the same mask (a boolean mask where positions are given).  The
+    bound counts the five products over the (query, key) pairs the mask
+    keeps in this call's data."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, "bfloat16")
+    do = flash_inputs(torch, gen, B, H, H, S, D, "bfloat16")[0]
+    pos = vision_positions(torch, B, S) if positions else None
+    kw = dict(causal=causal, q_pos=pos, k_pos=pos)
+    require(fa.bwd_route(torch.bfloat16, D, positions) == "fa_bwd_mma",
+            f"D={D} positions={positions} is not on the mma route")
+    o = fa.flash_attention(q, k, v, **kw)
+    n0 = ops.launch_counts()["fa_bwd_mma"]
+    got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    require(ops.launch_counts()["fa_bwd_mma"] == n0 + 1,
+            "the mma backward did not launch")
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    name = (f"flash_attention_bwd fa_bwd_mma B={B} H={H} Hkv={Hkv} S={S} "
+            f"D={D} causal={causal} positions={positions}")
+    res = [close_kernel(g, w, "bfloat16", f"{name} d{t}", quiet=True)
+           for t, g, w in zip("qkv", got, want)]
+    err, tile = max(e for e, _ in res), max(r for _, r in res)
+    del got, want
+    ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw),
+                  iters=10)
+    plain_ms = timer.ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, do, **kw), iters=3, warmup=1)
+    keep = fa._keep(pos, pos, B, S, causal, 0, q.device)[:, 0]  # (B,1,S,S)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=keep if positions else None,
+        is_causal=causal and not positions, enable_gqa=True)
+    lib_ms = library_ms(torch, timer, "SDPA backward",
+                        lambda: torch.autograd.grad(out, (qs, ks, vs), do,
+                                                    retain_graph=True),
+                        iters=10)
+    # q, o, dO in and dQ out (H heads); k, v in and dK, dV out (Hkv heads);
+    # the positions read twice
+    n_bytes = B * S * D * 2 * (4 * H + 4 * Hkv) + (2 * B * S * 4 if positions
+                                                    else 0)
+    pairs = int(keep.sum())  # (b, query, key) triples the mask keeps
+    n_ops = 5 * 2 * pairs * D * H  # S, dP, dV, dK, dQ; 2 flops an FMA
+    b, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    del out, qs, ks, vs, keep
+    torch.cuda.empty_cache()
+    return dict(shape=name.split("fa_bwd_mma ")[1], max_abs_err=err,
+                max_tile_rel_err=tile, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b, bound_by=by)
+
+
 def backward_times(torch, fa, ssm, card):
     """Phase 23: ``time_flash_bwd`` at stablelm-1.6b's and qwen3-8b's
-    training shapes and ``time_ssm_bwd`` at falcon-mamba's chunk, printed
+    training shapes, ``time_flash_bwd_mma`` at hubert-xlarge's and
+    qwen2-vl-7b's, and ``time_ssm_bwd`` at falcon-mamba's chunk, printed
     with their ratios; the wgmma route must beat the ``mma`` route at both
-    attention shapes.  Returns the three timings."""
+    of its attention shapes.  Returns the four timings (the mma route's a
+    dict by config)."""
     timer = Timer(torch)
     stablelm = time_flash_bwd(torch, fa, timer, **STABLELM_TRAIN)
     qwen3 = time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
+    mma = {"hubert": time_flash_bwd_mma(torch, fa, timer, **HUBERT_TRAIN),
+           "qwen2_vl": time_flash_bwd_mma(torch, fa, timer, **QWEN2VL_TRAIN)}
     scan = time_ssm_bwd(torch, ssm, timer, **MAMBA_TRAIN_CHUNK)
     del timer
+    for which, t in mma.items():
+        print(f"time flash_attention_bwd fa_bwd_mma at {which}'s training "
+              f"shape {t['shape']}: " + " ".join(
+                  f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+                  for k, v in t.items() if k != "shape")
+              + f" x_bound={t['ms'] / t['bound_ms']:.3f} x_library="
+              f"{t['ms'] / t['library_ms']:.3f} [{card}]")
     rows = []
     for shape, t in (("B=8 H=32 Hkv=32 S=2048 D=64", stablelm),
                      ("B=4 H=32 Hkv=8 S=2048 D=128", qwen3)):
@@ -2475,7 +2582,7 @@ def backward_times(torch, fa, ssm, card):
     require(scan["ms"] < SSM_BWD_TWO_PASS_MS, f"ssm_scan_bwd at "
             f"{MAMBA_TRAIN_CHUNK}: {scan['ms']:.4f} ms is not below the "
             f"two-pass kernel's {SSM_BWD_TWO_PASS_MS} ms")
-    return stablelm, qwen3, scan
+    return stablelm, qwen3, mma, scan
 
 
 def card_state():
@@ -2558,10 +2665,12 @@ def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
                 timer=seen)
 
 
-def bwd_entry(fa, counts, errs, stablelm, qwen3):
+def bwd_entry(fa, counts, errs, stablelm, qwen3, mma_train):
     """The kernels line's ``flash_attention_bwd``: the wgmma route that
     training runs, at stablelm-1.6b's shape and (``qwen3``) qwen3-8b's,
-    with PR 18's ``mma`` route under ``mma``."""
+    with PR 18's ``mma`` route under ``mma``, also at the training shapes
+    where training runs it (``mma_train``: hubert-xlarge's and
+    qwen2-vl-7b's)."""
     shapes = {"stablelm": (STABLELM_TRAIN, stablelm),
               "qwen3": (QWEN_TRAIN, qwen3)}
 
@@ -2593,7 +2702,7 @@ def bwd_entry(fa, counts, errs, stablelm, qwen3):
                  source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  launches=counts["fa_bwd_mma"],
                  **numbers("fa_bwd_mma", "stablelm"),
-                 qwen3=numbers("fa_bwd_mma", "qwen3")))
+                 qwen3=numbers("fa_bwd_mma", "qwen3"), **mma_train))
 
 
 def check_train_small(torch):
@@ -3394,21 +3503,23 @@ class ShardedJob(NamedTuple):
     limit: str | None
 
 
-# The reduced configs in f32 first (fa_fwd, dec_split), then Qwen3-8B and
-# falcon-mamba-7b at full width and depth in bf16 (fa_wgmma, dec_mma,
-# ssm_fwd<false>).  The random falcon-mamba-7b is chaotic across its
+# The reduced configs in f32 first (fa_fwd, dec_split), then Qwen3-8B (its
+# first 8 of 36 layers) and falcon-mamba-7b (its first 8 of 64) at full
+# width in bf16 (fa_wgmma, dec_mma, ssm_fwd<false>); both ran at full depth
+# until the train step of every config joined phase 32, and the script's
+# time asked for the cut.  The random falcon-mamba-7b is chaotic across its
 # layers: a change in the last bits of a layer's output grows from layer
 # to layer, and a contraction split over two ranks sums in another order,
-# so at 64 layers in bf16 its logits keep no agreement with the world-1
-# run.  They are printed; the Mamba path's function is held at full width
-# on its first 4 layers in f32, and the f32 runs of its first 2 and 8
-# layers show the growth.
+# so at 64 layers in bf16 its logits kept no agreement with the world-1
+# run (cosine 0.084).  They are printed; the Mamba path's function is held
+# at full width on its first 4 layers in f32, and the f32 runs of its
+# first 2 and 8 layers show the growth.
 F32 = {"dtype": "float32", "param_dtype": "float32"}
 SHARDED_JOBS = (
     ShardedJob("qwen3-8b", True, {"n_kv_heads": 2}, 2, 64, 4, "tol"),
     ShardedJob("falcon-mamba-7b", True, {}, 2, 64, 4, "tol"),
-    ShardedJob("qwen3-8b", False, {}, 4, 2048, 8, "cos"),
-    ShardedJob("falcon-mamba-7b", False, {}, 4, 1024, 8, None),
+    ShardedJob("qwen3-8b", False, {"n_layers": 8}, 4, 2048, 8, "cos"),
+    ShardedJob("falcon-mamba-7b", False, {"n_layers": 8}, 4, 1024, 8, None),
     ShardedJob("falcon-mamba-7b", False, {"n_layers": 2, **F32}, 4, 1024, 1,
                None),
     ShardedJob("falcon-mamba-7b", False, {"n_layers": 4, **F32}, 4, 1024, 8,
@@ -3421,21 +3532,24 @@ SHARDED_JOBS = (
 # embeddings (2 draws; tests/test_torch_sharded_families.py).  A window of
 # 4 over a 20-token prompt crosses the two ranks' 18 cache rows in decode,
 # and qwen2-vl's row 1 takes positions off the row index.  Then
-# full width at phases 16-21's shapes; jamba and qwen3-moe on the 8 layers
-# of phases 17-18, gemma3 on its first 12 (global layers 5 and 11, decode
-# past its window of 1024), gemma3 and qwen2-vl held in bf16 at cosine >=
-# 0.99.  The other random stacks amplify a last-bit difference (the
-# ranks' partial sums meet in another order) from layer to layer, as
+# full width at phases 16-21's shapes, each on its first layers: jamba,
+# qwen3-moe, qwen2-moe-a2.7b, qwen2-vl-7b and hubert-xlarge on 4, gemma3 on
+# 6 (its global layer 5, decode past its window of 1024); until the train
+# step of every config joined phase 32 they ran deeper (jamba, qwen3-moe
+# and gemma3 on 8, 8 and 12 layers, the others at full depth), and the
+# script's time asked for the cut; gemma3 and qwen2-vl held in bf16 at
+# cosine >= 0.99.  The other random stacks amplify a last-bit difference
+# (the ranks' partial sums meet in another order) from layer to layer, as
 # falcon-mamba-7b's does in phase 30: in bf16 on an H100 80GB HBM3 at 700
 # W, the MoE stacks' expert choices flip near ties (min cosine to the
 # world-1 run 0.907 for qwen2-moe-a2.7b's 24 layers, 0.269 for qwen3-moe's
-# 8) and hubert-xlarge's 48 non-causal layers reach 0.980.  So their bf16
-# logits are printed, and each is held in f32 at full width: qwen2-moe
-# and qwen3-moe on their first 4 layers, jamba on 5 (Mamba, the attention
-# layer at 4, MoE at 1 and 3), hubert at full depth.  jamba's random 8
-# layers in bf16 grow a residual whose square overflows f32 in the final
-# norm, so both runs' logits are 0; the job still runs every kernel at
-# full width on a rank's shards.
+# 8) and hubert-xlarge's 48 non-causal layers reached 0.980.  So their
+# bf16 logits are printed, and each is held in f32 at full width:
+# qwen2-moe and qwen3-moe on their first 4 layers, jamba on 5 (Mamba, the
+# attention layer at 4, MoE at 1 and 3), hubert on 4.  jamba's random 8
+# layers in bf16 grew a residual whose square overflowed f32 in the final
+# norm (logits 0 in both runs); each job runs every kernel of its layers
+# at full width on a rank's shards.
 FAMILY_JOBS = (
     ShardedJob("qwen2-moe-a2.7b", True, {}, 2, 64, 4, "tol"),
     ShardedJob("qwen3-moe-235b-a22b", True, {"n_heads": 16, "n_kv_heads": 1},
@@ -3444,20 +3558,21 @@ FAMILY_JOBS = (
     ShardedJob("gemma3-27b", True, {"sliding_window": 4}, 2, 20, 4, "tol"),
     ShardedJob("qwen2-vl-7b", True, {}, 2, 64, 4, "tol"),
     ShardedJob("hubert-xlarge", True, {}, 2, 64, 0, "tol"),
-    ShardedJob("qwen2-moe-a2.7b", False, {}, 4, 2048, 8, None),
+    ShardedJob("qwen2-moe-a2.7b", False, {"n_layers": 4}, 4, 2048, 8, None),
     ShardedJob("qwen2-moe-a2.7b", False, {"n_layers": 4, **F32}, 4, 2048, 8,
                "cos"),
-    ShardedJob("jamba-v0.1-52b", False, {"n_layers": 8}, 2, 2048, 8, None),
+    ShardedJob("jamba-v0.1-52b", False, {"n_layers": 4}, 2, 2048, 8, None),
     ShardedJob("jamba-v0.1-52b", False, {"n_layers": 5, **F32}, 2, 2048, 8,
                "cos"),
-    ShardedJob("qwen3-moe-235b-a22b", False, {"n_layers": 8}, 2, 2048, 8,
+    ShardedJob("qwen3-moe-235b-a22b", False, {"n_layers": 4}, 2, 2048, 8,
                None),
     ShardedJob("qwen3-moe-235b-a22b", False, {"n_layers": 4, **F32}, 2, 2048,
                8, "cos"),
-    ShardedJob("gemma3-27b", False, {"n_layers": 12}, 2, 1536, 8, "cos"),
-    ShardedJob("qwen2-vl-7b", False, {}, 4, 2048, 8, "cos"),
-    ShardedJob("hubert-xlarge", False, {}, 4, 2048, 0, None),
-    ShardedJob("hubert-xlarge", False, F32, 4, 2048, 0, "cos"))
+    ShardedJob("gemma3-27b", False, {"n_layers": 6}, 2, 1536, 8, "cos"),
+    ShardedJob("qwen2-vl-7b", False, {"n_layers": 4}, 4, 2048, 8, "cos"),
+    ShardedJob("hubert-xlarge", False, {"n_layers": 4}, 4, 2048, 0, None),
+    ShardedJob("hubert-xlarge", False, {"n_layers": 4, **F32}, 4, 2048, 0,
+               "cos"))
 JOBS = {30: SHARDED_JOBS, 31: FAMILY_JOBS}
 NOISE_DRAWS = 2
 GLOO_COLLECTIVES = ("all_reduce", "all_gather_into_tensor",
@@ -3936,22 +4051,51 @@ class TrainJob(NamedTuple):
 # recomputation, the gradient's reduce-scatter).  Under the reference's
 # init rule a cut-depth stack has large weights (std 1/sqrt(4) at 4
 # layers, at widths of 2048 and 4096): its attention saturates and its
-# scan's gradients reach 1e5-1e6.  Whether a last-bit difference then
-# grows from layer to layer is what the witness shows: the same stacks in
-# f32 at that init, world 1 against world 1 with every parameter moved by
-# 1e-7 of itself (``TRAIN_NOISE``; bf16 cannot hold such a move), printed
-# beside the bf16 runs.  Those runs are printed; the function is held in
-# f32 on the same widths and depth with each dense weight at std
-# 1/sqrt(its contraction width).
+# scan's gradients reach 1e5-1e6, and a last-bit difference grows from
+# layer to layer (ROADMAP Queue C item 9).  The bf16 runs with that init
+# are printed; the function is held in f32 on the same widths with each
+# dense weight at std 1/sqrt(its contraction width).
+#
+# The other six configs run on (1, 2), tensor parallel over "model"
+# (heads, FFN width, experts, vocab, channels), each at full width and at
+# the depth ``STATE_BUDGET`` allows (``cut_depth``): its state (parameters
+# and gradients in its dtype, two f32 moments) must fit one card in the
+# world-1 run, and so beside the other rank's half in the two ranks.  The
+# f32 runs are held.  A bf16 run is added only where it launches a route
+# of the attention backward that no f32 run launches: gemma3-27b's pattern
+# of five windowed layers and a global one plus the two layers past it
+# (the windowed ``fa_bwd_wgmma``; in f32 its 5 layers all lie before the
+# first whole period, so none is decayed), hubert-xlarge (non-causal, D=80:
+# ``fa_bwd_mma``) and qwen2-vl-7b (positions off the row index:
+# ``fa_bwd_mma``).  gemma3 and qwen2-vl take S = 1536, past gemma3's
+# window of 1024 and past qwen2-vl's 1024 vision rows, at B = 1: every
+# activation the ranks exchange crosses the host (gloo), so the script's
+# time follows B x S.
 TRAIN_STEPS = 2
 TRAIN_JOBS = (
     TrainJob("stablelm-1.6b", {"n_layers": 4}, (2, 1), 2, 512, False, False),
     TrainJob("stablelm-1.6b", {"n_layers": 4, **F32}, (2, 1), 2, 512, True,
              True),
-    TrainJob("falcon-mamba-7b", {"n_layers": 4}, (1, 2), 2, 512, False,
-             False),
     TrainJob("falcon-mamba-7b", {"n_layers": 4, **F32}, (1, 2), 2, 512, True,
+             True),
+    TrainJob("gemma3-27b", {"n_layers": 5, **F32}, (1, 2), 1, 1536, True,
+             True),
+    TrainJob("gemma3-27b", {"n_layers": 8}, (1, 2), 1, 1536, False, False),
+    TrainJob("hubert-xlarge", F32, (1, 2), 2, 512, True, True),
+    TrainJob("hubert-xlarge", {}, (1, 2), 2, 512, False, False),
+    TrainJob("qwen2-vl-7b", {"n_layers": 11, **F32}, (1, 2), 1, 1536, True,
+             True),
+    TrainJob("qwen2-vl-7b", {"n_layers": 16}, (1, 2), 1, 1536, False, False),
+    TrainJob("qwen2-moe-a2.7b", {"n_layers": 5, **F32}, (1, 2), 2, 512, True,
+             True),
+    TrainJob("qwen3-moe-235b-a22b", {"n_layers": 1, **F32}, (1, 2), 2, 512,
+             True, True),
+    TrainJob("jamba-v0.1-52b", {"n_layers": 2, **F32}, (1, 2), 2, 512, True,
              True))
+# the state of a job's world-1 run (and of its two ranks together) that its
+# depth is cut to: the rest of the card holds the step's activations,
+# its temporaries and the allocator's slack
+STATE_BUDGET = 60e9
 # A held run against the world-1 run: the first step's loss and grad norm
 # within TRAIN_RTOL (relative), and each gradient leaf within TRAIN_RTOL of
 # its largest |g| (tests/test_torch_train.py's rule); the second step's
@@ -3969,10 +4113,11 @@ TRAIN_NOISE = 1e-7
 # GRAD_SAMPLE: enough for the checks, and the ranks' results cross the disk
 UPDATE_SAMPLE = 1 << 20
 GRAD_SAMPLE = 1 << 18
-# the dense weights and how many leading dims each contracts
+# the dense weights and how many leading dims each contracts (an expert
+# weight, (E, in, out), its dim 1)
 DENSE_CONTRACT = {"wq": 1, "wk": 1, "wv": 1, "wo": 2, "w_gate": 1, "w_up": 1,
                   "w_down": 1, "in_proj": 1, "x_proj": 1, "dt_proj": 1,
-                  "out_proj": 1, "conv_w": 1}
+                  "out_proj": 1, "conv_w": 1, "w_router": 1}
 
 
 def fan_in_init(torch, cfg, params):
@@ -3994,8 +4139,35 @@ def fan_in_init(torch, cfg, params):
                 if k is None:
                     continue
                 ref = n_rep if i < n_stacked else w.shape[0]
-                sh.local(w).mul_(math.sqrt(max(ref, 1)
-                                           / math.prod(w.shape[:k])))
+                expert = path[0] == "moe" and w.dim() == 3
+                dims = w.shape[1:2] if expert else w.shape[:k]
+                sh.local(w).mul_(math.sqrt(max(ref, 1) / math.prod(dims)))
+
+
+def state_bytes(cfg):
+    """A train state's bytes: the parameters and their gradients in their
+    dtypes, and two f32 moments."""
+    from repro_torch.models.params import param_specs
+    from repro_torch.train.tree import leaves
+
+    return sum(math.prod(s.shape) * (2 * s.dtype.itemsize + 8)
+               for s in leaves(param_specs(cfg)))
+
+
+def cut_depth(job):
+    """(the full config's layers, the job's state bytes, the state of one
+    layer more or None at full depth); for the six configs' jobs
+    (``TRAIN_JOBS`` past falcon-mamba-7b) the phase requires the state
+    within ``STATE_BUDGET`` and one layer more beyond it."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    full = get_config(job.config)
+    cfg = dataclasses.replace(full, **job.overrides)
+    more = (None if cfg.n_layers >= full.n_layers else state_bytes(
+        dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)))
+    return full.n_layers, state_bytes(cfg), more
 
 
 def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
@@ -4008,10 +4180,11 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
     norms, the ms of each step, the launches of the steps (counted from 0
     just before them), the local shapes each kernel wrapper ran on, the
     bytes of the parameters and moments against the rules, the peak bytes
-    above the state during a step, the first step's gradients before
-    clipping (``grad_hook``; f32, CPU) and the update of each leaf (bf16,
-    CPU); with ``mesh`` the first entries of the rank's shards, with its
-    mesh coordinate and placements."""
+    above the state during a step, and of each leaf, by mesh coordinate,
+    the first entries of the rank's shard (of every rank's of
+    ``job.mesh`` without ``mesh``) of the first step's gradients before
+    clipping (``grad_hook``; f32, CPU, with the largest |entry| of the
+    rank's shard or of the whole leaf) and of the update (bf16, CPU)."""
     import dataclasses
 
     from repro_torch.configs.base import ShapeConfig, get_config
@@ -4046,6 +4219,8 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
         keep = torch.linspace(0.9, 0.4, B, device="cuda")[:, None]
         b["loss_mask"] = (torch.rand(B, S, generator=torch.Generator(
             device="cuda").manual_seed(20 + i), device="cuda") < keep).float()
+        if "positions" in b:  # stream 0 off the row index: position masks
+            b["positions"][..., 0] = vision_positions(torch, B, S)
         batches.append(b)
     out = {}
     if mesh is None:
@@ -4064,13 +4239,29 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
         out["moment_bytes"] = [tree_bytes((state.opt.mu, state.opt.nu)),
                                2 * rule_bytes(f32, mesh, sh.TRAIN_RULES)]
     out["full_bytes"] = spec_bytes(param_specs(cfg))
-    before = {"/".join(map(str, p)): sh.local(t).detach().float().clone()
-              for p, t in flatten_with_path(state.params)}
+    # each leaf's first entries of each rank's shard: a rank's own, or in
+    # the world-1 run every rank's of the job's mesh, split as the rules
+    # split the leaf there (compared entry by entry, without a whole leaf
+    # on the host or a second copy on the card)
+    coords = ([tuple(mesh.get_coordinate())] if mesh is not None else
+              list(itertools.product(*map(range, job.mesh))))
+    abstract = sh.AbstractMesh(("data", "model"), job.mesh)
+    dims = {"/".join(map(str, p)): [
+        q.dim if q.is_shard() else None for q in sh.placements(sh.to_pspec(
+            s.logical, rules=sh.TRAIN_RULES, mesh=abstract, shape=s.shape),
+            abstract)] for p, s in flatten_with_path(param_specs(cfg))}
 
-    def layout(t):  # the rank's mesh coordinate and the tensor's split
-        return (mesh.get_coordinate(), tuple(mesh.shape),
-                [q.dim if q.is_shard() else None for q in t.placements])
+    def samples(key, t, n):
+        if mesh is not None:
+            return {coords[0]: head(sh.local(t), n)}
+        return {c: head(shard_of(t, (c, job.mesh, dims[key])), n)
+                for c in coords}
 
+    before = {}
+    for p, t in flatten_with_path(state.params):
+        key = "/".join(map(str, p))
+        before[key] = {c: x.float().clone() for c, x in samples(
+            key, t.detach(), UPDATE_SAMPLE).items()}
     out["grads"], hook_s = {}, [0.0]
 
     @torch.no_grad()
@@ -4079,23 +4270,28 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
             return
         t0 = time.perf_counter()
         for p, g in flatten_with_path(tree):
-            lay = None
             if mesh is not None:  # in the parameter's layout: no partial sum
                 require(not any(q.is_partial() for q in g.placements),
                         f"the gradient of {p} is a partial sum")
-                lay = layout(g)
-            g = sh.local(g).detach()
-            lo, hi = torch.aminmax(g)
-            scale = max(-float(lo), float(hi))
-            g = g.flatten()[:GRAD_SAMPLE] if mesh is not None else g
+            key = "/".join(map(str, p))
+            lo, hi = torch.aminmax(sh.local(g).detach())
             # copied to the host before widening: no device memory is added
-            out["grads"]["/".join(map(str, p))] = (g.cpu().float(), lay,
-                                                   scale)
+            out["grads"][key] = ({c: x.cpu().float() for c, x in samples(
+                key, g.detach(), GRAD_SAMPLE).items()},
+                max(-float(lo), float(hi)))
         hook_s[0] += time.perf_counter() - t0
 
     step.grad_hook = first_grads
-    seen = {name: set() for name in ("flash_attention", "ssm_scan")}
-    originals = {name: getattr(ops, name) for name in seen}
+    # the local shapes of the first two arguments of each wrapper's calls,
+    # and of its backward kernels' (their autograd Functions call them by
+    # their modules' names, on the rank's shards)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssm_scan as ssm
+
+    wrapped = {"flash_attention": ops, "ssm_scan": ops,
+               "flash_attention_bwd": fa, "ssm_scan_bwd": ssm}
+    seen = {name: set() for name in wrapped}
+    originals = {name: getattr(mod, name) for name, mod in wrapped.items()}
 
     def recorder(name):
         def call(*a, **kw):
@@ -4103,8 +4299,8 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
             return originals[name](*a, **kw)
         return call
 
-    for name in seen:
-        setattr(ops, name, recorder(name))
+    for name, mod in wrapped.items():
+        setattr(mod, name, recorder(name))
     def ctx():
         return (sh.sharding_ctx(mesh, sh.TRAIN_RULES) if mesh is not None
                 else contextlib.nullcontext())
@@ -4130,16 +4326,15 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
     finally:
         step.grad_hook = None
         for name, fn in originals.items():
-            setattr(ops, name, fn)
+            setattr(wrapped[name], name, fn)
     out["shapes"] = {k: sorted(v) for k, v in seen.items()}
     out["update"] = {}
     for p, t in flatten_with_path(state.params):
         key = "/".join(map(str, p))
-        upd, lay = sh.local(t).detach().float() - before[key], None
-        if mesh is not None:  # the first entries of the rank's shard
-            lay, upd = layout(t), upd.flatten()[:UPDATE_SAMPLE]
         # bf16 on the host: the cosine needs no more
-        out["update"][key] = (upd.bfloat16().cpu(), lay)
+        out["update"][key] = {
+            c: (x.float() - before[key][c]).bfloat16().cpu()
+            for c, x in samples(key, t.detach(), UPDATE_SAMPLE).items()}
     del state, before
     torch.cuda.empty_cache()
     return out
@@ -4180,8 +4375,18 @@ def shard_of(t, layout):
     return t
 
 
+def head(t, n):
+    """The first ``n`` entries of ``t`` in row-major order, copying only
+    the leading rows they lie in."""
+    if t.dim() == 0:
+        return t.reshape(1)
+    per_row = max(t[0].numel(), 1) if t.shape[0] else 1
+    return t[:-(-n // per_row)].flatten()[:n]
+
+
 def train_launches(torch, cfg, S):
-    """{kernel: launches} of ``TRAIN_STEPS`` steps with remat, per rank."""
+    """{kernel: launches} of ``TRAIN_STEPS`` steps with remat, per rank
+    (a vision config's batches carry positions off the row index)."""
     from repro_torch.configs.base import layer_specs
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.mamba import CHUNK
@@ -4189,7 +4394,8 @@ def train_launches(torch, cfg, S):
     specs = layer_specs(cfg)
     n_attn = sum(s.kind == "attn" for s in specs)
     chunks = (len(specs) - n_attn) * -(-S // CHUNK)
-    route = fa.bwd_route(getattr(torch, cfg.dtype), cfg.head_dim, False)
+    route = fa.bwd_route(getattr(torch, cfg.dtype), cfg.head_dim,
+                         cfg.frontend == "vision")
     want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "ssm_scan_ckpt": 2 * chunks, "ssm_scan_bwd": chunks}
     want.update({r: n_attn * (r == route) for r in
@@ -4197,42 +4403,66 @@ def train_launches(torch, cfg, S):
     return {k: v * TRAIN_STEPS for k, v in want.items()}
 
 
-def grad_diff(got, want, sample):
-    """Step 1's gradients of two runs ({leaf: (tensor, layout, largest
-    |entry|)}): ``got``'s first ``sample`` entries of each leaf (of the
-    rank's shard by its layout, or of the whole leaf) against the same
-    entries of ``want``'s whole leaves.  Returns (the largest |got - want|
-    over the leaf's largest |want|, over the leaves, and its leaf; the
-    entries whose signs differ; the entries compared)."""
+def train_shapes(cfg, job):
+    """{wrapper: [local shapes of its first two arguments]} a rank of
+    ``job.mesh`` runs, forward and backward: attention on its batch rows
+    and heads (query and KV heads split alike), the scan on its batch rows
+    and inner channels, each chunk of at most 256 steps."""
+    from repro_torch.configs.base import layer_specs
+    from repro_torch.models.mamba import CHUNK
+
+    dp, tp = job.mesh
+    B, S = job.B // dp, job.S
+    kinds = {s.kind for s in layer_specs(cfg)}
+    out = {}
+    if "attn" in kinds:
+        require(cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0,
+                f"{cfg.name}: {tp} ranks do not split the heads alike")
+        one = sorted({((B, cfg.n_heads // tp, S, cfg.head_dim),
+                       (B, cfg.n_kv_heads // tp, S, cfg.head_dim))})
+        out["flash_attention"] = out["flash_attention_bwd"] = one
+    if "mamba" in kinds:
+        inner = cfg.d_inner // tp if cfg.d_inner % tp == 0 else cfg.d_inner
+        one = sorted({((B, min(CHUNK, S - c), inner, cfg.ssm_state),) * 2
+                      for c in range(0, S, CHUNK)})
+        out["ssm_scan"] = out["ssm_scan_bwd"] = one
+    return out
+
+
+def grad_diff(got, want):
+    """Step 1's gradients of two runs ({leaf: ({mesh coordinate: the first
+    entries of that rank's shard}, largest |entry|)}): each of ``got``'s
+    samples against the same entries of ``want``.  Returns (the largest
+    |got - want| over the leaf's largest |want|, over the leaves, and its
+    leaf; the entries whose signs differ; the entries compared)."""
     worst, leaf, flips, n = 0.0, None, 0, 0
-    for key, (g, layout, _) in got.items():
-        w, _, scale = want[key]
-        w = (shard_of(w, layout) if layout else w).flatten()[:sample]
-        g = g.flatten()[:sample]
-        err = float((g - w).abs().max()) / max(scale, 1e-30)
-        if err > worst:
-            worst, leaf = err, key
-        flips += int((g.sign() != w.sign()).sum())
-        n += g.numel()
+    for key, (parts, _) in got.items():
+        wparts, scale = want[key]
+        for c, g in parts.items():
+            w = wparts[c]
+            err = float((g - w).abs().max()) / max(scale, 1e-30)
+            if err > worst:
+                worst, leaf = err, key
+            flips += int((g.sign() != w.sign()).sum())
+            n += g.numel()
     return worst, leaf, flips, n
 
 
 def run_moves(a, b):
     """How far run ``b`` is from run ``a`` (``train_job_steps``' results):
     each step's larger relative difference of the loss and the grad norm,
-    step 1's gradients (``grad_diff``) and the update's cosine."""
+    step 1's gradients (``grad_diff``) and the update's cosine, over the
+    entries ``b`` sampled."""
     moves = [max(abs(x - y) / abs(y) for x, y in pairs) for pairs in zip(
         zip(b["loss"], a["loss"]), zip(b["grad_norm"], a["grad_norm"]))]
     dot = na = nb = 0.0
-    for key, (upd, layout) in b["update"].items():
-        w = a["update"][key][0]
-        upd = upd.flatten()[:UPDATE_SAMPLE].double()
-        w = (shard_of(w, layout) if layout else w).flatten()[:upd.numel()]
-        dot += float((upd * w.double()).sum())
-        na += float(upd.square().sum())
-        nb += float(w.double().square().sum())
-    return {"steps": moves, "grads": grad_diff(b["grads"], a["grads"],
-                                               GRAD_SAMPLE),
+    for key, parts in b["update"].items():
+        for c, upd in parts.items():
+            upd, w = upd.double(), a["update"][key][c].double()
+            dot += float((upd * w).sum())
+            na += float(upd.square().sum())
+            nb += float(w.square().sum())
+    return {"steps": moves, "grads": grad_diff(b["grads"], a["grads"]),
             "cos": dot / max(math.sqrt(na * nb), 1e-300)}
 
 
@@ -4241,14 +4471,16 @@ def train_sharded_on_card(torch, ops, card):
     processes sharing cuda:0 over gloo (NCCL refuses two ranks on one
     device), each job of ``TRAIN_JOBS`` first unsharded in this process
     (the world-1 run: the same seeded weights and batches), then in both
-    ranks; beside each, its witness (world 1 against world 1 with every
-    parameter moved by ``TRAIN_NOISE``: the f32 job itself, or for a bf16
-    job the same stack in f32 at the same init).  Checks: each rank's
+    ranks; beside each held job, its witness (world 1 against world 1 with
+    every parameter moved by ``TRAIN_NOISE``).  Each job's depth and its
+    state's bytes are printed (``cut_depth``).  Checks: the six configs'
+    depths are the deepest that ``STATE_BUDGET`` allows; each rank's
     parameter and moment bytes equal to its shards' by the rules; the
     launches of the attention and scan kernels, forward and backward (by
-    route), on the steps, and their local shapes (half the batch rows on
-    (2, 1), half the inner channels on (1, 2)); no gradient a partial sum;
-    finite losses; for a held job the first step's loss, grad norm and
+    route), on the steps, and the local shapes of both, forward and
+    backward (``train_shapes``: half the batch rows on (2, 1), half the
+    heads or inner channels on (1, 2)); no gradient a partial sum; finite
+    losses; for a held job the first step's loss, grad norm and
     gradients within ``TRAIN_RTOL`` of the world-1 run, the second step's
     loss and grad norm within ``TRAIN_RTOL`` plus 4x the witness's move,
     and the update's cosine >= 0.99.  Returns the launches of both ranks'
@@ -4261,16 +4493,29 @@ def train_sharded_on_card(torch, ops, card):
     from repro_torch.configs.base import get_config
 
     t_phase = time.perf_counter()
-    world1, witness = [], []
+    world1, witness, fails = [], [], []
     for job in TRAIN_JOBS:
+        n_full, state, more = cut_depth(job)
+        n = job.overrides.get("n_layers", n_full)
+        cut = (f"at full depth, {n_full} layers" if n == n_full else
+               f"cut to {n} of {n_full} layers")
+        print(f"phase 32 {job.config} {job.overrides.get('dtype', 'bf16')}: "
+              f"{cut}; its state (parameters, gradients, two f32 moments) "
+              f"{state / 1e9:.1f} GB" + ("" if more is None else
+              f", {more / 1e9:.1f} GB with one layer more")
+              + f" (budget {STATE_BUDGET / 1e9:.0f} GB of the card for the "
+              f"world-1 run, and for the two ranks' halves beside each "
+              f"other)")
+        if job.config not in ("stablelm-1.6b", "falcon-mamba-7b"):
+            if state > STATE_BUDGET or (more is not None
+                                        and more <= STATE_BUDGET):
+                fails.append(f"{job.config}: {n} layers is not the depth "
+                             f"that {STATE_BUDGET / 1e9:.0f} GB allows")
         world1.append(train_job_steps(torch, ops, job))
-        base = world1[-1]
-        if not job.held:  # bf16 cannot hold the move: f32 at the same init
-            job = job._replace(overrides={**job.overrides, **F32})
-            base = train_job_steps(torch, ops, job)
-        witness.append(run_moves(base, train_job_steps(
-            torch, ops, job, noise=TRAIN_NOISE)))
-        del base
+        # the witness only for a held job: the same run, every parameter
+        # moved by TRAIN_NOISE
+        witness.append(run_moves(world1[-1], train_job_steps(
+            torch, ops, job, noise=TRAIN_NOISE)) if job.held else None)
         torch.cuda.empty_cache()
     t_world1 = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory() as d:
@@ -4287,7 +4532,7 @@ def train_sharded_on_card(torch, ops, card):
                     p.kill()
         ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(SHARDED_RANKS)]
     t_ranks = time.perf_counter() - t_phase - t_world1
-    total, fails = {}, []
+    total = {}
 
     def need(cond, msg):  # every job is printed before the phase fails
         if not cond:
@@ -4300,8 +4545,10 @@ def train_sharded_on_card(torch, ops, card):
                  f"{get_config(job.config).n_layers} layers, {cfg.dtype}, "
                  f"{'fan-in' if job.fan_in else 'reference'} init, "
                  f"B={job.B}, S={job.S}, mesh {job.mesh})")
-        limits = [TRAIN_RTOL] + [TRAIN_RTOL + 4 * m for m in wit["steps"][1:]]
+        limits = ([TRAIN_RTOL] + [TRAIN_RTOL + 4 * m for m in
+                                  wit["steps"][1:]] if wit else None)
         n_want = train_launches(torch, cfg, job.S)
+        shapes_want = train_shapes(cfg, job)
         for r, res in enumerate(ranks):
             got = res[k]
             add_counts(total, got["counts"])
@@ -4312,6 +4559,10 @@ def train_sharded_on_card(torch, ops, card):
                 need(got["counts"][kernel] == w, f"{label} rank {r}: "
                      f"{kernel} launched {got['counts'][kernel]} times, want "
                      f"{w}")
+            for kernel, shapes in got["shapes"].items():
+                need(shapes == shapes_want.get(kernel, []), f"{label} rank "
+                     f"{r}: {kernel} ran on local shapes {shapes}, want "
+                     f"{shapes_want.get(kernel, [])}")
             need(all(math.isfinite(x) for x in got["loss"] + got["grad_norm"]),
                  f"{label} rank {r}: a loss or grad norm is not finite")
             got.update(run_moves(want, got))
@@ -4350,10 +4601,9 @@ def train_sharded_on_card(torch, ops, card):
                        else v)
 
         g = worst("grads")
-        wg = wit["grads"]
         print(f"phase 32 {label}: 2 ranks vs world 1"
-              + ("" if job.held else " (printed, not held: the witness "
-                 "below)")
+              + ("" if job.held else " (printed, not held: the reference's "
+                 "init is chaotic at this depth, ROADMAP Queue C item 9)")
               + f": losses {[f'{x:.6f}' for x in r0['loss']]} / "
               f"{[f'{x:.6f}' for x in want['loss']]}, grad norms "
               f"{[f'{x:.6f}' for x in r0['grad_norm']]} / "
@@ -4369,14 +4619,15 @@ def train_sharded_on_card(torch, ops, card):
               f"{min(res[k]['cos'] for res in ranks):.6f}; the two ranks "
               f"share one card and move their collectives through gloo on "
               f"the host: not a multi-card speed [{card}]")
-        print(f"phase 32 {label}: witness, world 1 against world 1 with "
-              f"every parameter moved by {TRAIN_NOISE:g} of itself"
-              + ("" if job.held else " (the same stack in float32)")
-              + ": relative move by step "
-              + ", ".join(f"{x:.3g}" for x in wit["steps"])
-              + f"; step 1's gradients within {wg[0]:.3g} (worst {wg[1]}), "
-              f"{wg[2]} of {wg[3]} sampled entries of opposite sign; the "
-              f"update's cosine {wit['cos']:.6f} [{card}]")
+        if wit:
+            wg = wit["grads"]
+            print(f"phase 32 {label}: witness, world 1 against world 1 with "
+                  f"every parameter moved by {TRAIN_NOISE:g} of itself: "
+                  f"relative move by step "
+                  + ", ".join(f"{x:.3g}" for x in wit["steps"])
+                  + f"; step 1's gradients within {wg[0]:.3g} (worst "
+                  f"{wg[1]}), {wg[2]} of {wg[3]} sampled entries of opposite "
+                  f"sign; the update's cosine {wit['cos']:.6f} [{card}]")
     print(f"phase 32 the train step sharded over 2 ranks: "
           f"{time.perf_counter() - t_phase:.1f} s wall (the world-1 runs "
           f"and witnesses {t_world1:.1f} s, the ranks' from their spawn "
@@ -4629,7 +4880,7 @@ def main():
 
     lap("22")
     # phase 23: the backward kernels' times at the training shapes
-    (times["flash_attention_bwd"], fa_bwd_qwen,
+    (times["flash_attention_bwd"], fa_bwd_qwen, fa_bwd_mma_train,
      times["ssm_scan_bwd"]) = backward_times(torch, fa, ssm, card)
 
     lap("23")
@@ -4714,7 +4965,7 @@ def main():
                        plain_build_ms=times["ssm_scan_bwd"]["forward_ms"][
                            "plain"])),
         bwd_entry(fa, counts, fa_bwd_err, times["flash_attention_bwd"],
-                  fa_bwd_qwen),
+                  fa_bwd_qwen, fa_bwd_mma_train),
         dict(name="ssm_scan_bwd", route="cuda",
              kernel="ssm_bwd_tma + ssm_bwd_dc",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",

@@ -474,14 +474,17 @@ def _move(x, target):
                               stride=_contiguous_strides(x.shape))
 
 
-def full(x):
+def full(x, partial=()):
     """The whole tensor of a DTensor on every rank (``full_tensor()``,
-    through ``redistribute``); anything else as it is."""
+    through ``redistribute``); anything else as it is.  Under autograd, as
+    ``local``: on the mesh axes named in ``partial`` each rank's gradient
+    is its term of a sum."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
 
-    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+    return local(redistribute(x, [Replicate()] * x.device_mesh.ndim),
+                 partial=partial)
 
 
 def gathered(w):

@@ -189,7 +189,12 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapFloatOOBfill);
 
 // the CUDA driver API's cuTensorMapEncodeTiled, found through the runtime,
-// so the library needs no -lcuda
+// so the library needs no -lcuda.  A driver call needs the device's context
+// current on the calling thread, which the runtime binds at the thread's
+// first call that initializes it: a thread whose first CUDA work is a map
+// (autograd's backward thread, for which PyTorch skips cudaSetDevice where
+// the device is already the current one) would get CUresult 201, so each
+// call makes the current device's primary context current first.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
@@ -204,6 +209,8 @@ EncodeTiled encode_tiled() {
 #endif
     if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
   return fn;
 }
 

@@ -38,12 +38,11 @@ from repro_torch.launch.specs import build_lowerable, cell_skip_reason
 from repro_torch.train.tree import leaves
 
 UNAVAILABLE = (
-    "the sharded step is not executed on the fake group: prefill and decode "
-    "run sharded on a live group of ranks, but training does not yet, and "
-    "the dry run does not execute the sharded step; a meta trace of the "
-    "plain versions at these shapes is not practical either (the plain scan "
-    "loops over every step, 524288 at long_500k); the reference reads these "
-    "from XLA's compiled module, whose cost_analysis counts a loop body once")
+    "the sharded step is not executed on the fake group (every cell's step "
+    "runs sharded on a live group of ranks); a meta trace of the plain "
+    "versions at these shapes is not practical either (the plain scan loops "
+    "over every step, 524288 at long_500k); the reference reads these from "
+    "XLA's compiled module, whose cost_analysis counts a loop body once")
 
 
 def _fake_group(world: int) -> None:

@@ -24,17 +24,16 @@ in_shardings[i], mesh)`` (parameters, the batch of ``_batch_sds`` with its
 frames, vision embeddings and positions, and the cache; ``cache_len`` a
 plain int) and called under ``sharding_ctx(mesh, low.rules)``; the logits
 come back vocab-sharded as DTensors (``sharding.full`` gathers them) and
-the cache as DTensors laid out by the rules.  So does the train ``fn``
-for the dense attention and Mamba stacks (``model.trains_sharded``:
-qwen3-8b, stablelm-1.6b, mistral-nemo-12b, falcon-mamba-7b): the state
-placed by ``in_shardings[0]`` (``train_loop.state_from_jax`` and
-``init_state`` take the mesh and place each leaf as it is made) and the
-batch by ``in_shardings[1]``; it returns the new state in the same layout
-and the metrics replicated, as plain tensors.  Its ``TrainConfig`` is the
-reference's: ``TRAIN_ACCUM`` microbatches for the full configs (a reduced
-config's name ends in ``-reduced`` and takes none), unless the caller
-passes its own ``tc``.  Under a mesh of several devices the other
-families' training raises ``NotImplementedError``.
+the cache as DTensors laid out by the rules.  So does the train ``fn``,
+for every config: the state placed by ``in_shardings[0]``
+(``train_loop.state_from_jax`` and ``init_state`` take the mesh and place
+each leaf as it is made, the expert stacks and their moments included)
+and the batch by ``in_shardings[1]`` (tokens or frames, the vision rows
+and positions, the targets and the loss mask); it returns the new state
+in the same layout and the metrics replicated, as plain tensors.  Its
+``TrainConfig`` is the reference's: ``TRAIN_ACCUM`` microbatches for the
+full configs (a reduced config's name ends in ``-reduced`` and takes
+none), unless the caller passes its own ``tc``.
 """
 from __future__ import annotations
 

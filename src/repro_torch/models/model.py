@@ -44,15 +44,15 @@ updated in place (the reference returns a new one).
   each rank writes the vision rows of its batch rows and builds cos and
   sin from its rows' positions, and the MoE layers run each rank's
   experts (``models/moe.py``).
-* Training runs sharded too, for the stacks of attention layers without a
-  window and Mamba layers with dense MLPs or none, on tokens
-  (``trains_sharded``: qwen3-8b, stablelm-1.6b, mistral-nemo-12b,
-  falcon-mamba-7b): the gradients flow back through the same collectives
-  (``sharding.redistribute``'s transposes), and the loss is taken over
-  logits split by vocab and rows split by batch (``common.masked_nll``,
-  ``chunked_lm_loss``), summed over the batch ranks before the division.
-  The other families raise ``NotImplementedError`` under a mesh of
-  several devices.
+* Training runs sharded too, for every config: the gradients flow back
+  through the same collectives (``sharding.redistribute``'s transposes),
+  and the loss is taken over logits split by vocab and rows split by batch
+  (``common.masked_nll``, ``chunked_lm_loss``), summed over the batch
+  ranks before the division.  The frames carry no gradient to the
+  embedding table, whose gradient is then zero as ``jax.grad`` gives it
+  (``train_loop``); the vision rows replace the token embeddings of the
+  rank's rows out of place, so the overwritten rows' tokens get no
+  gradient, as the reference's ``dynamic_update_slice`` gives.
 """
 from __future__ import annotations
 
@@ -125,31 +125,13 @@ def unembed_matrix(params, cfg: ModelConfig):
     return sh.gathered(params["unembed"])
 
 
-def trains_sharded(cfg: ModelConfig) -> bool:
-    """Whether the config trains over a mesh: a token stack of attention
-    layers without a window and Mamba layers, with dense MLPs or none."""
-    return (cfg.frontend == "none" and not cfg.encoder_only and all(
-        s.window is None and s.mlp in ("dense", "none")
-        for s in layer_specs(cfg)))
-
-
-def _mesh_check(params, cfg: ModelConfig, training: bool = False) -> bool:
+def _mesh_check(params) -> bool:
     """Whether the entry point runs sharded: the parameters are DTensors
-    (placed by ``distribute``), under an active mesh.  Training raises
-    ``NotImplementedError`` under a mesh of several devices where the
-    config is not one that ``trains_sharded``."""
-    mesh = sh.active_mesh()
+    (placed by ``distribute``), under an active mesh."""
     sharded = sh.is_dtensor(params["embed"])
-    if sharded and mesh is None:
+    if sharded and sh.active_mesh() is None:
         raise ValueError("DTensor parameters need an active mesh "
                          "(sharding_ctx(mesh, rules))")
-    n = mesh.size() if mesh is not None else 1
-    if training and (n > 1 or sharded) and not trains_sharded(cfg):
-        raise NotImplementedError(
-            f"{cfg.name} under a mesh of {n} devices: sharded training runs "
-            f"the dense attention and Mamba stacks only; the MoE, windowed, "
-            f"vision and encoder-only families are not ported yet (prefill "
-            f"and decode run sharded)")
     return sharded
 
 
@@ -197,9 +179,12 @@ def _embed(params, cfg: ModelConfig, batch: dict, dev, sharded=False):
         if v.shape[1] > x.shape[1]:
             raise ValueError(f"{v.shape[1]} vision embeddings do not fit "
                              f"{x.shape[1]} positions")
-        # x and v split their batch rows alike: each rank writes its own
-        v = sh.local(constrain(v, "batch", None, None))
-        sh.local(x)[:, :v.shape[1]] = v.to(dt)
+        # x and v split their batch rows alike: each rank writes its own,
+        # out of place, so the overwritten rows' tokens get no gradient
+        v = sh.local(constrain(v, "batch", None, None)).to(dt)
+        xl = sh.local(x)
+        xl = torch.cat([v, xl[:, v.shape[1]:]], dim=1)
+        x = sh.from_local(xl, x.shape, "batch", "seq", None) if sharded else xl
     return x
 
 
@@ -274,7 +259,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int | None = None,
     encoder-only forward returns no cache.  Sharded (DTensor parameters
     under a mesh), the logits are vocab-sharded and the cache holds each
     rank's shards, both DTensors."""
-    sharded = _mesh_check(params, cfg)
+    sharded = _mesh_check(params)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
@@ -298,7 +283,7 @@ def decode_step(params, cfg: ModelConfig, batch: dict, cache, cache_len: int,
     ``prefill``."""
     if cfg.encoder_only:
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
-    sharded = _mesh_check(params, cfg)
+    sharded = _mesh_check(params)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]
@@ -365,11 +350,10 @@ def train_loss(params, cfg: ModelConfig, batch: dict, remat: bool = True,
     optionally "loss_mask" (B, S), "positions", "vision_embeds".  Returns
     (loss = nll + 0.01 aux, {"nll", "aux"}) as 0-dim f32 tensors; with
     ``remat`` each layer is recomputed in the backward pass.  Sharded
-    (DTensor parameters under a mesh; ``trains_sharded`` configs), the
-    batch entries are placed by their logical axes unless they are
-    DTensors already, and the loss is replicated: every rank's the
-    same."""
-    sharded = _mesh_check(params, cfg, training=True)
+    (DTensor parameters under a mesh), the batch entries are placed by
+    their logical axes unless they are DTensors already, and the loss is
+    replicated: every rank's the same."""
+    sharded = _mesh_check(params)
     dev = _start(params, cfg, device)
     x = _embed(params, cfg, batch, dev, sharded)
     B, S = x.shape[:2]

@@ -26,6 +26,14 @@ plain tensors and DTensors: a plain tensor is the one-rank case.
   ``w_down`` hold; the partial sums over experts and FFN width meet in the
   output's constraint.  The expert all-to-all
   (``distributed/ep_a2a.py``) is not wired, as in the reference.
+* Training under a mesh: the routing, the slots and the drops carry no
+  gradient.  Each rank's gradients of the router, the experts' shards and
+  its tokens are its rows' terms, summed over the batch axes by the
+  gathers' transposes; the tokens and gate weights that enter the rank's
+  experts take ``sharding.reduce_grad`` over the axes that split the
+  experts or their width (each rank's experts give a term), while the aux
+  loss's sum over the ranks (``psum``) hands every rank the whole
+  gradient of its own terms.
 """
 from __future__ import annotations
 
@@ -151,7 +159,6 @@ def moe(params: dict, x, cfg: ModelConfig, group_size: int = 256):
     E = cfg.n_experts
     dt = x.dtype
     w = {n: sh.gathered(params[n]) for n in ("w_gate", "w_up", "w_down")}
-    router = sh.full(params["w_router"])
     split = set(sh.shard_axes(w["w_gate"], 0) + sh.shard_axes(w["w_gate"], 2))
     xr = constrain(x, "batch", None, None)  # every row's whole sequence
     rows = sh.shard_axes(xr, 0)
@@ -161,22 +168,32 @@ def moe(params: dict, x, cfg: ModelConfig, group_size: int = 256):
         rows = ()
     xl = sh.local(xr)
     xg = xl.reshape(xl.shape[0] * S // gs, gs, M)
+    # each rank routes its rows: the router's gradient is its rows' term
+    router = sh.full(params["w_router"], partial=rows)
     probs, gate_w, ids, pos_k, keep, C = _route_groups(xg, router, cfg)
 
     # the Switch aux loss, E * sum_e(mean prob_e * top-1 share_e), over
-    # every rank's groups
+    # every rank's groups; the sum's gradient reaches each rank's terms
     n = torch.tensor(float(xg.shape[0] * gs), device=xl.device)
     tot = torch.cat([probs.sum(dim=(0, 1)),
                      F.one_hot(ids[..., 0], E).float().sum(dim=(0, 1)), n[None]])
     tot = sh.psum(tot, rows)
     aux = E * torch.sum((tot[:E] / tot[-1]) * (tot[E:2 * E] / tot[-1]))
 
-    # dispatch is where combine > 0
-    wl = {k: sh.local(v) for k, v in w.items()}
+    # the tokens and the gate weights, the same on every rank of the axes
+    # that split the experts, enter each rank's experts: their gradients,
+    # each rank's term, are summed over those axes (the aux's and the
+    # router's are whole on every rank already)
+    xe, gate_w = (sh.reduce_grad(t, tuple(sorted(split)))
+                  for t in (xg, gate_w))
+    # the experts' shards, read for the rank's rows: their gradients are
+    # the rows' terms, summed over the batch axes by the FSDP gather's
+    wl = {k: sh.local(v, partial=rows) for k, v in w.items()}
     e0 = sh.local_offset(w["w_gate"], 0)
     combine = _combine(gate_w, ids, pos_k, keep, C, E, dt,
                        range(e0, e0 + wl["w_gate"].shape[0]))
-    y = _experts((combine > 0).to(dt), combine, xg, wl["w_gate"],
+    # dispatch is where combine > 0
+    y = _experts((combine > 0).to(dt), combine, xe, wl["w_gate"],
                  wl["w_up"], wl["w_down"]).reshape(xl.shape)
     if sh.is_dtensor(x):
         y = sh.from_local(y, (B, S, M), "batch" if rows else None, None,

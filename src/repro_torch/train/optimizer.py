@@ -7,6 +7,12 @@ moments into the tensors it is given (the reference's jitted step donates
 its state), so a step holds no second copy of the 12 bytes a parameter of
 state; the tensors of the returned state are those of the one passed in.
 
+The update runs over each leaf in pieces of at most ``UPDATE_CHUNK``
+elements (flat views of the parameter and its moments, written in place):
+its f32 temporaries take a few times a piece instead of a few times the
+largest leaf (gemma3-27b's 1.4e9-entry embedding would need about 28 GB of
+them), and every entry's arithmetic is the same.
+
 Sharded (DTensor leaves, the gradients in the parameters' placements), the
 moments and the update are elementwise on each rank's local shards, and
 ``step`` is replicated.  The clip norm is the whole tree's: each leaf sums
@@ -23,6 +29,10 @@ import torch
 
 from repro_torch.distributed import sharding as sh
 from repro_torch.train.tree import leaves, map_tree
+
+
+# entries of a leaf updated at a time (see the module's docstring)
+UPDATE_CHUNK = 1 << 24
 
 
 @dataclass(frozen=True)
@@ -94,6 +104,19 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+def _pieces(p, g, m, v):
+    """(p, g, m, v) in pieces of at most ``UPDATE_CHUNK`` entries: flat
+    views of p, m and v (which the update writes), and g's entries alike;
+    the whole leaf where it is smaller or p, m or v is not contiguous."""
+    n = p.numel()
+    if n <= UPDATE_CHUNK or not all(t.is_contiguous() for t in (p, m, v)):
+        yield p, g, m, v
+        return
+    flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
+    for s in range(0, n, UPDATE_CHUNK):
+        yield tuple(t[s:s + UPDATE_CHUNK] for t in flat)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: OptState, cfg: OptConfig,
                   ndims=None):
@@ -119,15 +142,16 @@ def apply_updates(params, grads, state: OptState, cfg: OptConfig,
                     f"{g.placements} and moments {m.placements}, "
                     f"{v.placements} are laid out unlike")
             p, g, m, v = (sh.local(t) for t in (p, g, m, v))
-        g32 = g.float() * scale
-        m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g32)
-        v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g32))
-        mhat = m / b1c
-        vhat = v / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if n >= 2:
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
+        for p, g, m, v in _pieces(p, g, m, v):
+            g32 = g.float() * scale
+            m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g32)
+            v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g32))
+            mhat = m / b1c
+            vhat = v / b2c
+            delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+            # decoupled weight decay on matrices only (ndim >= 2)
+            if n >= 2:
+                delta = delta + cfg.weight_decay * p.float()
+            p.copy_(p.float() - lr * delta)
     return params, OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
                                                         "lr": lr}

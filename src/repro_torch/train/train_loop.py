@@ -25,10 +25,10 @@ both), the same step runs on each rank's shards: FSDP over "data" and
 tensor parallelism over "model" in the forward and backward passes, each
 microbatch's gradients constrained to the parameters' layout as they come
 (a sum over the batch axes reduce-scattered onto the FSDP split), the clip
-norm taken over the whole tree, and the update on each rank's shards.  It
-runs for the configs that ``model.trains_sharded``.  Accumulation cuts the
-*global* batch as the reference does: microbatch j is the reference's rows
-[j B/n, (j+1) B/n), split over the batch axes.  The metrics come back as
+norm taken over the whole tree, and the update on each rank's shards, for
+every config.  Accumulation cuts the *global* batch as the reference
+does: microbatch j is the reference's rows [j B/n, (j+1) B/n), split over
+the batch axes.  The metrics come back as
 plain tensors, the same on every rank.  ``init_state`` and
 ``state_from_jax`` take a mesh and place each leaf as it is made.  The
 step function's ``grad_hook``, None by default, is called with the

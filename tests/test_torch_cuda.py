@@ -1187,6 +1187,52 @@ def test_flash_attention_backward_on_dtensor_shards(nccl_mesh, dtype, route):
         _assert_kernel_close(g.to_local(), w, dtype, f"d{name}")
 
 
+@pytest.mark.parametrize("D,causal,window,positions,route", [
+    (80, False, 0, False, "fa_bwd_mma"),  # hubert-xlarge's heads
+    (128, True, 0, True, "fa_bwd_mma"),  # qwen2-vl-7b's positions
+    (128, True, 64, False, "fa_bwd_wgmma")],  # gemma3-27b's window
+    ids=["mma-D80-noncausal", "mma-positions", "wgmma-window"])
+def test_flash_attention_backward_routes_on_dtensor_shards(
+        nccl_mesh, D, causal, window, positions, route):
+    """The bf16 routes the other families' sharded training takes, on
+    DTensor shards split by batch and heads on the world-1 mesh: the
+    ``mma`` backward where the forward is ``fa_mma`` (a head dim of 80,
+    non-causal; given positions, split by batch as q is, stream 0 off the
+    row index in row 1) and the windowed ``fa_bwd_wgmma``; one launch of
+    the forward and of the route's backward, the gradients in the
+    arguments' placements, output and gradients the plain version's (TOL
+    and the 64-row tile limit)."""
+    from repro_torch.distributed import sharding as sh
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = _bwd_inputs(gen, 2, 8, 2, 256, D)
+    pos = None
+    if positions:
+        pos = torch.arange(256, dtype=torch.int32, device="cuda").repeat(2, 1)
+        pos[1, 5:] += 3
+    spec = sh.PartitionSpec("data", "model", None, None)
+    dq, dk, dv = _dtensors(nccl_mesh, spec, q, k, v)
+    ddo = sh.distribute(do, spec, nccl_mesh)
+    dpos = None if pos is None else sh.distribute(
+        pos, sh.PartitionSpec("data", None), nccl_mesh)
+    counter = route.replace("fa_", "") + "_launches"
+    n0 = (fa.launches, getattr(fa, counter))
+    kw = dict(causal=causal, window=window)
+    out = fa.flash_attention(dq, dk, dv, q_pos=dpos, k_pos=dpos, **kw)
+    got = torch.autograd.grad(out, (dq, dk, dv), ddo)
+    assert (fa.launches, getattr(fa, counter)) == (n0[0] + 1, n0[1] + 1)
+    assert fa.bwd_route(torch.bfloat16, D, positions) == route
+    assert all(tuple(g.placements) == tuple(t.placements)
+               for g, t in zip(got, (dq, dk, dv)))
+    qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ref = fa.flash_attention_plain(qp, kp, vp, q_pos=pos, k_pos=pos, **kw)
+    want = torch.autograd.grad(ref, (qp, kp, vp), do)
+    _assert_kernel_close(out.to_local(), ref.detach(), torch.bfloat16,
+                         "forward")
+    for name, g, w in zip("qkv", got, want):
+        _assert_kernel_close(g.to_local(), w, torch.bfloat16, f"d{name}")
+
+
 def test_ssm_scan_backward_on_dtensor_shards(nccl_mesh):
     """Sharded training's scan: dA, dBx and h0 DTensors split by batch and
     inner channels, C by batch, on the world-1 mesh; the checkpoint-writing

@@ -6,11 +6,7 @@ does not run sharded.
   some of them empty for some rows, merges (``models/attention.py::
   merge_partials``, which the sharded decode runs over the ranks) to the
   unsplit result at ``TOL[float32]`` (tests/test_kernels.py).
-* In a gloo world of 2 processes on a (1, 2) mesh: training raises
-  ``NotImplementedError`` naming the config, for the six configs whose
-  training does not run over a mesh yet (the MoE, hybrid, windowed,
-  vision and encoder-only families; tests/test_torch_sharded_train.py
-  trains the other four);
+* In a gloo world of 2 processes on a (1, 2) mesh:
   ``init_params(..., mesh=)``, which places each leaf as it is drawn,
   equals ``shard_params`` of the whole draw;
   ``constrain`` raises for a plain tensor; and the kernel wrappers refuse
@@ -105,14 +101,6 @@ def test_split_rows_merge_to_the_unsplit_result(cuts):
 
 # --- what does not run sharded: a world of two gloo ranks -------------------
 
-# a config of each family beside qwen3-8b's dense stack: MoE, Jamba's
-# hybrid stack, gemma3's windowed layers, qwen2-vl's vision frontend,
-# hubert's encoder
-OUTSIDE = ("qwen2-moe-a2.7b", "jamba-v0.1-52b", "gemma3-27b", "qwen2-vl-7b",
-           "hubert-xlarge")
-# the configs whose training does not run over a mesh yet
-NO_SHARDED_TRAINING = (*OUTSIDE, "qwen3-moe-235b-a22b")
-
 
 def _raises(fn):
     """The type and message of what fn raises, or None."""
@@ -174,25 +162,11 @@ def _rank_checks(rank, store, out_dir):
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ssm_scan as ssm
         from repro_torch.launch.mesh import make_local_mesh
-        from repro_torch.models import model
         from repro_torch.models.params import init_params, shard_params
+        from repro_torch.train.tree import leaves
 
         mesh = make_local_mesh(1, 2, device="cpu")
         res = {}
-        for name in NO_SHARDED_TRAINING:
-            cfg = reduced(get_config(name))
-            params = shard_params(cfg, init_params(
-                cfg, torch.Generator().manual_seed(0), device="cpu"), mesh,
-                sh.TRAIN_RULES)
-            batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
-                     "targets": torch.zeros((2, 8), dtype=torch.int32)}
-            if cfg.frontend == "audio_frames":
-                batch = {"frames": torch.zeros((2, 8, cfg.d_model))}
-            with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
-                res[f"train/{name}"] = _raises(lambda: model.train_loss(
-                    params, cfg, batch, device="cpu"))
-        from repro_torch.train.tree import leaves
-
         cfg = reduced(get_config("jamba-v0.1-52b"))
         drawn = init_params(cfg, torch.Generator().manual_seed(0),
                             device="cpu", mesh=mesh, rules=sh.TRAIN_RULES)
@@ -305,14 +279,6 @@ def test_no_collective_runs_over_a_one_rank_axis(checks):
     gloo a collective of a CUDA tensor crosses the host even there)."""
     for res in checks:
         assert res["group_sizes"] and set(res["group_sizes"]) == {2}
-
-
-@pytest.mark.parametrize("name", NO_SHARDED_TRAINING)
-def test_training_raises_under_a_mesh(checks, name):
-    for res in checks:
-        kind, msg = res[f"train/{name}"]
-        assert kind == "NotImplementedError" and f"{name}-reduced" in msg
-        assert "sharded training" in msg
 
 
 def test_constrain_raises_for_a_plain_tensor_on_two_ranks(checks):

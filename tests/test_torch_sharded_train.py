@@ -39,7 +39,6 @@ own unsharded step on the same inputs by the same rules.
 Each rank holds the bytes of its shards of the state by the rules, and
 the kernels' plain versions ran, forward and backward, on its shards.
 """
-import numpy as np
 import pytest
 
 import torch_sharded_world as world
@@ -48,17 +47,16 @@ from repro_torch.configs.base import get_config, layer_specs, reduced
 MESHES = ((1, 2), (2, 2), (1, 3))
 # config, overrides, meshes, microbatches, the loss's chunk of rows (4: two
 # chunks of S = 8, each recomputed in the backward pass; 512: one, as the
-# reference's at this S)
-CASES = {"stablelm": ("stablelm-1.6b", {}, MESHES, 1, 4),
-         "qwen3-G2": ("qwen3-8b", {"n_kv_heads": 2}, MESHES, 1, 512),
+# reference's at this S), S, the reference's noise draws (none: no leaf
+# needs its noise arm)
+CASES = {"stablelm": ("stablelm-1.6b", {}, MESHES, 1, 4, world.S, 0),
+         "qwen3-G2": ("qwen3-8b", {"n_kv_heads": 2}, MESHES, 1, 512,
+                      world.S, 0),
          "mistral-nemo-G4": ("mistral-nemo-12b", {"n_kv_heads": 1}, MESHES,
-                             1, 512),
-         "falcon-mamba": ("falcon-mamba-7b", {}, MESHES, 1, 4),
+                             1, 512, world.S, 0),
+         "falcon-mamba": ("falcon-mamba-7b", {}, MESHES, 1, 4, world.S, 0),
          "falcon-mamba-accum2": ("falcon-mamba-7b", {}, ((1, 2), (2, 2)), 2,
-                                 4)}
-GRAD_REL = 1e-4
-TOL = world.TOL
-STEPS = 2
+                                 4, world.S, 0)}
 
 
 @pytest.fixture(scope="module")
@@ -66,57 +64,12 @@ def runs(tmp_path_factory):
     """{case: ({mesh tag: (the port's outputs, each rank's record)}, the
     reference's outputs)}; a case's worlds beside the next case's
     reference."""
-    return world.run_cases(
-        tmp_path_factory,
-        {c: (name, ov, meshes, (accum,))
-         for c, (name, ov, meshes, accum, _) in CASES.items()},
-        start=world.reference_train, main=world._train_rank_main,
-        extra_of=lambda c: CASES[c][3:])
+    return world.run_train_cases(tmp_path_factory, CASES)
 
 
 def _cfg(case):
     name, overrides = CASES[case][:2]
     return reduced(get_config(name), **overrides)
-
-
-def _ref_tree(cfg, ref, prefix):
-    """{port path: array} of the reference's flattened tree under
-    ``prefix``, carried over to the port's layout (``from_jax_params``)."""
-    from repro_torch.models.params import from_jax_params
-    from repro_torch.train.tree import flatten_with_path
-
-    return {"/".join(map(str, p)): t.numpy() for p, t in flatten_with_path(
-        from_jax_params(cfg, world._tree(ref, prefix), device="cpu"))}
-
-
-def _port_tree(port, prefix):
-    return {k[len(prefix):]: port[k] for k in port.files
-            if k.startswith(prefix)}
-
-
-def _assert_step(got, want, what=""):
-    """``got`` and ``want``: {"metrics", "grads", "params", "mu", "nu"} of
-    one step."""
-    for k in ("loss", "grad_norm", "lr"):
-        np.testing.assert_allclose(got["metrics"][k], want["metrics"][k],
-                                   **TOL, err_msg=f"{what} {k}")
-    assert sorted(got["grads"]) == sorted(want["grads"])
-    for path, w in want["grads"].items():
-        atol = max(GRAD_REL * float(np.abs(w).max()), 1e-30)
-        np.testing.assert_allclose(got["grads"][path], w, rtol=0, atol=atol,
-                                   err_msg=f"{what} grad {path}")
-    for part in ("params", "mu", "nu"):
-        assert sorted(got[part]) == sorted(want[part])
-        for path, w in want[part].items():
-            np.testing.assert_allclose(got[part][path], w, **TOL,
-                                       err_msg=f"{what} {part} {path}")
-
-
-def _port_step(port, i, prefix=""):
-    return {"metrics": {k: port[f"{prefix}metrics{i}/{k}"]
-                        for k in ("loss", "grad_norm", "lr")},
-            **{part: _port_tree(port, f"{prefix}{part}{i}/")
-               for part in ("grads", "params", "mu", "nu")}}
 
 
 PARAMS = [(c, m) for c, (_, _, meshes, *_) in CASES.items() for m in meshes]
@@ -125,59 +78,43 @@ IDS = [f"{c}-{world.tag(m)}" for c, m in PARAMS]
 
 @pytest.mark.parametrize("case,shape", PARAMS, ids=IDS)
 def test_sharded_train_steps_equal_reference(runs, case, shape):
-    cfg, t = _cfg(case), world.tag(shape)
-    (port, _), ref = runs[case][0][t], runs[case][1]
-    for i in range(STEPS):
-        want = {"metrics": {k: ref[f"{t}/metrics{i}/{k}"]
-                            for k in ("loss", "grad_norm", "lr")},
-                **{part: _ref_tree(cfg, ref, f"{t}/{part}{i}/")
-                   for part in ("grads", "params", "mu", "nu")}}
-        _assert_step(_port_step(port, i), want, f"{t} step {i}")
+    world.assert_train_matches(runs[case], _cfg(case), shape)
 
 
 @pytest.mark.parametrize("case,shape", PARAMS, ids=IDS)
 def test_sharded_train_steps_equal_the_unsharded_step(runs, case, shape):
-    port, _ = runs[case][0][world.tag(shape)]
-    for i in range(STEPS):
-        _assert_step(_port_step(port, i), _port_step(port, i, "plain/"),
-                     f"step {i}")
+    world.assert_train_matches(runs[case], _cfg(case), shape, plain=True)
 
 
 @pytest.mark.parametrize("case,shape", PARAMS, ids=IDS)
 def test_each_rank_holds_only_its_shards_of_the_state(runs, case, shape):
-    for r, rec in enumerate(runs[case][0][world.tag(shape)][1]):
-        got, want = rec["bytes/state"]
-        assert got == want, f"rank {r}"
-        assert rec["bytes/state_after"] == want, f"rank {r} after the steps"
+    world.assert_train_state_bytes(runs[case], shape)
 
 
 @pytest.mark.parametrize("case,shape", PARAMS, ids=IDS)
 def test_kernels_ran_forward_and_backward_on_local_shards(runs, case, shape):
-    """Each microbatch of each step runs every layer's kernel twice (the
-    forward and its recomputation under remat) on the rank's batch rows
-    and heads or inner channels, and the backward on the gradient of the
-    same local shape."""
-    cfg, accum = _cfg(case), CASES[case][3]
-    want = world.train_kernel_shapes(cfg, shape, 2 * STEPS * accum, accum)
-    assert sum(len(v) for v in want.values()) > 0
-    for rec in runs[case][0][world.tag(shape)][1]:
-        for kernel, shapes in want.items():
-            assert rec["shapes"][kernel] == shapes, kernel
+    world.assert_train_kernel_shapes(runs[case], _cfg(case), shape,
+                                     CASES[case][3])
 
 
 def test_the_cases_cover_the_slice():
-    """The four configs that train over a mesh, and the paths the cases
-    take there: heads split alike (qwen3 at tp 2), query heads paired with
-    a replicated KV head (mistral-nemo at tp 2), the reference's padding
-    (tp 3 at G > 1), every head on every rank (stablelm at tp 3), the
-    scan's channels split (tp 2) or not (tp 3), and the loss in one chunk
-    or in several, each recomputed in the backward pass."""
-    from repro_torch.models.model import trains_sharded
+    """Every registered config trains over a mesh, held by this file's
+    cases or those of tests/test_torch_sharded_train_{families,moe}.py;
+    and the paths this file's cases take there: heads split alike (qwen3
+    at tp 2), query heads paired with a replicated KV head (mistral-nemo
+    at tp 2), the reference's padding (tp 3 at G > 1), every head on every
+    rank (stablelm at tp 3), the scan's channels split (tp 2) or not (tp
+    3), and the loss in one chunk or in several, each recomputed in the
+    backward pass."""
+    import test_torch_sharded_train_families as families
+    import test_torch_sharded_train_moe as moe
+    from repro_torch.configs.base import list_configs
 
     names = {CASES[c][0] for c in CASES}
     assert names == {"stablelm-1.6b", "qwen3-8b", "mistral-nemo-12b",
                      "falcon-mamba-7b"}
-    assert all(trains_sharded(_cfg(c)) for c in CASES)
+    assert names | {v[0] for v in families.CASES.values()} | {
+        v[0] for v in moe.CASES.values()} == set(list_configs())
     assert _cfg("mistral-nemo-G4").n_kv_heads % 2
     assert _cfg("qwen3-G2").n_heads % 3 and _cfg("qwen3-G2").q_per_kv > 1
     assert _cfg("falcon-mamba").d_inner % 2 == 0

@@ -151,6 +151,30 @@ def test_decay_follows_the_given_ndims():
     assert outs[0] == 1.0 and outs[1] < 1.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_update_in_pieces_equals_the_whole_update(monkeypatch, dtype):
+    """AdamW over a leaf in pieces of ``UPDATE_CHUNK`` entries (flat views
+    written in place; a transposed gradient read alike) gives the bits of
+    the update of the whole leaf, over two steps."""
+    gen = torch.Generator().manual_seed(3)
+    params = {"w": torch.randn(6, 10, generator=gen).to(dtype),
+              "b": torch.randn(7, generator=gen).to(dtype)}
+    grads = {"w": torch.randn(10, 6, generator=gen).to(dtype).T,
+             "b": torch.randn(7, generator=gen).to(dtype)}
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=0)
+    runs = []
+    for chunk in (opt.UPDATE_CHUNK, 4):
+        monkeypatch.setattr(opt, "UPDATE_CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        state = opt.init_state(p)
+        for _ in range(2):
+            p, state, _ = opt.apply_updates(p, grads, state, cfg)
+        runs.append((p, state.mu, state.nu))
+    for whole, pieces in zip(*runs):
+        for k in params:
+            assert torch.equal(whole[k], pieces[k]), k
+
+
 # --- data -------------------------------------------------------------------
 
 

@@ -46,6 +46,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 JOIN_S = 120  # a world or a reference fails, instead of hanging, past this
+# a train reference compiles its step on each mesh (about 20 s each for the
+# reduced jamba alone), beside the other test workers' processes
+REF_TRAIN_S = 300
 B, S = 2, 8  # batch and prompt; the cache holds S + DECODE_PAD = 24 rows
 N_DECODE = 2
 # one thread a process: a file's reference and its worlds' ranks run beside
@@ -185,9 +188,11 @@ np.savez(out + "/ref.npz", **res)
 
 # The reference's train step on each mesh: build_lowerable's train cell
 # under jax.jit with its in_shardings (and the state's out_shardings), two
-# steps on two batches; before each, the gradients the step takes (the
-# step's own grads_of: value_and_grad, microbatches summed in f32 and
-# divided, then constrain_like), under the same shardings.
+# steps on two batches; with each, the gradients the step takes (its own
+# grads_of: value_and_grad, microbatches summed in f32 and divided, then
+# constrain_like), handed out of the step in the parameters' layout by
+# wrapping its apply_updates; with ``noise``, its own move on the first mesh
+# under 1e-7 noise on the stack's inputs.
 REF_TRAIN_SCRIPT = r"""
 import json, sys
 import numpy as np
@@ -196,11 +201,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from repro.configs.base import ShapeConfig, get_config, reduced
 from repro.distributed.sharding import sharding_ctx
 from repro.launch import specs
-from repro.models import model
-from repro.models.params import constrain_like
-from repro.train import train_loop
+from repro.train import optimizer, train_loop
 
-name, overrides, B, S, accum, meshes, out = json.loads(sys.argv[1])
+name, overrides, B, S, accum, meshes, noise, out = json.loads(sys.argv[1])
 cfg = reduced(get_config(name), **overrides)
 state = train_loop.init_state(cfg, jax.random.PRNGKey(0))
 tc = train_loop.TrainConfig(accum_steps=accum)
@@ -221,34 +224,44 @@ def draw():
     # microbatches and the batch ranks' rows count unlike
     keep = np.where(np.arange(B)[:, None] < B // 2, 0.9, 0.3)
     draw = lambda: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    return {"tokens": draw(), "targets": draw(),
-            "loss_mask": (rng.random((B, S)) < keep).astype(np.float32)}
+    b = {"tokens": draw(), "targets": draw(),
+         "loss_mask": (rng.random((B, S)) < keep).astype(np.float32)}
+    if cfg.frontend == "audio_frames":  # frames in place of the tokens
+        del b["tokens"]
+        b["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            cfg.dtype)
+    if cfg.frontend == "vision":
+        # vision rows over the first positions; three position streams,
+        # row 1's stream 0 off the row index from position 5
+        b["vision_embeds"] = rng.standard_normal(
+            (B, cfg.n_vision_tokens, cfg.d_model)).astype(cfg.dtype)
+        idx = np.arange(S, dtype=np.int32)
+        pos = np.stack([idx, idx // 4 + rng.integers(0, 3, S),
+                        idx % 4 + rng.integers(0, 5, S)], -1).astype(np.int32)
+        pos = np.broadcast_to(pos, (B, S, 3)).copy()
+        pos[1, 5:, 0] += 3
+        b["positions"] = pos
+    return b
 
 
 batches = [draw() for _ in range(2)]
 res = {f"batch{i}/{k}": v for i, b in enumerate(batches) for k, v in b.items()}
 np.savez(out + "/params.npz", **flat(state.params, ""))
-param_specs = model.abstract_params(cfg)
-vg = jax.value_and_grad(
-    lambda p, b: model.train_loss(p, cfg, b, remat=tc.remat), has_aux=True)
+apply_updates = optimizer.apply_updates
 
 
-def grads(p, b):
-    if accum == 1:
-        g = vg(p, b)[1]
-    else:
-        g = None
-        for j in range(accum):
-            mb = jax.tree_util.tree_map(
-                lambda x: x.reshape(accum, B // accum, *x.shape[1:])[j], b)
-            gj = jax.tree_util.tree_map(lambda t: t.astype(jnp.float32),
-                                        vg(p, mb)[1])
-            g = gj if g is None else jax.tree_util.tree_map(jnp.add, g, gj)
-        g = jax.tree_util.tree_map(lambda t: t / accum, g)
-    return constrain_like(g, param_specs)
+def with_grads(params, grads, state, ocfg):
+    # the step's own update, its metrics also holding the gradients it
+    # takes (one compilation a mesh)
+    p, st, m = apply_updates(params, grads, state, ocfg)
+    return p, st, dict(m, grads=grads)
 
 
-def run(state, mesh):
+optimizer.apply_updates = with_grads
+compiled = {}
+
+
+def run(state, mesh, batches=batches):
     got = {}
     ns = lambda t: jax.tree_util.tree_map(
         lambda ps: NamedSharding(mesh, ps), t,
@@ -256,16 +269,20 @@ def run(state, mesh):
     low = specs.build_lowerable(cfg, ShapeConfig("train", S, B, "train"),
                                 mesh, tc)
     sin = ns(low.in_shardings)
-    step = jax.jit(low.fn, in_shardings=sin,
-                   out_shardings=(sin[0], NamedSharding(mesh, P())))
-    gfn = jax.jit(grads, in_shardings=(sin[0].params, sin[1]))
+    if mesh not in compiled:  # the noise draws reuse one mesh's
+        rep = NamedSharding(mesh, P())
+        compiled[mesh] = jax.jit(low.fn, in_shardings=sin, out_shardings=(
+            sin[0], dict({k: rep for k in ("aux", "grad_norm", "loss", "lr",
+                                          "nll")},
+                         grads=sin[0].params)))
+    step = compiled[mesh]
     with mesh, sharding_ctx(mesh, low.rules):
         st = jax.device_put(state, sin[0])
         for i, b in enumerate(batches):
             jb = jax.device_put({k: jnp.asarray(v) for k, v in b.items()},
                                 sin[1])
-            got.update(flat(gfn(st.params, jb), f"grads{i}/"))
             st, m = step(st, jb)
+            got.update(flat(m["grads"], f"grads{i}/"))
             got.update({f"metrics{i}/{k}": np.asarray(m[k])
                         for k in ("loss", "grad_norm", "lr")})
             got.update(flat(st.params, f"params{i}/"))
@@ -274,23 +291,52 @@ def run(state, mesh):
     return got
 
 
+first = None
 for shape in meshes:
     n = shape[0] * shape[1]
     mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
                 ("data", "model"))
-    res.update({f"{shape[0]}x{shape[1]}/{k}": v
-                for k, v in run(state, mesh).items()})
+    got = run(state, mesh)
+    first = first or (mesh, got)
+    res.update({f"{shape[0]}x{shape[1]}/{k}": v for k, v in got.items()})
+if noise:
+    # the reference's own move on the first mesh (its step compiled once)
+    # when the stack's inputs, its embeddings and the batch's frames or
+    # vision embeddings, move by 1e-7 (relative): the most over ``noise``
+    # draws, for each entry of each output
+    one, clean = first
+
+    def moved(a, key):
+        return (a * (1 + 1e-7 * np.asarray(jax.random.normal(
+            key, a.shape)))).astype(a.dtype)
+
+    for seed in range(noise):
+        key = jax.random.PRNGKey(seed)
+        p = dict(state.params, embed=moved(state.params["embed"], key))
+        bs = [{k: moved(v, jax.random.fold_in(key, 2 * j + n))
+               if k in ("frames", "vision_embeds") else v
+               for n, (k, v) in enumerate(sorted(b.items()))}
+              for j, b in enumerate(batches)]
+        for k, v in run(state._replace(params=p), one, bs).items():
+            d = np.abs(v.astype(np.float64) - clean[k])
+            res["move/" + k] = np.maximum(d, res.get("move/" + k, 0.0))
 np.savez(out + "/ref.npz", **res)
 """
 TRAIN_B = 4  # (2, 2) splits the batch; two microbatches of two rows
 
 
 def reference_train(tmp: Path, name: str, overrides: dict, meshes,
-                    accum: int = 1) -> subprocess.Popen:
+                    accum: int = 1, seq: int = S,
+                    noise: int = 0) -> subprocess.Popen:
     """Start the reference's train subprocess (REF_TRAIN_SCRIPT, B =
-    ``TRAIN_B``, S = ``S``); it writes tmp/params.npz, then tmp/ref.npz."""
-    return _start(REF_TRAIN_SCRIPT, [name, overrides, TRAIN_B, S, accum,
-                                     [list(m) for m in meshes], str(tmp)])
+    ``TRAIN_B``, S = ``seq``; with ``noise`` draws, also its own move under
+    1e-7 noise on the stack's inputs, ``move/<key>``); it writes
+    tmp/params.npz, then tmp/ref.npz."""
+    proc = _start(REF_TRAIN_SCRIPT, [name, overrides, TRAIN_B, seq, accum,
+                                     [list(m) for m in meshes], noise,
+                                     str(tmp)])
+    proc.limit = REF_TRAIN_S
+    return proc
 
 
 def tag(shape) -> str:
@@ -322,17 +368,19 @@ def reference(tmp: Path, name: str, overrides: dict, meshes,
 
 
 def wait_reference(proc: subprocess.Popen) -> None:
-    """Wait for a reference to end, at most ``JOIN_S`` from its start."""
+    """Wait for a reference to end, at most ``JOIN_S`` from its start (a
+    train reference's ``REF_TRAIN_S``)."""
     if getattr(proc, "waited", False):
         return
-    left = JOIN_S - (time.monotonic() - getattr(proc, "started",
-                                                time.monotonic()))
+    limit = getattr(proc, "limit", JOIN_S)
+    left = limit - (time.monotonic() - getattr(proc, "started",
+                                               time.monotonic()))
     try:
         out, _ = proc.communicate(timeout=max(left, 0.1))
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError(f"the reference did not end in {JOIN_S} s")
+        raise AssertionError(f"the reference did not end in {limit} s")
     if proc.returncode != 0:
         raise AssertionError(f"the reference failed:\n{out[-3000:]}")
     proc.waited = True
@@ -580,13 +628,15 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
         jstate = types.SimpleNamespace(params=tree, opt=types.SimpleNamespace(
             step=np.int32(0), mu=zeros, nu=zeros))
         ref = np.load(f"{tmp}/ref.npz")
-        batches = [{k: torch.from_numpy(ref[f"batch{i}/{k}"]) for k in
-                    ("tokens", "targets", "loss_mask")} for i in range(2)]
+        batches = [{k[len(f"batch{i}/"):]: torch.from_numpy(ref[k])
+                    for k in ref.files if k.startswith(f"batch{i}/")}
+                   for i in range(2)]
+        seq = batches[0]["targets"].shape[1]
         tc = train_loop.TrainConfig(accum_steps=accum)
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
         forbid_dtensor_collectives()
-        low = specs.build_lowerable(cfg, ShapeConfig("train", S, TRAIN_B,
+        low = specs.build_lowerable(cfg, ShapeConfig("train", seq, TRAIN_B,
                                                      "train"), mesh, tc)
         state = train_loop.state_from_jax(cfg, jstate, device="cpu",
                                           mesh=mesh, rules=low.rules)
@@ -855,20 +905,141 @@ def kernel_shapes(cfg, shape, S: int, batch: int = B,
             "ssm_scan": [[scan, scan]] * (len(specs) - n_attn)}
 
 
-def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1) -> dict:
+def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1,
+                        seq: int = S) -> dict:
     """The local shapes each kernel wrapper runs on in a rank of ``shape``
     over ``calls`` forward passes of a microbatch of the train batch cut
     into ``accum`` (a step with remat: two a microbatch, the forward and
-    its recomputation), and the local shape of the gradient that comes
-    back to each first pass's output: flash_attention's (b, heads, S, D),
-    ssm_scan's y (b, S, I)."""
-    one = kernel_shapes(cfg, shape, S, batch=TRAIN_B // accum, n_decode=0)
+    its recomputation), S = ``seq``, and the local shape of the gradient
+    that comes back to each first pass's output: flash_attention's (b,
+    heads, S, D), ssm_scan's y (b, S, I)."""
+    one = kernel_shapes(cfg, shape, seq, batch=TRAIN_B // accum, n_decode=0)
     n_fwd = calls // 2
     out = {k: v * calls for k, v in one.items() if k != "decode_attention"}
     out["flash_attention_grad"] = [v[0] for v in one["flash_attention"]] * \
         n_fwd
     out["ssm_scan_grad"] = [v[0][:3] for v in one["ssm_scan"]] * n_fwd
     return out
+
+
+# --- the train cases: the reference's steps against the port's ------------
+
+GRAD_REL = 1e-4  # a gradient leaf is held within this much of its scale
+METRICS = ("loss", "grad_norm", "lr")
+PARTS = ("grads", "params", "mu", "nu")
+STEPS = 2
+
+
+def run_train_cases(tmp_path_factory, cases: dict) -> dict:
+    """``run_cases`` of the train step for each case of {case: (config
+    name, overrides, meshes, microbatches, the loss's chunk of rows, S,
+    noise draws)}: the reference's ``REF_TRAIN_SCRIPT``, the port's
+    ``_train_rank_main``."""
+    return run_cases(
+        tmp_path_factory,
+        {c: (name, ov, meshes, (accum, seq, noise))
+         for c, (name, ov, meshes, accum, _, seq, noise) in cases.items()},
+        start=reference_train, main=_train_rank_main,
+        extra_of=lambda c: cases[c][3:5])
+
+
+def ref_tree(cfg, ref, prefix: str) -> dict:
+    """{port path: array} of the reference's flattened tree under
+    ``prefix``, carried over to the port's layout (``from_jax_params``)."""
+    from repro_torch.models.params import from_jax_params
+    from repro_torch.train.tree import flatten_with_path
+
+    return {"/".join(map(str, p)): t.numpy() for p, t in flatten_with_path(
+        from_jax_params(cfg, _tree(ref, prefix), device="cpu"))}
+
+
+def ref_step(cfg, ref, prefix: str, i: int) -> dict:
+    """{"metrics", "grads", "params", "mu", "nu"} of the reference's step i
+    under ``prefix``: a mesh's tag and "/", or "move/" for its noise
+    move."""
+    return {"metrics": {k: ref[f"{prefix}metrics{i}/{k}"] for k in METRICS},
+            **{part: ref_tree(cfg, ref, f"{prefix}{part}{i}/")
+               for part in PARTS}}
+
+
+def port_step(port, i: int, prefix: str = "") -> dict:
+    """The same of the port's step i (``prefix`` "plain/": its unsharded
+    step's)."""
+    def tree(pre):
+        return {k[len(pre):]: port[k] for k in port.files
+                if k.startswith(pre)}
+
+    return {"metrics": {k: port[f"{prefix}metrics{i}/{k}"] for k in METRICS},
+            **{part: tree(f"{prefix}{part}{i}/") for part in PARTS}}
+
+
+def assert_step(got, want, what="", move=None, widen=()):
+    """``got`` against ``want`` (each ``ref_step``'s dict): the metrics and
+    every leaf of params, mu and nu at ``TOL``, each gradient leaf within
+    ``GRAD_REL`` of its largest |g|.  The outputs named in ``widen``
+    (a metric's name, "<part>/<path>", or a prefix ending in "/" for
+    every leaf under it) are held to that plus 4x the
+    reference's own move under 1e-7 noise (``move``: ``ref_step(cfg,
+    ref, "move/", i)``), the largest over the output, as
+    ``assert_outputs_match`` widens."""
+    def extra(part, key):
+        name = key if part == "metrics" else f"{part}/{key}"
+        if not any(name == w or w.endswith("/") and name.startswith(w)
+                   for w in widen):
+            return 0.0
+        return 4 * float(np.max(move[part][key]))
+
+    for k in METRICS:
+        np.testing.assert_allclose(
+            got["metrics"][k], want["metrics"][k], rtol=TOL["rtol"],
+            atol=TOL["atol"] + extra("metrics", k), err_msg=f"{what} {k}")
+    for part in PARTS:
+        assert sorted(got[part]) == sorted(want[part]), part
+        for path, w in want[part].items():
+            if part == "grads":
+                tol = dict(rtol=0, atol=max(
+                    GRAD_REL * float(np.abs(w).max()), 1e-30))
+            else:
+                tol = dict(TOL)
+            tol["atol"] = tol["atol"] + extra(part, path)
+            np.testing.assert_allclose(got[part][path], w, **tol,
+                                       err_msg=f"{what} {part} {path}")
+
+
+def assert_train_matches(run, cfg, shape, widen=(), plain=False):
+    """Both steps of the port's sharded run on ``shape`` (``run``: one
+    case of ``run_train_cases``) against the reference's sharded step on
+    the same mesh, or with ``plain`` the port's own unsharded step;
+    ``widen`` as ``assert_step`` takes it, the reference's noise move from
+    its run."""
+    t = tag(shape)
+    (port, _), ref = run[0][t], run[1]
+    for i in range(STEPS):
+        move = ref_step(cfg, ref, "move/", i) if widen else None
+        want = (port_step(port, i, "plain/") if plain
+                else ref_step(cfg, ref, f"{t}/", i))
+        assert_step(port_step(port, i), want, f"{t} step {i}", move, widen)
+
+
+def assert_train_state_bytes(run, shape):
+    """Each rank holds the bytes of its shards of the state by the rules,
+    before and after the steps."""
+    for r, rec in enumerate(run[0][tag(shape)][1]):
+        got, want = rec["bytes/state"]
+        assert got == want, f"rank {r}"
+        assert rec["bytes/state_after"] == want, f"rank {r} after the steps"
+
+
+def assert_train_kernel_shapes(run, cfg, shape, accum=1, seq=S):
+    """Each microbatch of each step runs every layer's kernel twice (the
+    forward and its recomputation under remat) on the rank's batch rows
+    and heads or inner channels, and the backward on the gradient of the
+    same local shape."""
+    want = train_kernel_shapes(cfg, shape, 2 * STEPS * accum, accum, seq)
+    assert sum(len(v) for v in want.values()) > 0
+    for rec in run[0][tag(shape)][1]:
+        for kernel, shapes in want.items():
+            assert rec["shapes"][kernel] == shapes, kernel
 
 
 # each case: the input's placements on the (1, 2) mesh's "model" axis, the
