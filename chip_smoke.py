@@ -117,12 +117,14 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 20. qwen2-vl-7b at full width and depth (28 layers): prefill B=4, S=2048
     with 1024 random vision embeddings and three position streams (stream
     0 the row index, streams 1-2 a 32x32 grid over the image rows), 32
-    decode steps and the cosine check;
+    decode steps and the cosine check; its 28 attention launches all on
+    ``fa_wgmma`` under positions, none on ``fa_mma`` (launches printed by
+    route);
 21. hubert-xlarge at full width and depth (48 layers): the encoder forward
-    at B=4, S=2048 from random frames, 48 ``fa_mma`` launches (non-causal,
-    D=80), finite logits (4, 504);
+    at B=4, S=2048 from random frames, 48 ``fa_wgmma`` launches
+    (non-causal, D=80), none on ``fa_mma``, finite logits (4, 504);
 22. the training kernels against their plain versions: ``flash_attention``
-    with positions (``fa_mma``, ``fa_fwd``) and ``flash_attention_bwd`` at
+    with positions (``fa_wgmma``, ``fa_fwd``) and ``flash_attention_bwd`` at
     the reference's test shapes, GQA, windows, non-causal D=80, S=1, ragged
     S, positions with repeats and gaps, and the qwen3-8b and stablelm-1.6b
     training shapes (f32 at TOL, bf16 at TOL and at a relative error of
@@ -130,8 +132,13 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     backward (``fa_bwd_wgmma``) at D 64 and 128, causal, window 128 and
     non-causal, G 1, 2, 4, 8 and 16, S 1, 77, 300 and 2048: the forward's L
     against its plain version (its output bit-equal to the no-gradient
-    build's), dq, dk, dv from that L as above; at the two training shapes
-    the ``mma`` route too, and two wgmma calls at stablelm's bit-equal;
+    build's), dq, dk, dv from that L as above, with the largest tile error
+    at S=1, G=16 printed (ROADMAP Queue C item 10); at the two training
+    shapes the ``mma`` route too, and two wgmma calls at stablelm's
+    bit-equal; then the cases the wgmma route took over from the ``mma``
+    kernels: the same grid at D=80, and positions rising, repeated with
+    gaps, unsorted and with rows that keep no key, at D 64, 80 and 128,
+    G=7, S 300 and 2048 (the dK/dV kernel split over the group's heads);
     ``decode_attention`` over rows [kv_start,
     kv_len) at G=4 and G=16, an empty range giving 0; ``ssm_scan_bwd`` fed
     by the checkpoints of ``ssm_scan``'s checkpoint-writing build (its y
@@ -144,10 +151,15 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     attention, autograd of ``scaled_dot_product_attention`` as a yardstick
     the port never calls; attention's wgmma and ``mma`` routes timed in
     turns (wgmma, mma, mma, wgmma), and the forward with and without L;
-    the ``mma`` route also where phase 32's bf16 runs launch it, at
-    hubert-xlarge's (non-causal, D=80) and qwen2-vl-7b's (positions)
-    training shapes, checked against its plain version and beside SDPA's
-    backward with the same mask; ``ssm_scan_bwd`` given the forward's
+    where ``fa_wgmma`` took over from the ``mma`` kernels, the forward at
+    the prefill shapes of phases 20 and 21 (B=4, S=2048) and the backward
+    at qwen2-vl-7b's (positions) and hubert-xlarge's (non-causal, D=80)
+    training shapes: the wgmma route and the ``mma`` kernels by name, each
+    checked against the plain version, timed in turns beside SDPA with the
+    same mask and the bound over the kept pairs (the wgmma route must
+    beat the ``mma`` kernels at all four, and SDPA's backward at
+    qwen2-vl-7b's); ``--attention-timing`` runs only these four and stops;
+    ``ssm_scan_bwd`` given the forward's
     checkpoints, below the time of the two-pass kernel it replaced, in
     turns with the scan's forward with
     and without checkpoints, with what each timed call saw (its ms, the
@@ -262,9 +274,10 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     moves by 1e-7 (its witness), the entries whose first gradients' signs
     differ counted, the update's cosine >= 0.99.  In bf16 with the
     reference's init, printed, only where a bf16 run launches a backward
-    route that no f32 run does: stablelm-1.6b (``fa_bwd_wgmma``),
+    route or build that no f32 run does: stablelm-1.6b (``fa_bwd_wgmma``),
     gemma3-27b's pattern of windowed layers on 8 layers (the windowed
-    ``fa_bwd_wgmma``), hubert-xlarge and qwen2-vl-7b (``fa_bwd_mma``).
+    ``fa_bwd_wgmma``), hubert-xlarge (D=80) and qwen2-vl-7b (positions):
+    ``fa_wgmma`` and ``fa_bwd_wgmma``, no ``fa_mma`` or ``fa_bwd_mma``.
     Each rank's parameter and moment bytes against the rules, its peak
     above the state, its step times, the launches of the attention and
     scan kernels forward and backward (by route) and the local shapes of
@@ -273,12 +286,14 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
 33. the script's wall seconds (each phase's on a ``wall:`` line), a
     ``{"kernels": [...]}`` line (each
     kernel's CUDA function on the main path under ``kernel``, its launches
-    summed over every path above, ``decode_attention``'s G=16 time under
-    ``g16`` and with its log-sum-exp output under ``lse`` (timed in turns
-    with the launch without it); the two backward kernels at the
+    summed over every path above (attention's also by route),
+    ``decode_attention``'s G=16 time under ``g16`` and with its
+    log-sum-exp output under ``lse`` (timed in turns with the launch
+    without it); attention's forward and backward at qwen2-vl-7b's and
+    hubert-xlarge's shapes under ``qwen2_vl`` and ``hubert``, each with the
+    ``mma`` kernels by name under ``mma``; the two backward kernels at the
     stablelm-1.6b and falcon-mamba training shapes, attention's ``mma``
-    route under ``mma``, with its times at hubert-xlarge's and
-    qwen2-vl-7b's under ``hubert`` and ``qwen2_vl``), then
+    route under ``mma``), then
     ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises, and the script exits nonzero without the last line.
@@ -641,7 +656,7 @@ def flash_inputs(torch, gen, B, H, Hkv, S, D, dtype):
 def flash_cases():
     # (B, H, Hkv, S, D, masks): tests/test_kernels.py at G=1; GQA and S
     # that are no multiple of the 64-row tile; then the Qwen3-8B prefill;
-    # then hubert's non-causal D=80 (fa_mma in bf16), G=16 (qwen3-moe), G=7
+    # then hubert's non-causal D=80 (fa_wgmma in bf16), G=16 (qwen3-moe), G=7
     # (qwen2-vl) and gemma3's window of 1024 at S=1536
     out = [(1, 1, 1, 128, 64), (2, 2, 2, 256, 128), (1, 4, 4, 512, 128),
            (2, 8, 2, 300, 64), (1, 4, 2, 77, 16), (2, 4, 4, 200, 80),
@@ -2108,12 +2123,16 @@ def families_full(torch, ops, counts):
     torch.cuda.empty_cache()
     print(f"phase 19 gemma3-27b: {time.perf_counter() - t0:.1f} s wall")
 
+    # phases 20 and 21 run every attention layer on fa_wgmma (positions,
+    # D=80), none on fa_mma
     cfg = get_config("qwen2-vl-7b")
     t0 = time.perf_counter()
     params = init_full(torch, cfg)
+    on_wgmma = {"flash_attention": cfg.n_layers, "fa_wgmma": cfg.n_layers,
+                "fa_mma": 0}
     add_counts(counts, prefill_full(
         torch, ops, cfg, params, family_batch(torch, cfg, 4, 2048, "cuda"),
-        32, {"flash_attention": cfg.n_layers}))
+        32, on_wgmma))
     del params
     torch.cuda.empty_cache()
     print(f"phase 20 qwen2-vl-7b: {time.perf_counter() - t0:.1f} s wall")
@@ -2122,10 +2141,11 @@ def families_full(torch, ops, counts):
     t0 = time.perf_counter()
     params = init_full(torch, cfg)
     route = fa.route(torch.bfloat16, cfg.head_dim)
-    require(route == "fa_mma", f"hubert's D=80 takes {route}, not fa_mma")
+    require(route == "fa_wgmma", f"hubert's D=80 takes {route}, not fa_wgmma")
     add_counts(counts, prefill_full(
         torch, ops, cfg, params, family_batch(torch, cfg, 4, 2048, "cuda"),
-        0, {"flash_attention": cfg.n_layers}, tail=0,
+        0, {"flash_attention": cfg.n_layers, "fa_wgmma": cfg.n_layers,
+            "fa_mma": 0}, tail=0,
         label=f"{cfg.name} (encoder-only, {route})"))
     del params
     torch.cuda.empty_cache()
@@ -2197,10 +2217,10 @@ def train_positions(torch, gen, B, S):
 
 
 def check_flash_train(torch, fa):
-    """Phase 22, attention: the positioned forward (fa_mma, fa_fwd) and the
-    backward kernels, each call on its route (bf16 at D 64 and 128 without
-    positions on the wgmma route, given no L: the wrapper runs the forward
-    for it), against their plain versions."""
+    """Phase 22, attention: the positioned forward (fa_wgmma, fa_mma at D
+    16 and 32, fa_fwd) and the backward kernels, each call on its route
+    (bf16 at D 64, 80 and 128 on the wgmma route, given no L: the wrapper
+    runs the forward for it), against their plain versions."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     # (B, H, Hkv, S, D, causal, window, positions, dtypes): the reference's
     # test shapes at G=1, GQA, S=1, ragged S, D=80 non-causal, positions
@@ -2245,6 +2265,25 @@ def check_flash_train(torch, fa):
 
 # the wgmma backward's grid in phase 22
 BWD_WGMMA_MASKS = [(True, 0), (True, 128), (False, 0)]
+# the kinds of positions phase 22 gives the wgmma kernels
+POSITION_KINDS = ("rising", "repeats", "unsorted", "no_key")
+
+
+def position_kind(torch, gen, kind, B, S):
+    """(q_pos, k_pos) int32 (B, S): rising with the row, with repeats and
+    gaps (``train_positions``), the same shuffled (not monotonic), or the
+    queries 9 behind the keys (their first 9 rows keep no key under a
+    causal mask)."""
+    idx = torch.arange(S, device="cuda", dtype=torch.int32).repeat(B, 1)
+    if kind == "rising":
+        return idx, idx
+    if kind == "no_key":
+        return idx - 9, idx
+    pos = train_positions(torch, gen, B, S)
+    if kind == "unsorted":
+        perm = torch.argsort(torch.rand(B, S, generator=gen, device="cuda"), 1)
+        pos = torch.gather(pos, 1, perm)
+    return pos, pos
 BWD_WGMMA_GROUPS = (1, 2, 4, 8, 16)
 BWD_WGMMA_S = (1, 77, 300, 2048)
 
@@ -2255,20 +2294,30 @@ def check_flash_bwd_wgmma(torch, fa):
     (B=2 and two KV heads below S=2048, one of each at it), the forward's L
     against ``flash_attention_lse_plain`` at f32 TOL with its output
     bit-equal to the no-gradient build's, then dq, dk, dv from that L
-    against ``flash_attention_bwd_plain`` as ``close_kernel`` holds them.
-    At the two training shapes both routes (``mma`` by name), and two
-    wgmma calls at stablelm's must give equal bits.  Returns {(shape,
-    route): (max abs error, tile error)} of the training shapes."""
+    against ``flash_attention_bwd_plain`` as ``close_kernel`` holds them;
+    the largest tile error at S=1, G=16 is printed (ROADMAP Queue C item
+    10).  At the two training shapes both routes (``mma`` by name), and two
+    wgmma calls at stablelm's must give equal bits.  Then, from a
+    generator of their own, the cases fa_wgmma took over from the mma
+    kernels: the same grid at D=80, and given positions (``POSITION_KINDS``)
+    at D 64, 80 and 128, G=7, S=300 and 2048 (the dK/dV kernel split over
+    the group's heads), each mask; two calls under positions bit-equal.
+    Returns {(shape, route): (max abs error, tile error)} of the training
+    shapes."""
     from repro_torch.kernels import ops
 
     gen = torch.Generator(device="cuda").manual_seed(16)
 
-    def one(B, H, Hkv, S, D, causal, window, route=None, twice=False):
+    def one(B, H, Hkv, S, D, causal, window, route=None, twice=False,
+            kind=None):
         q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, "bfloat16")
         do = flash_inputs(torch, gen, B, H, H, S, D, "bfloat16")[0]
-        kw = dict(causal=causal, window=window)
+        q_pos, k_pos = (None, None) if kind is None else position_kind(
+            torch, gen, kind, B, S)
+        kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos)
         name = (f"flash_attention_bwd {route or 'fa_bwd_wgmma'} B={B} H={H} "
-                f"Hkv={Hkv} S={S} D={D} causal={causal} window={window}")
+                f"Hkv={Hkv} S={S} D={D} causal={causal} window={window}"
+                + ("" if kind is None else f" positions={kind}"))
         o0 = fa.flash_attention(q, k, v, **kw)
         o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
         lse_err = within(lse, fa.flash_attention_lse_plain(q, k, **kw),
@@ -2306,20 +2355,39 @@ def check_flash_bwd_wgmma(torch, fa):
         return err, tile
 
     t0 = time.perf_counter()
-    n_cases = 0
-    for D in fa.WGMMA_DIMS:
+    n_cases, watch = 0, 0.0
+    for D in (64, 128):  # the grid's first cases, drawn as before D=80
         for causal, window in BWD_WGMMA_MASKS:
             for G in BWD_WGMMA_GROUPS:
                 for S in BWD_WGMMA_S:
                     B, Hkv = (2, 2) if S < 2048 else (1, 1)
-                    one(B, G * Hkv, Hkv, S, D, causal, window)
+                    tile = one(B, G * Hkv, Hkv, S, D, causal, window)[1]
+                    if (S, G) == (1, 16):
+                        watch = max(watch, tile)
                     n_cases += 1
+    print(f"phase 22 wgmma backward, ROADMAP Queue C item 10: the largest "
+          f"64-row tile error at S=1, G=16 (D 64 and 128, each mask) "
+          f"{watch:.4g} <= {BF16_TILE_REL}")
     errs = {}
     for shape in (STABLELM_TRAIN, QWEN_TRAIN):
         for route in (None, "fa_bwd_mma"):
             errs[(tuple(shape.values()), route or "fa_bwd_wgmma")] = one(
                 *shape.values(), True, 0, route=route,
                 twice=route is None and shape is STABLELM_TRAIN)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    for causal, window in BWD_WGMMA_MASKS:
+        for G in BWD_WGMMA_GROUPS:
+            for S in BWD_WGMMA_S:
+                B, Hkv = (2, 2) if S < 2048 else (1, 1)
+                one(B, G * Hkv, Hkv, S, 80, causal, window)
+                n_cases += 1
+    for D in (64, 80, 128):
+        for kind in POSITION_KINDS:
+            for causal, window in BWD_WGMMA_MASKS:
+                for S in (300, 2048):
+                    one(1, 14, 2, S, D, causal, window, kind=kind,
+                        twice=(S, causal, window) == (2048, True, 0))
+                    n_cases += 1
     torch.cuda.empty_cache()
     print(f"phase 22 wgmma backward: {n_cases} grid cases and the training "
           f"shapes, {time.perf_counter() - t0:.1f} s wall")
@@ -2457,35 +2525,122 @@ def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
                 forward_ms={k: mean(v) for k, v in fwd.items()})
 
 
-# the attention shapes of phase 32's world-1 training steps that run the
-# mma backward route in bf16: hubert-xlarge (non-causal, D=80) and
-# qwen2-vl-7b (causal over given positions, M-RoPE's stream 0 off the row
-# index in row 1: ``vision_positions``)
+# the attention shapes of phase 32's world-1 training steps whose bf16
+# attention runs fa_wgmma's builds for positions and D=80: hubert-xlarge
+# (non-causal, D=80) and qwen2-vl-7b (causal over given positions, M-RoPE's
+# stream 0 off the row index in row 1: ``vision_positions``)
 HUBERT_TRAIN = dict(B=2, H=16, Hkv=16, S=512, D=80, causal=False,
                     positions=False)
 QWEN2VL_TRAIN = dict(B=1, H=28, Hkv=4, S=1536, D=128, causal=True,
                      positions=True)
+# and the attention shapes of the prefills of phases 20 and 21 (B=4,
+# S=2048): qwen2-vl-7b causal over stream 0 (the row index there) and
+# hubert-xlarge full at D=80
+QWEN2VL_PREFILL = dict(B=4, H=28, Hkv=4, S=2048, D=128, causal=True,
+                       positions=True)
+HUBERT_PREFILL = dict(B=4, H=16, Hkv=16, S=2048, D=80, causal=False,
+                      positions=False)
 
 
-def vision_positions(torch, B, S):
+def vision_positions(torch, B, S, moved=True):
     """(B, S) int32 stream 0 of phase 32's vision batches: the row index,
     row 1's (row 0's where B = 1) moved up by 3 from position 5 (so every
-    rank takes the position masks)."""
+    rank takes the position masks); the row index alone where not
+    ``moved``, as phase 20's prefill has it."""
     pos = torch.arange(S, dtype=torch.int32, device="cuda").repeat(B, 1)
-    pos[min(1, B - 1), 5:] += 3
+    if moved:
+        pos[min(1, B - 1), 5:] += 3
     return pos
 
 
-def time_flash_bwd_mma(torch, fa, timer, B, H, Hkv, S, D, causal,
+def kept_bound(torch, fa, B, H, Hkv, S, D, causal, pos, products, tensors):
+    """(bound ms, bound_by, the mask) of an attention call: ``products``
+    S x D products over the (b, query, key) triples the mask keeps in this
+    call's data, and ``tensors`` (B, S, heads, D) bf16 tensors each of H
+    heads and of Hkv heads read or written once (forward: q, out and k, v;
+    backward: q, o, dO, dQ and k, v, dK, dV), the positions read once
+    each."""
+    keep = fa._keep(pos, pos, B, S, causal, 0, "cuda")[:, 0]  # (B, 1, S, S)
+    n_bytes = B * S * D * 2 * tensors * (H + Hkv) + (
+        2 * B * S * 4 if pos is not None else 0)
+    n_ops = products * 2 * int(keep.sum()) * D * H  # 2 flops an FMA
+    b, by = bound_ms(n_bytes, n_ops, "bfloat16")
+    return b, by, keep
+
+
+def time_flash_prefill(torch, fa, timer, B, H, Hkv, S, D, causal,
                        positions):
-    """Phase 23: the ``fa_bwd_mma`` route as training runs it where the
-    forward is ``fa_mma`` (bf16, a head dim other than 64 or 128, or given
-    positions), checked against its plain version as ``close_kernel``
-    holds it, timed beside that plain version and, as a yardstick the port
-    never calls, the backward of one ``scaled_dot_product_attention`` call
-    with the same mask (a boolean mask where positions are given).  The
-    bound counts the five products over the (query, key) pairs the mask
-    keeps in this call's data."""
+    """Phase 23: the forward at a prefill shape of phases 20-21, on its
+    route (``fa_wgmma``) and on ``fa_mma`` by name (the kernel the call ran
+    on before), each checked against the plain version as ``close_kernel``
+    holds it, then timed in turns (wgmma, mma, mma, wgmma), beside the
+    plain version and, as a yardstick the port never calls, one
+    ``scaled_dot_product_attention`` call with the same mask (a boolean
+    mask where positions are given); the bound counts q.k and p.v over
+    the pairs the mask keeps."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v = flash_inputs(torch, gen, B, H, Hkv, S, D, "bfloat16")
+    pos = vision_positions(torch, B, S, moved=False) if positions else None
+    kw = dict(causal=causal, q_pos=pos, k_pos=pos)
+    route = fa.route(torch.bfloat16, D, positions)
+    require(route == "fa_wgmma", f"D={D} positions={positions} runs {route}")
+    name = (f"flash_attention B={B} H={H} Hkv={Hkv} S={S} D={D} "
+            f"causal={causal} positions={positions} bf16")
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    errs = {}
+    for r in ("fa_wgmma", "fa_mma"):
+        n0 = ops.launch_counts()[r]
+        got = fa.flash_attention(q, k, v, route=r, **kw)
+        torch.cuda.synchronize()
+        require(ops.launch_counts()[r] == n0 + 1, f"{name}: {r} did not run")
+        errs[r] = close_kernel(got, want, "bfloat16", f"{name} {r}",
+                               quiet=True)
+    del got, want
+    runs = {}
+    for r in ("fa_wgmma", "fa_mma", "fa_mma", "fa_wgmma"):
+        runs.setdefault(r, []).append(timer.ms(
+            lambda: fa.flash_attention(q, k, v, route=r, **kw), iters=10))
+    # positions equal to the row index: the same function by index masks,
+    # what the positions (their tables, the masks' loads) cost
+    index_ms = (timer.ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                         iters=10) if positions else None)
+    plain_ms = timer.ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                        iters=3, warmup=1)
+    b, by, keep = kept_bound(torch, fa, B, H, Hkv, S, D, causal, pos, 2, 2)
+    lib_ms = library_ms(torch, timer, "SDPA prefill", lambda: (
+        F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep if positions else None,
+            is_causal=causal and not positions, enable_gqa=True)), iters=10)
+    del keep
+    torch.cuda.empty_cache()
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return dict(shape=name.split("flash_attention ")[1],
+                max_abs_err=errs["fa_wgmma"][0],
+                max_tile_rel_err=errs["fa_wgmma"][1],
+                ms=mean(runs["fa_wgmma"]), runs_ms=runs["fa_wgmma"],
+                index_ms=index_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b, bound_by=by,
+                mma=dict(max_abs_err=errs["fa_mma"][0],
+                         max_tile_rel_err=errs["fa_mma"][1],
+                         ms=mean(runs["fa_mma"]), runs_ms=runs["fa_mma"]))
+
+
+def time_flash_bwd_train(torch, fa, timer, B, H, Hkv, S, D, causal,
+                         positions):
+    """Phase 23: the backward as training runs it at a shape that took the
+    ``mma`` kernels before ``fa_wgmma`` took positions and D=80: the
+    ``fa_bwd_wgmma`` route given the forward's L, and ``fa_bwd_mma`` by
+    name on the same call, each checked against the plain version as
+    ``close_kernel`` holds it, timed in turns (wgmma, mma, mma, wgmma)
+    beside the plain version and, as a yardstick the port never calls, the
+    backward of one ``scaled_dot_product_attention`` call with the same
+    mask (a boolean mask where positions are given).  The bound counts the
+    five products over the (query, key) pairs the mask keeps in this
+    call's data."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
@@ -2495,26 +2650,32 @@ def time_flash_bwd_mma(torch, fa, timer, B, H, Hkv, S, D, causal,
     do = flash_inputs(torch, gen, B, H, H, S, D, "bfloat16")[0]
     pos = vision_positions(torch, B, S) if positions else None
     kw = dict(causal=causal, q_pos=pos, k_pos=pos)
-    require(fa.bwd_route(torch.bfloat16, D, positions) == "fa_bwd_mma",
-            f"D={D} positions={positions} is not on the mma route")
-    o = fa.flash_attention(q, k, v, **kw)
-    n0 = ops.launch_counts()["fa_bwd_mma"]
-    got = fa.flash_attention_bwd(q, k, v, o, do, **kw)
-    torch.cuda.synchronize()
-    require(ops.launch_counts()["fa_bwd_mma"] == n0 + 1,
-            "the mma backward did not launch")
+    require(fa.bwd_route(torch.bfloat16, D, positions) == "fa_bwd_wgmma",
+            f"D={D} positions={positions} is not on the wgmma route")
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    name = (f"flash_attention_bwd B={B} H={H} Hkv={Hkv} S={S} D={D} "
+            f"causal={causal} positions={positions}")
     want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
-    name = (f"flash_attention_bwd fa_bwd_mma B={B} H={H} Hkv={Hkv} S={S} "
-            f"D={D} causal={causal} positions={positions}")
-    res = [close_kernel(g, w, "bfloat16", f"{name} d{t}", quiet=True)
-           for t, g, w in zip("qkv", got, want)]
-    err, tile = max(e for e, _ in res), max(r for _, r in res)
+    calls = {"fa_bwd_wgmma": dict(lse=lse), "fa_bwd_mma": dict(
+        route="fa_bwd_mma")}
+    errs = {}
+    for r, extra in calls.items():
+        n0 = ops.launch_counts()[r]
+        got = fa.flash_attention_bwd(q, k, v, o, do, **kw, **extra)
+        torch.cuda.synchronize()
+        require(ops.launch_counts()[r] == n0 + 1, f"{name}: {r} did not run")
+        res = [close_kernel(g, w, "bfloat16", f"{name} {r} d{t}", quiet=True)
+               for t, g, w in zip("qkv", got, want)]
+        errs[r] = (max(e for e, _ in res), max(x for _, x in res))
     del got, want
-    ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw),
-                  iters=10)
+    runs = {}
+    for r in ("fa_bwd_wgmma", "fa_bwd_mma", "fa_bwd_mma", "fa_bwd_wgmma"):
+        runs.setdefault(r, []).append(timer.ms(
+            lambda: fa.flash_attention_bwd(q, k, v, o, do, **kw, **calls[r]),
+            iters=10))
     plain_ms = timer.ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, do, **kw), iters=3, warmup=1)
-    keep = fa._keep(pos, pos, B, S, causal, 0, q.device)[:, 0]  # (B,1,S,S)
+    b, by, keep = kept_bound(torch, fa, B, H, Hkv, S, D, causal, pos, 5, 4)
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(
         qs, ks, vs, attn_mask=keep if positions else None,
@@ -2523,41 +2684,87 @@ def time_flash_bwd_mma(torch, fa, timer, B, H, Hkv, S, D, causal,
                         lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                     retain_graph=True),
                         iters=10)
-    # q, o, dO in and dQ out (H heads); k, v in and dK, dV out (Hkv heads);
-    # the positions read twice
-    n_bytes = B * S * D * 2 * (4 * H + 4 * Hkv) + (2 * B * S * 4 if positions
-                                                    else 0)
-    pairs = int(keep.sum())  # (b, query, key) triples the mask keeps
-    n_ops = 5 * 2 * pairs * D * H  # S, dP, dV, dK, dQ; 2 flops an FMA
-    b, by = bound_ms(n_bytes, n_ops, "bfloat16")
     del out, qs, ks, vs, keep
     torch.cuda.empty_cache()
-    return dict(shape=name.split("fa_bwd_mma ")[1], max_abs_err=err,
-                max_tile_rel_err=tile, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b, bound_by=by)
+    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
+    return dict(shape=name.split("flash_attention_bwd ")[1],
+                max_abs_err=errs["fa_bwd_wgmma"][0],
+                max_tile_rel_err=errs["fa_bwd_wgmma"][1],
+                ms=mean(runs["fa_bwd_wgmma"]), runs_ms=runs["fa_bwd_wgmma"],
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
+                bound_by=by,
+                mma=dict(max_abs_err=errs["fa_bwd_mma"][0],
+                         max_tile_rel_err=errs["fa_bwd_mma"][1],
+                         ms=mean(runs["fa_bwd_mma"]),
+                         runs_ms=runs["fa_bwd_mma"]))
+
+
+def print_route_times(label, t, card):
+    """One line: a timing of ``time_flash_prefill`` or
+    ``time_flash_bwd_train``, the new route beside ``mma`` by name, the
+    plain version, SDPA and the bound."""
+    index = ("" if t.get("index_ms") is None else
+             f", by index masks {t['index_ms']:.6g} ms")
+    print(f"time {label} {t['shape']}: fa_wgmma route {t['ms']:.6g} ms "
+          f"(runs {', '.join(f'{x:.6g}' for x in t['runs_ms'])}{index}), mma by "
+          f"name {t['mma']['ms']:.6g} ms (runs "
+          f"{', '.join(f'{x:.6g}' for x in t['mma']['runs_ms'])}), plain "
+          f"{t['plain_ms']:.6g} ms, SDPA {t['library_ms']:.6g} ms, bound "
+          f"{t['bound_ms']:.6g} ms ({t['bound_by']}); x_mma="
+          f"{t['ms'] / t['mma']['ms']:.3f} x_library="
+          f"{t['ms'] / t['library_ms']:.3f} x_bound="
+          f"{t['ms'] / t['bound_ms']:.3f}; max_abs_err "
+          f"{t['max_abs_err']:.3e}, 64-row tile error "
+          f"{t['max_tile_rel_err']:.3e} (mma {t['mma']['max_abs_err']:.3e}, "
+          f"{t['mma']['max_tile_rel_err']:.3e}) [{card}]")
+
+
+def route_times(torch, fa, card):
+    """Phase 23, attention at the shapes the new routes took over: the
+    forward at the prefill shapes of phases 20 and 21, the backward at
+    phase 32's training shapes of qwen2-vl-7b and hubert-xlarge.  The new
+    route must beat the ``mma`` kernels it replaced at each, and at
+    qwen2-vl-7b's training shape SDPA's backward.  Returns ({config:
+    forward timing}, {config: backward timing})."""
+    timer = Timer(torch)
+    fwd = {"qwen2_vl": time_flash_prefill(torch, fa, timer,
+                                          **QWEN2VL_PREFILL),
+           "hubert": time_flash_prefill(torch, fa, timer, **HUBERT_PREFILL)}
+    bwd = {"qwen2_vl": time_flash_bwd_train(torch, fa, timer,
+                                            **QWEN2VL_TRAIN),
+           "hubert": time_flash_bwd_train(torch, fa, timer, **HUBERT_TRAIN)}
+    del timer
+    for which, t in fwd.items():
+        print_route_times(f"flash_attention at {which}'s prefill shape", t,
+                          card)
+    for which, t in bwd.items():
+        print_route_times(f"flash_attention_bwd at {which}'s training shape",
+                          t, card)
+    for which, t in list(fwd.items()) + list(bwd.items()):
+        require(t["ms"] < t["mma"]["ms"], f"{which} {t['shape']}: the wgmma "
+                f"route's {t['ms']:.4f} ms is not below the mma kernels' "
+                f"{t['mma']['ms']:.4f} ms")
+    t = bwd["qwen2_vl"]
+    require(t["ms"] < t["library_ms"], f"qwen2_vl {t['shape']}: the wgmma "
+            f"backward's {t['ms']:.4f} ms is not below SDPA's "
+            f"{t['library_ms']:.4f} ms")
+    return fwd, bwd
 
 
 def backward_times(torch, fa, ssm, card):
     """Phase 23: ``time_flash_bwd`` at stablelm-1.6b's and qwen3-8b's
-    training shapes, ``time_flash_bwd_mma`` at hubert-xlarge's and
-    qwen2-vl-7b's, and ``time_ssm_bwd`` at falcon-mamba's chunk, printed
-    with their ratios; the wgmma route must beat the ``mma`` route at both
-    of its attention shapes.  Returns the four timings (the mma route's a
-    dict by config)."""
+    training shapes, ``route_times`` (the forward at the prefill shapes of
+    qwen2-vl-7b and hubert-xlarge, the backward at their training shapes),
+    and ``time_ssm_bwd`` at falcon-mamba's chunk, printed with their
+    ratios; the wgmma route must beat the ``mma`` route at each of its
+    attention shapes.  Returns the timings (``route_times``' two dicts by
+    config)."""
     timer = Timer(torch)
     stablelm = time_flash_bwd(torch, fa, timer, **STABLELM_TRAIN)
     qwen3 = time_flash_bwd(torch, fa, timer, **QWEN_TRAIN)
-    mma = {"hubert": time_flash_bwd_mma(torch, fa, timer, **HUBERT_TRAIN),
-           "qwen2_vl": time_flash_bwd_mma(torch, fa, timer, **QWEN2VL_TRAIN)}
     scan = time_ssm_bwd(torch, ssm, timer, **MAMBA_TRAIN_CHUNK)
     del timer
-    for which, t in mma.items():
-        print(f"time flash_attention_bwd fa_bwd_mma at {which}'s training "
-              f"shape {t['shape']}: " + " ".join(
-                  f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
-                  for k, v in t.items() if k != "shape")
-              + f" x_bound={t['ms'] / t['bound_ms']:.3f} x_library="
-              f"{t['ms'] / t['library_ms']:.3f} [{card}]")
+    fwd_new, bwd_new = route_times(torch, fa, card)
     rows = []
     for shape, t in (("B=8 H=32 Hkv=32 S=2048 D=64", stablelm),
                      ("B=4 H=32 Hkv=8 S=2048 D=128", qwen3)):
@@ -2582,7 +2789,7 @@ def backward_times(torch, fa, ssm, card):
     require(scan["ms"] < SSM_BWD_TWO_PASS_MS, f"ssm_scan_bwd at "
             f"{MAMBA_TRAIN_CHUNK}: {scan['ms']:.4f} ms is not below the "
             f"two-pass kernel's {SSM_BWD_TWO_PASS_MS} ms")
-    return stablelm, qwen3, mma, scan
+    return stablelm, qwen3, fwd_new, bwd_new, scan
 
 
 def card_state():
@@ -2665,12 +2872,12 @@ def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
                 timer=seen)
 
 
-def bwd_entry(fa, counts, errs, stablelm, qwen3, mma_train):
+def bwd_entry(fa, counts, errs, stablelm, qwen3, train_new):
     """The kernels line's ``flash_attention_bwd``: the wgmma route that
-    training runs, at stablelm-1.6b's shape and (``qwen3``) qwen3-8b's,
-    with PR 18's ``mma`` route under ``mma``, also at the training shapes
-    where training runs it (``mma_train``: hubert-xlarge's and
-    qwen2-vl-7b's)."""
+    training runs, at stablelm-1.6b's shape and (``qwen3``) qwen3-8b's, and
+    at qwen2-vl-7b's and hubert-xlarge's training shapes (``train_new``:
+    under positions and at D=80, each with the ``mma`` kernels by name
+    under ``mma``), with the ``mma`` kernels' route under ``mma``."""
     shapes = {"stablelm": (STABLELM_TRAIN, stablelm),
               "qwen3": (QWEN_TRAIN, qwen3)}
 
@@ -2695,14 +2902,14 @@ def bwd_entry(fa, counts, errs, stablelm, qwen3, mma_train):
         launches=counts["fa_bwd_wgmma"],
         launches_by_route={r: counts[r] for r in fa.BWD_ROUTES},
         **numbers("fa_bwd_wgmma", "stablelm"),
-        qwen3=numbers("fa_bwd_wgmma", "qwen3"),
-        mma=dict(kernel=("fa_bwd_dq_mma + fa_bwd_dkdv_mma (bf16 with "
-                         "positions or other head dims; f32: fa_bwd_dq_f32 "
-                         "+ fa_bwd_dkdv_f32)"),
+        qwen3=numbers("fa_bwd_wgmma", "qwen3"), **train_new,
+        mma=dict(kernel=("fa_bwd_dq_mma + fa_bwd_dkdv_mma (bf16 at head "
+                         "dims 16, 32 and 96, and by name; f32: "
+                         "fa_bwd_dq_f32 + fa_bwd_dkdv_f32)"),
                  source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                  launches=counts["fa_bwd_mma"],
                  **numbers("fa_bwd_mma", "stablelm"),
-                 qwen3=numbers("fa_bwd_mma", "qwen3"), **mma_train))
+                 qwen3=numbers("fa_bwd_mma", "qwen3")))
 
 
 def check_train_small(torch):
@@ -4065,9 +4272,9 @@ class TrainJob(NamedTuple):
 # of the attention backward that no f32 run launches: gemma3-27b's pattern
 # of five windowed layers and a global one plus the two layers past it
 # (the windowed ``fa_bwd_wgmma``; in f32 its 5 layers all lie before the
-# first whole period, so none is decayed), hubert-xlarge (non-causal, D=80:
-# ``fa_bwd_mma``) and qwen2-vl-7b (positions off the row index:
-# ``fa_bwd_mma``).  gemma3 and qwen2-vl take S = 1536, past gemma3's
+# first whole period, so none is decayed), hubert-xlarge (non-causal, D=80)
+# and qwen2-vl-7b (positions off the row index), whose bf16 attention runs
+# the D=80 and position builds of ``fa_wgmma`` and ``fa_bwd_wgmma``.  gemma3 and qwen2-vl take S = 1536, past gemma3's
 # window of 1024 and past qwen2-vl's 1024 vision rows, at B = 1: every
 # activation the ranks exchange crosses the host (gloo), so the script's
 # time follows B x S.
@@ -4394,12 +4601,13 @@ def train_launches(torch, cfg, S):
     specs = layer_specs(cfg)
     n_attn = sum(s.kind == "attn" for s in specs)
     chunks = (len(specs) - n_attn) * -(-S // CHUNK)
-    route = fa.bwd_route(getattr(torch, cfg.dtype), cfg.head_dim,
-                         cfg.frontend == "vision")
+    args = (getattr(torch, cfg.dtype), cfg.head_dim, cfg.frontend == "vision")
     want = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
             "ssm_scan_ckpt": 2 * chunks, "ssm_scan_bwd": chunks}
-    want.update({r: n_attn * (r == route) for r in
-                 ("fa_bwd_wgmma", "fa_bwd_mma", "fa_bwd_f32")})
+    # by route: fa_mma and fa_bwd_mma none in every job
+    want.update({r: 2 * n_attn * (r == fa.route(*args)) for r in fa.ROUTES})
+    want.update({r: n_attn * (r == fa.bwd_route(*args))
+                 for r in fa.BWD_ROUTES})
     return {k: v * TRAIN_STEPS for k, v in want.items()}
 
 
@@ -4643,6 +4851,12 @@ def main():
         help="time only phase 23's scan (the backward and the forward's two "
              "builds) RUNS times over in a fresh process, and stop")
     parser.add_argument(
+        "--attention-timing", action="store_true",
+        help="time only phase 23's attention at the shapes the wgmma routes "
+             "took over from the mma kernels (qwen2-vl-7b's and "
+             "hubert-xlarge's prefill and training shapes) in a fresh "
+             "process, and stop")
+    parser.add_argument(
         "--only-distributed", action="store_true",
         help="build the kernels, run only phase 28 (the multi-device "
              "layer), and stop without the closing lines")
@@ -4701,6 +4915,9 @@ def main():
                   f"{scan['runs_ms']})")
             print_ssm_timing(ssm, scan, MAMBA_TRAIN_CHUNK, card)
         return
+    if args.attention_timing:
+        route_times(torch, fa, card)
+        return
 
     # phase 2: build every kernel, one nvcc each, in parallel
     t0 = time.perf_counter()
@@ -4735,8 +4952,8 @@ def main():
         "ssm_scan_bwd_smem": ([ctypes.c_int], ctypes.c_int)})
     dec_lib = _build.library("decode_attention", {
         "decode_attention_smem": ([ctypes.c_int, ctypes.c_int], ctypes.c_int)})
-    print("  dynamic shared memory a block: fa_wgmma D=64 "
-          f"{fa_lib.flash_attention_wgmma_smem(64)} B, D=128 "
+    print("  dynamic shared memory a block (D=80 runs in D=128's layout): "
+          f"fa_wgmma D=64 {fa_lib.flash_attention_wgmma_smem(64)} B, D=128 "
           f"{fa_lib.flash_attention_wgmma_smem(128)} B; dec_mma (bf16) D=128 "
           f"{dec_lib.decode_attention_smem(1, 128)} B, dec_split (f32) D=128 "
           f"{dec_lib.decode_attention_smem(0, 128)} B; fa_bwd_dq_wgmma D=64 "
@@ -4880,7 +5097,7 @@ def main():
 
     lap("22")
     # phase 23: the backward kernels' times at the training shapes
-    (times["flash_attention_bwd"], fa_bwd_qwen, fa_bwd_mma_train,
+    (times["flash_attention_bwd"], fa_bwd_qwen, fa_prefill_new, fa_bwd_new,
      times["ssm_scan_bwd"]) = backward_times(torch, fa, ssm, card)
 
     lap("23")
@@ -4950,8 +5167,12 @@ def main():
              source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
              replaces="src/repro/kernels/flash_attention.py:77",
              launches=counts["flash_attention"],
+             launches_by_route={r: counts[r] for r in fa.ROUTES},
              max_abs_err=fa_err[("bfloat16", *QWEN_PREFILL.values(), True, 0)],
-             **times["flash_attention"]),
+             **times["flash_attention"],
+             # the prefill shapes of phases 20 and 21, on fa_wgmma under
+             # positions and at D=80, with fa_mma by name under ``mma``
+             **fa_prefill_new),
         dict(name="ssm_scan", route="cuda", kernel="ssm_fwd<false>",
              source="src/repro_torch/kernels/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan.py:51",
@@ -4965,7 +5186,7 @@ def main():
                        plain_build_ms=times["ssm_scan_bwd"]["forward_ms"][
                            "plain"])),
         bwd_entry(fa, counts, fa_bwd_err, times["flash_attention_bwd"],
-                  fa_bwd_qwen, fa_bwd_mma_train),
+                  fa_bwd_qwen, fa_bwd_new),
         dict(name="ssm_scan_bwd", route="cuda",
              kernel="ssm_bwd_tma + ssm_bwd_dc",
              source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",

@@ -1,9 +1,11 @@
-// Flash attention backward for Hopper (sm_90a), bf16 at head dims 64 and
-// 128 with index masks (causal, window, full) and GQA at any G: two
-// warp-specialised kernels on wgmma and TMA, fa_bwd_dq_wgmma and
-// fa_bwd_dkdv_wgmma.  The training forward's route: where fa_wgmma
-// (flash_attention_wgmma.cu) runs the forward, these run its gradient;
-// positions, other head dims and f32 stay on flash_attention_bwd.cu.
+// Flash attention backward for Hopper (sm_90a), bf16 at head dims 64, 80 and
+// 128, masks (causal, window, full) by row index or by given positions, and
+// GQA at any G: two warp-specialised kernels on wgmma and TMA,
+// fa_bwd_dq_wgmma and fa_bwd_dkdv_wgmma.  The training forward's route:
+// where fa_wgmma (flash_attention_wgmma.cu) runs the forward, which is every
+// bf16 call of the port's configs, these run its gradient; head dims 16, 32
+// and 96 in bf16 (fa_bwd_mma, also run by name as a yardstick) and f32 stay
+// on flash_attention_bwd.cu.
 //
 // The TPU kernel src/repro/kernels/flash_attention.py::flash_attention has
 // no backward; the reference trains through plain jnp
@@ -45,6 +47,15 @@
 //     and dK += dS^T Q, dO and Q read MN-major from the tiles that served as
 //     the K-major operands of S^T and dP^T.  dK and dV stay in registers over
 //     the whole group.
+//     Where those blocks (B * Hkv * ceil(S / 128)) do not fill the card's
+//     SMs and G > 1, as at qwen2-vl-7b's training shape (48 blocks, G = 7),
+//     the wrapper splits each group's heads over n_split blocks (SPLIT
+//     builds): each writes its f32 dK and dV terms, and fa_bwd_dkdv_sum adds
+//     them in split order (no atomics: still the same bits run to run),
+//     scales dK and rounds both to bf16.  Unsplit calls (every training
+//     shape of stablelm-1.6b and qwen3-8b) keep the bits of the unsplit
+//     kernel: scripts/compare_attention_builds.py holds them to another
+//     commit's build.
 // Tiles above the causal diagonal, below the window or past S are never
 // loaded; a warpgroup whose 64 rows see none of a loaded tile skips it.
 // Results are scaled, rounded to bf16 and staged through the warpgroup's own
@@ -56,6 +67,22 @@
 // L and Delta: f32 (B, H, SP), SP = 128 ceil(S / 128), so that each stage's
 // slice is a 16-byte aligned bulk copy.  Past S, Delta is written 0 and L is
 // never used (the mask selects P = 0 there).
+//
+// Given positions (POS builds; the builds without them give the bits they
+// gave before positions existed), the tiles walked and the element masks
+// follow fa_wgmma's: each 64-row
+// tile's least and greatest position (the wrapper's tables) decide, for the
+// block's rows, which tiles of the other operand are loaded (dq: key tiles
+// whose positions some of its queries keep; dkdv, the mirror: query tiles
+// that keep some of its keys), for each warpgroup which loaded tiles it
+// skips, and where every pair is kept, so that no element mask is needed.
+// A row with no kept key has L = 0 from the forward and P = 0 everywhere:
+// its gradients are 0.
+//
+// Head dim 80 runs in the layout of 128, as fa_wgmma runs it: TMA
+// zero-fills columns 80-127 of each row's second box, S and dP take 5
+// steps of 16 columns, dQ, dK and dV are summed at N = 128 (their columns
+// past 80 are 0) and only 80 columns are stored.
 
 #include "hopper.cuh"
 
@@ -68,10 +95,11 @@ constexpr int NST = 3;    // ring stages
 constexpr int NTH = 384;  // producer warpgroup + two consumer warpgroups
 
 template <int D> struct Tiles {
-  static constexpr int HALVES = D / 64;        // 128-byte swizzle boxes a row
+  static constexpr int DK = D == 80 ? 128 : D;  // a row's width in shared memory
+  static constexpr int HALVES = DK / 64;        // 128-byte swizzle boxes a row
   static constexpr int BT = D == 64 ? 128 : 64;  // rows a ring stage
-  static constexpr int OWN = BR * D * 2;       // one owned operand
-  static constexpr int TILE = BT * D * 2;      // one staged operand
+  static constexpr int OWN = BR * DK * 2;       // one owned operand
+  static constexpr int TILE = BT * DK * 2;      // one staged operand
 };
 
 // dq: Q, dO (owned), NST x (K, V), Delta of the block's rows, barriers
@@ -82,7 +110,9 @@ template <int D> struct DqSmem {
   static constexpr int V_OFF = K_OFF + NST * T::TILE;
   static constexpr int DL_OFF = V_OFF + NST * T::TILE;
   static constexpr int BAR_OFF = DL_OFF + BR * 4;
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * NST);
+  // under positions the bits of the key tiles kept follow the barriers
+  static constexpr int BITS_OFF = BAR_OFF + 8 * (1 + 2 * NST);
+  static constexpr int SMEM = 1024 + BITS_OFF;
 };
 
 // dkdv: K, V (owned), NST x (Q, dO), NST x (L, Delta slices), barriers
@@ -94,7 +124,9 @@ template <int D> struct DkdvSmem {
   static constexpr int LD_OFF = DO_OFF + NST * T::TILE;
   static constexpr int LD_BYTES = 2 * T::BT * 4;  // one stage's L and Delta
   static constexpr int BAR_OFF = LD_OFF + NST * LD_BYTES;
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 2 * NST);
+  // under positions the bits of the query tiles kept follow the barriers
+  static constexpr int BITS_OFF = BAR_OFF + 8 * (1 + 2 * NST);
+  static constexpr int SMEM = 1024 + BITS_OFF;
 };
 
 struct Args {
@@ -107,6 +139,9 @@ struct Args {
   int H, G, S, SP, causal, window;
   float scale, scale_log2;
   int perm_q, perm_do, perm_k, perm_v;
+  PosArgs ps;          // given positions, or all null
+  int n_split;         // blocks a KV group's heads are split over (SPLIT)
+  float* part;         // f32 (2, n_split, B, Hkv, S, D): dK's terms, dV's
 };
 
 // C (64 x N) = A (64 x D) B^T (N x D), both in shared memory, K-major: A is
@@ -162,13 +197,14 @@ __device__ __forceinline__ bool kept(int qp, int kp, int S, int causal, int wind
   return kp < S && qp < S && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
 }
 
-// 64 rows x D of a scaled f32 accumulator, in bf16, staged through the
-// warpgroup's own rows ``sW`` of a 128-row owned tile (the 16-byte chunks of
-// a 128-byte row swizzled by row), then written with 16-byte stores to rows
-// r0 .. r0 + 63 of ``out`` (row stride rs), rows past S dropped.  The caller
-// has made sure the warpgroup no longer reads sW.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&c)[D / 2], float mul,
+// 64 rows x D of a scaled f32 accumulator of DK columns, in bf16, staged
+// through the warpgroup's own rows ``sW`` of a 128-row owned tile (the
+// 16-byte chunks of a 128-byte row swizzled by row), then written with
+// 16-byte stores to rows r0 .. r0 + 63 of ``out`` (row stride rs), rows
+// past S dropped.  The caller has made sure the warpgroup no longer reads
+// sW.
+template <int D, int DK>
+__device__ __forceinline__ void store_rows(const float (&c)[DK / 2], float mul,
                                            uint32_t sW, bf* out, long long rs,
                                            int r0, int S, int t) {
   const int warp = t >> 5, lane = t & 31;
@@ -198,6 +234,23 @@ __device__ __forceinline__ void store_rows(const float (&c)[D / 2], float mul,
   }
 }
 
+// 64 rows x D of an f32 accumulator of DK columns, as they are, to rows r0
+// .. r0 + 63 of ``out`` (D floats a row), rows past S dropped
+template <int D, int DK>
+__device__ __forceinline__ void store_part(const float (&c)[DK / 2], float* out,
+                                           int r0, int S, int t) {
+  const int warp = t >> 5, lane = t & 31;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = r0 + warp * 16 + (lane >> 2) + 8 * hf;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + (long long)r * D + 8 * j + 2 * (lane & 3)) =
+          make_float2(c[4 * j + 2 * hf], c[4 * j + 2 * hf + 1]);
+  }
+}
+
 __device__ __forceinline__ float dot8(uint4 x, uint4 y) {
   const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
   float s = 0.f;
@@ -210,7 +263,7 @@ __device__ __forceinline__ float dot8(uint4 x, uint4 y) {
   return s;
 }
 
-template <int D>
+template <int D, bool POS>
 __global__ void __launch_bounds__(NTH, 1)
 fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
                 const __grid_constant__ CUtensorMap tmdo,
@@ -236,14 +289,34 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
   const int b = bh / a.H, h = bh - b * a.H, hk = h / a.G;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // heaviest causal tiles first
 
-  // the key tiles these rows can see
+  // the key tiles these rows can see; under positions each is weighed by
+  // its positions' range against the block's, and warp 0 sets the bits of
+  // the tiles kept, which both sides walk (``next``), as fa_wgmma does
   const int q_last = min(q0 + BR, S) - 1;
-  const int kt_end = (a.causal ? q_last : S - 1) / BT + 1;
+  int kt_end = (a.causal ? q_last : S - 1) / BT + 1;
   int kt_begin = 0;
   if (a.window > 0) {
     const int k_min = q0 - a.window + 1;  // lowest key any row here keeps
     kt_begin = k_min > 0 ? k_min / BT : 0;
   }
+  const int T64 = a.ps.T64;
+  const int2* qtab = a.ps.qtab + (long long)b * T64;
+  const int2* ktab = a.ps.ktab + (long long)b * T64;
+  uint32_t* kept_bits = reinterpret_cast<uint32_t*>(smem + C::BITS_OFF);
+  if constexpr (POS) {
+    kt_begin = 0;
+    kt_end = (S - 1) / BT + 1;
+    if (threadIdx.x < 32) {
+      const int2 q_blk = pos_range(qtab, T64, q0, BR);
+      mark_tiles(kept_bits, kt_end, [&](int kt) {
+        return !pos_none(q_blk, pos_range(ktab, T64, kt * BT, BT), a.causal, a.window);
+      });
+    }
+  }
+  auto next = [&](int kt) {
+    if constexpr (POS) return next_tile(kept_bits, kt, kt_end);
+    else return kt;
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -265,7 +338,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
         tma_load_sbh(sQ + hf * BR * 128, &tmq, q_full, hf * 64, q0, h, b, a.perm_q);
         tma_load_sbh(sdO + hf * BR * 128, &tmdo, q_full, hf * 64, q0, h, b, a.perm_do);
       }
-      for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+      for (int kt = next(kt_begin), it = 0; kt < kt_end; kt = next(kt + 1)) {
         const int s = it % NST;
         mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * T::TILE);
@@ -276,6 +349,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
           tma_load_sbh(sV + s * T::TILE + hf * BT * 128, &tmv, full(s), hf * 64,
                        kt * BT, hk, b, a.perm_v);
         }
+        ++it;
       }
     }
     return;
@@ -316,18 +390,39 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
     Dr[hf] = sDl[r - q0];
   }
 
-  float dq[D / 2];
+  // under positions: the warpgroup's range and its two rows' positions
+  int2 q_wg = make_int2(0, 0);
+  int qv[2] = {0, 0};
+  const int* kp = a.ps.k + (long long)b * S;
+  if constexpr (POS) {
+    if (rw0 < S) q_wg = pos_range(qtab, T64, rw0, 64);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < S) qv[hf] = a.ps.q[(long long)b * S + row + 8 * hf];
+  }
+
+  constexpr int DK = T::DK;
+  float dq[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) dq[i] = 0.f;
   float sc[BT / 2], dp[BT / 2];
   uint32_t da[BT / 16][4];
   mbar_wait(q_full, 0);
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+  for (int kt = next(kt_begin), it = 0; kt < kt_end; kt = next(kt + 1)) {
+    int2 kr = make_int2(0, 0);
+    if constexpr (POS) kr = pos_range(ktab, T64, kt * BT, BT);
     const int s = it % NST;
     mbar_wait(full(s), (it / NST) & 1);
+    ++it;
     const int k0 = kt * BT;
-    const bool seen = rw0 < S && !(a.causal && k0 > rw0 + 63) &&
-                      !(a.window > 0 && k0 + BT - 1 <= rw0 - a.window);
+    bool seen, need_mask = false;
+    if constexpr (POS) {
+      seen = rw0 < S && !pos_none(q_wg, kr, a.causal, a.window);
+      need_mask = k0 + BT > S || !pos_all(q_wg, kr, a.causal, a.window);
+    } else {
+      seen = rw0 < S && !(a.causal && k0 > rw0 + 63) &&
+             !(a.window > 0 && k0 + BT - 1 <= rw0 - a.window);
+    }
     if (seen) {
       const uint32_t sKs = sK + s * T::TILE, sVs = sV + s * T::TILE;
       wg_fence();
@@ -338,16 +433,36 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
       // P = exp2(S * scale log2 e - L), 0 where masked, while dP runs
       wg_wait<1>();
       fence_regs(sc);
-      const bool need_mask = k0 + BT > S || (a.causal && k0 + BT - 1 > rw0) ||
-                             (a.window > 0 && k0 <= rw0 + 63 - a.window);
+      if constexpr (POS) {
 #pragma unroll
-      for (int i = 0; i < BT / 2; ++i) {
-        const int hf = (i >> 1) & 1;
-        const float p = ex2(sc[i] * a.scale_log2 - Lr[hf]);
-        sc[i] = need_mask && !kept(row + 8 * hf, k0 + 8 * (i >> 2) + col + (i & 1),
-                                   S, a.causal, a.window)
-                    ? 0.f
-                    : p;
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kj = k0 + 8 * j + col + e;
+            const bool in = kj < S;
+            const int kpj = need_mask && in ? kp[kj] : 0;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              float& x = sc[4 * j + 2 * hf + e];
+              const float p = ex2(x * a.scale_log2 - Lr[hf]);
+              x = need_mask && !(in && row + 8 * hf < S &&
+                                 pos_kept(qv[hf], kpj, a.causal, a.window))
+                      ? 0.f
+                      : p;
+            }
+          }
+      } else {
+        need_mask = k0 + BT > S || (a.causal && k0 + BT - 1 > rw0) ||
+                    (a.window > 0 && k0 <= rw0 + 63 - a.window);
+#pragma unroll
+        for (int i = 0; i < BT / 2; ++i) {
+          const int hf = (i >> 1) & 1;
+          const float p = ex2(sc[i] * a.scale_log2 - Lr[hf]);
+          sc[i] = need_mask && !kept(row + 8 * hf, k0 + 8 * (i >> 2) + col + (i & 1),
+                                     S, a.causal, a.window)
+                      ? 0.f
+                      : p;
+        }
       }
       // dS = P (dP - Delta)
       wg_wait<0>();
@@ -356,7 +471,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
       for (int i = 0; i < BT / 2; ++i) sc[i] *= dp[i] - Dr[(i >> 1) & 1];
       to_a<BT>(sc, da);
       wg_fence();
-      rs<D, BT>(dq, da, sKs);
+      rs<DK, BT>(dq, da, sKs);
       wg_commit();
       wg_wait<0>();
       fence_regs(dq);
@@ -365,11 +480,11 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
 
   named_bar(1 + wg, 128);  // every warp of the warpgroup is done with Q
-  store_rows<D>(dq, a.scale, sQ + wg * 64 * 128, a.dq + b * a.sdq_b + h * a.sdq_h,
-                a.sdq_s, rw0, S, t);
+  store_rows<D, DK>(dq, a.scale, sQ + wg * 64 * 128, a.dq + b * a.sdq_b + h * a.sdq_h,
+                    a.sdq_s, rw0, S, t);
 }
 
-template <int D>
+template <int D, bool POS, bool SPLIT>
 __global__ void __launch_bounds__(NTH, 1)
 fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
                   const __grid_constant__ CUtensorMap tmv,
@@ -400,7 +515,23 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
   const int n_qt = (S + BT - 1) / BT;
   const int qt_begin = a.causal ? k0 / BT : 0;
   const int qt_end = a.window > 0 ? min(n_qt, (k_last + a.window - 1) / BT + 1) : n_qt;
-  const int n_t = max(qt_end - qt_begin, 0), n_it = G * n_t;
+  // the group's heads this block takes: all, or its split's G / n_split
+  const int g0 = SPLIT ? blockIdx.z * (G / a.n_split) : 0;
+  const int g1 = SPLIT ? g0 + G / a.n_split : G;
+  const int n_t = max(qt_end - qt_begin, 0), n_it = (g1 - g0) * n_t;
+  // under positions, the mirror of dq's walk: every query tile of each head
+  // is weighed by its positions' range against the block's keys (k_blk)
+  const int T64 = a.ps.T64;
+  const int2* qtab = a.ps.qtab + (long long)b * T64;
+  const int2* ktab = a.ps.ktab + (long long)b * T64;
+  uint32_t* kept_bits = reinterpret_cast<uint32_t*>(smem + C::BITS_OFF);
+  if constexpr (POS)
+    if (threadIdx.x < 32) {
+      const int2 k_blk = pos_range(ktab, T64, k0, BR);
+      mark_tiles(kept_bits, n_qt, [&](int qt) {
+        return !pos_none(pos_range(qtab, T64, qt * BT, BT), k_blk, a.causal, a.window);
+      });
+    }
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -421,8 +552,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
         tma_load_sbh(sK + hf * BR * 128, &tmk, kv_full, hf * 64, k0, hk, b, a.perm_k);
         tma_load_sbh(sV + hf * BR * 128, &tmv, kv_full, hf * 64, k0, hk, b, a.perm_v);
       }
-      for (int it = 0; it < n_it; ++it) {
-        const int g = it / n_t, qt = qt_begin + it - g * n_t, h = hk * G + g;
+      auto load = [&](int it, int g, int qt) {
+        const int h = hk * G + g;
         const int s = it % NST;
         mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
         mbar_expect_tx(full(s), 2 * T::TILE + C::LD_BYTES);
@@ -436,6 +567,17 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
         const long long r0 = ((long long)b * a.H + h) * a.SP + qt * BT;
         bulk_load(sLD + s * C::LD_BYTES, a.lse + r0, BT * 4, full(s));
         bulk_load(sLD + s * C::LD_BYTES + BT * 4, a.delta + r0, BT * 4, full(s));
+      };
+      if constexpr (POS) {
+        int it = 0;
+        for (int g = g0; g < g1; ++g)
+          for (int qt = next_tile(kept_bits, 0, n_qt); qt < n_qt; qt = next_tile(kept_bits, qt + 1, n_qt))
+            load(it++, g, qt);
+      } else {
+        for (int it = 0; it < n_it; ++it) {
+          const int g = it / n_t;
+          load(it, g0 + g, qt_begin + it - g * n_t);
+        }
       }
     }
     return;
@@ -449,18 +591,36 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
   const int col = 2 * (lane & 3);                 // first query column a thread holds
   const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
 
-  float dk[D / 2], dv[D / 2];
+  // under positions: the warpgroup's range and its two keys' positions
+  int2 k_wg = make_int2(0, 0);
+  int kv[2] = {0, 0};
+  const int* qp = a.ps.q + (long long)b * S;
+  if constexpr (POS) {
+    if (kw0 < S) k_wg = pos_range(ktab, T64, kw0, 64);
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int hf = 0; hf < 2; ++hf)
+      if (key + 8 * hf < S) kv[hf] = a.ps.k[(long long)b * S + key + 8 * hf];
+  }
+
+  constexpr int DK = T::DK;
+  float dk[DK / 2], dv[DK / 2];
+#pragma unroll
+  for (int i = 0; i < DK / 2; ++i) dk[i] = dv[i] = 0.f;
   float st[BT / 2], dpt[BT / 2];
   uint32_t pa[BT / 16][4], da[BT / 16][4];
   mbar_wait(kv_full, 0);
-  for (int it = 0; it < n_it; ++it) {
-    const int g = it / n_t, q0 = (qt_begin + it - g * n_t) * BT;
+  // one staged query tile from q0, whose positions lie in qr (POS)
+  auto tile = [&](int it, int q0, int2 qr) {
     const int s = it % NST;
     mbar_wait(full(s), (it / NST) & 1);
-    const bool seen = kw0 < S && !(a.causal && q0 + BT - 1 < kw0) &&
-                      !(a.window > 0 && q0 > kw0 + 62 + a.window);
+    bool seen, need_mask = false;
+    if constexpr (POS) {
+      seen = kw0 < S && !pos_none(qr, k_wg, a.causal, a.window);
+      need_mask = q0 + BT > S || kw0 + 64 > S || !pos_all(qr, k_wg, a.causal, a.window);
+    } else {
+      seen = kw0 < S && !(a.causal && q0 + BT - 1 < kw0) &&
+             !(a.window > 0 && q0 > kw0 + 62 + a.window);
+    }
     if (seen) {
       const uint32_t sQs = sQ + s * T::TILE, sdOs = sdO + s * T::TILE;
       wg_fence();
@@ -474,9 +634,9 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
       // made ptxas serialize the products.)
       const float* Ls = reinterpret_cast<const float*>(smem + C::LD_OFF + s * C::LD_BYTES);
       const float* Ds = Ls + BT;
-      const bool need_mask = q0 + BT > S || kw0 + 64 > S ||
-                             (a.causal && kw0 + 63 > q0) ||
-                             (a.window > 0 && kw0 <= q0 + BT - 1 - a.window);
+      if constexpr (!POS)
+        need_mask = q0 + BT > S || kw0 + 64 > S || (a.causal && kw0 + 63 > q0) ||
+                    (a.window > 0 && kw0 <= q0 + BT - 1 - a.window);
       wg_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
@@ -484,35 +644,105 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tmk,
       for (int j = 0; j < BT / 8; ++j) {
         const float2 lc = *reinterpret_cast<const float2*>(Ls + 8 * j + col);
         const float2 dc = *reinterpret_cast<const float2*>(Ds + 8 * j + col);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
+        if constexpr (POS) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int i = 4 * j + 2 * hf + e;
-            float p = ex2(st[i] * a.scale_log2 - (e ? lc.y : lc.x));
-            if (need_mask && !kept(q0 + 8 * j + col + e, key + 8 * hf, S, a.causal, a.window))
-              p = 0.f;
-            st[i] = p;
-            dpt[i] = p * (dpt[i] - (e ? dc.y : dc.x));
+            const int qi = q0 + 8 * j + col + e;
+            const bool in = qi < S;
+            const int qpi = need_mask && in ? qp[qi] : 0;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const int i = 4 * j + 2 * hf + e;
+              float p = ex2(st[i] * a.scale_log2 - (e ? lc.y : lc.x));
+              if (need_mask && !(in && key + 8 * hf < S &&
+                                 pos_kept(qpi, kv[hf], a.causal, a.window)))
+                p = 0.f;
+              st[i] = p;
+              dpt[i] = p * (dpt[i] - (e ? dc.y : dc.x));
+            }
           }
+        } else {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * j + 2 * hf + e;
+              float p = ex2(st[i] * a.scale_log2 - (e ? lc.y : lc.x));
+              if (need_mask && !kept(q0 + 8 * j + col + e, key + 8 * hf, S, a.causal, a.window))
+                p = 0.f;
+              st[i] = p;
+              dpt[i] = p * (dpt[i] - (e ? dc.y : dc.x));
+            }
+        }
       }
       // dV += P^T dO and dK += dS^T Q
       to_a<BT>(st, pa);
       to_a<BT>(dpt, da);
       wg_fence();
-      rs<D, BT>(dv, pa, sdOs);
-      rs<D, BT>(dk, da, sQs);
+      rs<DK, BT>(dv, pa, sdOs);
+      rs<DK, BT>(dk, da, sQs);
       wg_commit();
       wg_wait<0>();
       fence_regs(dv);
       fence_regs(dk);
     }
     mbar_arrive(empty(s));
+  };
+  if constexpr (POS) {
+    int it = 0;
+    for (int g = g0; g < g1; ++g)
+      for (int qt = next_tile(kept_bits, 0, n_qt); qt < n_qt;
+           qt = next_tile(kept_bits, qt + 1, n_qt))
+        tile(it++, qt * BT, pos_range(qtab, T64, qt * BT, BT));
+  } else {
+    for (int it = 0; it < n_it; ++it) {
+      const int g = it / n_t;
+      tile(it, (qt_begin + it - g * n_t) * BT, make_int2(0, 0));
+    }
   }
 
+  if constexpr (SPLIT) {
+    // this split's terms, summed by fa_bwd_dkdv_sum
+    const long long plane = (long long)gridDim.x * S * D;  // one split's
+    float* pk = a.part + (blockIdx.z * (long long)gridDim.x + bhk) * S * D;
+    store_part<D, DK>(dk, pk, kw0, S, t);
+    store_part<D, DK>(dv, pk + a.n_split * plane, kw0, S, t);
+    return;
+  }
   named_bar(1 + wg, 128);  // every warp of the warpgroup is done with K and V
-  store_rows<D>(dk, a.scale, sKw, a.dk + b * a.sdk_b + hk * a.sdk_h, a.sdk_s, kw0, S, t);
-  store_rows<D>(dv, 1.f, sVw, a.dv + b * a.sdv_b + hk * a.sdv_h, a.sdv_s, kw0, S, t);
+  store_rows<D, DK>(dk, a.scale, sKw, a.dk + b * a.sdk_b + hk * a.sdk_h, a.sdk_s, kw0, S, t);
+  store_rows<D, DK>(dv, 1.f, sVw, a.dv + b * a.sdv_b + hk * a.sdv_h, a.sdv_s, kw0, S, t);
+}
+
+// dK and dV from the SPLIT dkdv blocks' terms: each (b, KV head, key, 4
+// columns) adds its n_split terms in split order, scales dK and stores both
+// in bf16
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_bwd_dkdv_sum(const Args a, int B) {
+  const int Hkv = a.H / a.G, S = a.S;
+  const long long plane = (long long)B * Hkv * S * D;
+  const long long n = plane / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = 4 * (int)(i % (D / 4));
+    const long long row = i / (D / 4);  // (b * Hkv + hk) * S + s
+    const int s = (int)(row % S), bhk = (int)(row / S);
+    const int b = bhk / Hkv, hk = bhk - b * Hkv;
+    float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+    for (int p = 0; p < a.n_split; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(a.part + p * plane + 4 * i);
+      const float4 y =
+          *reinterpret_cast<const float4*>(a.part + (a.n_split + p) * plane + 4 * i);
+      sk.x += x.x; sk.y += x.y; sk.z += x.z; sk.w += x.w;
+      sv.x += y.x; sv.y += y.y; sv.z += y.z; sv.w += y.w;
+    }
+    const uint2 k2 = make_uint2(pack_bf16(sk.x * a.scale, sk.y * a.scale),
+                                pack_bf16(sk.z * a.scale, sk.w * a.scale));
+    const uint2 v2 = make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+    *reinterpret_cast<uint2*>(a.dk + b * a.sdk_b + hk * a.sdk_h + s * a.sdk_s + c) = k2;
+    *reinterpret_cast<uint2*>(a.dv + b * a.sdv_b + hk * a.sdv_h + s * a.sdv_s + c) = v2;
+  }
 }
 
 template <typename K>
@@ -522,7 +752,7 @@ int set_smem(K kernel, int bytes) {
 }
 
 // strides: (batch, head, row) of q, k, v, o, dout, dq, dk, dv in that order
-template <int D>
+template <int D, bool POS>
 int launch(const void* q, const void* k, const void* v, Args a, int B,
            const long long* st, cudaStream_t stream) {
   using T = Tiles<D>;
@@ -545,34 +775,60 @@ int launch(const void* q, const void* k, const void* v, Args a, int B,
   MAP(v_t, unused, v, Hkv, 2, T::BT)
 #undef MAP
   const int n_b = (S + BR - 1) / BR;
-  if ((r = set_smem(fa_bwd_dq_wgmma<D>, DqSmem<D>::SMEM)) != 0) return r;
-  fa_bwd_dq_wgmma<D><<<dim3(B * H, n_b), NTH, DqSmem<D>::SMEM, stream>>>(
+  // under positions, one word of kept-tile bits a 32 tiles of BT rows
+  const int bits = POS ? 4 * ((S + 32 * T::BT - 1) / (32 * T::BT)) : 0;
+  const int dq_smem = DqSmem<D>::SMEM + bits, dkdv_smem = DkdvSmem<D>::SMEM + bits;
+  if ((r = set_smem(fa_bwd_dq_wgmma<D, POS>, dq_smem)) != 0) return r;
+  fa_bwd_dq_wgmma<D, POS><<<dim3(B * H, n_b), NTH, dq_smem, stream>>>(
       q_own, do_own, k_t, v_t, a);
   if ((r = static_cast<int>(cudaGetLastError())) != 0) return r;
-  if ((r = set_smem(fa_bwd_dkdv_wgmma<D>, DkdvSmem<D>::SMEM)) != 0) return r;
-  fa_bwd_dkdv_wgmma<D><<<dim3(B * Hkv, n_b), NTH, DkdvSmem<D>::SMEM, stream>>>(
+  if (a.n_split > 1) {
+    if ((r = set_smem(fa_bwd_dkdv_wgmma<D, POS, true>, dkdv_smem)) != 0) return r;
+    fa_bwd_dkdv_wgmma<D, POS, true>
+        <<<dim3(B * Hkv, n_b, a.n_split), NTH, dkdv_smem, stream>>>(
+            k_own, v_own, q_t, do_t, a);
+    if ((r = static_cast<int>(cudaGetLastError())) != 0) return r;
+    const long long n = (long long)B * Hkv * S * (D / 4);
+    const long long want = (n + 255) / 256;
+    const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+    fa_bwd_dkdv_sum<D><<<blocks, 256, 0, stream>>>(a, B);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if ((r = set_smem(fa_bwd_dkdv_wgmma<D, POS, false>, dkdv_smem)) != 0) return r;
+  fa_bwd_dkdv_wgmma<D, POS, false><<<dim3(B * Hkv, n_b), NTH, dkdv_smem, stream>>>(
       k_own, v_own, q_t, do_t, a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 at head dim 64 or 128, index masks only.  Every stride of a
-// dimension longer than 1 a multiple of 8 elements and every tensor 16-byte
-// aligned, which the caller checks.  strides: 24 values, (batch, head, row)
-// of q, k, v, o, dout, dq, dk, dv in that order.  lse: the forward's L, f32
-// (B, H, SP) in log2 units; delta: f32 (B, H, SP) scratch; SP a multiple of
-// 128 and at least S.  The dq kernel, then the dkdv kernel, on the stream.
-// Returns a cudaError_t, or 1000 + the CUresult of a tensor map that the
-// CUDA driver refused.
+// bf16 at head dim 64, 80 or 128.  Every stride of a dimension longer than
+// 1 a multiple of 8 elements and every tensor 16-byte aligned, which the
+// caller checks.  strides: 24 values, (batch, head, row) of q, k, v, o,
+// dout, dq, dk, dv in that order.  lse: the forward's L, f32 (B, H, SP) in
+// log2 units; delta: f32 (B, H, SP) scratch; SP a multiple of 128 and at
+// least S.  q_pos, k_pos, q_tab, k_tab, T64: the positions and their tables
+// as flash_attention_wgmma_launch takes them, or null for index masks.
+// n_split: 1, or a divisor of G over which each KV group's heads are split
+// in the dkdv kernel, with part f32 (2, n_split, B, H / G, S, D) scratch.
+// The dq kernel, then the dkdv kernel (and, split, the sum of its terms),
+// on the stream.  Returns a cudaError_t, or 1000 + the CUresult of a
+// tensor map that the CUDA driver refused.
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
     void* dq, void* dk, void* dv, const float* lse, float* delta, int B, int H,
     int G, int S, int SP, int D, const long long* strides, float scale,
-    int causal, int window, void* stream) {
+    int causal, int window, const int* q_pos, const int* k_pos,
+    const int* q_tab, const int* k_tab, int T64, int n_split, float* part,
+    void* stream) {
   if (G < 1 || H % G != 0 || S < 1 || SP % BR != 0 || SP < S ||
       reinterpret_cast<uintptr_t>(lse) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(delta) % 16 != 0)
+      reinterpret_cast<uintptr_t>(delta) % 16 != 0 ||
+      (q_pos == nullptr) != (k_pos == nullptr) ||
+      (q_pos != nullptr && (q_tab == nullptr || k_tab == nullptr ||
+                            T64 != (S + 63) / 64)) ||
+      n_split < 1 || G % n_split != 0 || (n_split > 1 && part == nullptr) ||
+      reinterpret_cast<uintptr_t>(part) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.o = static_cast<const bf*>(o);
@@ -589,9 +845,18 @@ extern "C" int flash_attention_bwd_wgmma_launch(
   a.H = H; a.G = G; a.S = S; a.SP = SP; a.causal = causal; a.window = window;
   a.scale = scale;
   a.scale_log2 = scale * 1.4426950408889634f;
+  a.ps = PosArgs{q_pos, k_pos, reinterpret_cast<const int2*>(q_tab),
+                 reinterpret_cast<const int2*>(k_tab), T64};
+  a.n_split = n_split;
+  a.part = part;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, a, B, strides, st);
-  if (D == 128) return launch<128>(q, k, v, a, B, strides, st);
+  const bool pos = q_pos != nullptr;
+  if (D == 64) return pos ? launch<64, true>(q, k, v, a, B, strides, st)
+                          : launch<64, false>(q, k, v, a, B, strides, st);
+  if (D == 80) return pos ? launch<80, true>(q, k, v, a, B, strides, st)
+                          : launch<80, false>(q, k, v, a, B, strides, st);
+  if (D == 128) return pos ? launch<128, true>(q, k, v, a, B, strides, st)
+                           : launch<128, false>(q, k, v, a, B, strides, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -599,6 +864,6 @@ extern "C" int flash_attention_bwd_wgmma_launch(
 // dkdv
 extern "C" int flash_attention_bwd_wgmma_smem(int D, int which) {
   if (D == 64) return which ? DkdvSmem<64>::SMEM : DqSmem<64>::SMEM;
-  if (D == 128) return which ? DkdvSmem<128>::SMEM : DqSmem<128>::SMEM;
+  if (D == 80 || D == 128) return which ? DkdvSmem<128>::SMEM : DqSmem<128>::SMEM;
   return 0;
 }

@@ -1,5 +1,8 @@
-// Flash attention (forward) for Hopper (sm_90a), bf16 at head dims 64 and
-// 128: a warp-specialised kernel on wgmma and TMA, fa_wgmma.
+// Flash attention (forward) for Hopper (sm_90a), bf16 at head dims 64, 80 and
+// 128, masks by row index or by given positions: a warp-specialised kernel on
+// wgmma and TMA, fa_wgmma.  Every bf16 forward of the port's configs runs
+// here; fa_mma (flash_attention.cu) keeps the other head dims (16, 32, 96)
+// and serves as a yardstick by name, fa_fwd there takes f32.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (body _fa_kernel),
@@ -46,6 +49,28 @@
 //   flash_attention_bwd_wgmma.cu: f32 (B, H, SP) with SP = 128 ceil(S /
 //   128), rows past S not written.  The build without it (every prefill)
 //   is the same code as before it existed.
+// - Given positions (POS = true; both q_pos and k_pos, (B, S) int32, the
+//   wrapper making the row index of a missing one), the masks compare
+//   positions, and the tiles kept are found from each 64-row tile's least
+//   and greatest position (qtab, ktab: (B, ceil(S / 64)) int2, made by the
+//   wrapper before the launch): a KV tile is skipped where causal and its
+//   least key position exceeds the block's greatest query position, or
+//   under a window where its greatest is at or below the block's least less
+//   the window.  Warp 0 sets a bit for each tile kept in shared memory
+//   before the ring starts, so the producer and the consumers walk the
+//   same tiles and no skipped tile costs a read; a consumer reads each
+//   walked tile's range one tile ahead.  A warpgroup skips a loaded tile in
+//   the same way for its own 64 rows, and masks element by element only
+//   where not every pair is kept.  Exact for
+//   any positions (repeats, gaps, unsorted); where they rise with the row,
+//   as stream 0 of M-RoPE does, it skips what the index masks skip.  The
+//   builds without positions give the bits and the times they gave before
+//   positions existed (scripts/compare_attention_builds.py).
+// - Head dim 80 runs in the layout of 128: the tensor maps keep the true
+//   width, so the second 64-column box of a row reads columns 64-79 and TMA
+//   zero-fills the rest.  Q K^T takes D / 16 = 5 steps of 16 columns; P V
+//   runs at N = 128 over V's zero columns, and only 80 columns are stored.
+//   Shared memory and registers are those of D = 128.
 
 #include <math_constants.h>
 
@@ -60,6 +85,9 @@ constexpr int NTH = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// the width a row of head dim D takes in shared memory: D = 80 runs as 128
+template <int D> constexpr int padded = D == 80 ? 128 : D;
+
 template <int D> struct Cfg {
   static constexpr int HALVES = D / 64;         // 128-byte swizzle boxes a row
   static constexpr int Q_BYTES = BQ * D * 2;
@@ -67,10 +95,13 @@ template <int D> struct Cfg {
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + NST * KV_BYTES;
   static constexpr int BAR_OFF = V_OFF + NST * KV_BYTES;
-  // barriers: q_full, k_full[NST], v_full[NST], empty[NST]; 1 KB of slack
-  // to align the base to the 1024 bytes the swizzle needs: 230,480 bytes at
-  // D = 128, within the 232,448 a block may have
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * NST);
+  // barriers: q_full, k_full[NST], v_full[NST], empty[NST]; under positions
+  // the bits of the KV tiles kept follow them (one word a 32 tiles, added
+  // at launch); 1 KB of slack to align the base to the 1024 bytes the
+  // swizzle needs: 230,480 bytes at D = 128 without the bits, within the
+  // 232,448 a block may have
+  static constexpr int BITS_OFF = BAR_OFF + 8 * (1 + 3 * NST);
+  static constexpr int SMEM = 1024 + BITS_OFF;
 };
 
 // S (64 x 128) = Q K^T for a warpgroup's 64 rows: D / 16 steps over the
@@ -102,17 +133,39 @@ __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&pa)[BK / 
 // mask, online softmax and P in bf16 for one tile of keys from k0.  Element
 // i of sc holds row ``row`` + 8 * ((i / 2) % 2), key k0 + 8 * (i / 4) +
 // ``col`` + i % 2; the S fragments of keys 16 kk .. 16 kk + 15 are the A
-// fragment of P V's key step kk.
-template <int D>
+// fragment of P V's key step kk.  Under POS the masks compare the rows'
+// positions ``qv`` with the keys' (``kp``: the batch row's), and only where
+// the tile is not ``whole``.
+template <int D, bool POS>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&o)[D / 2],
                                              float (&m)[2], float (&l)[2],
                                              uint32_t (&pa)[BK / 16][4], int k0,
                                              int row, int col, int rw0, int S,
                                              int causal, int window,
-                                             float scale_log2) {
-  const bool need_mask = k0 + BK > S || (causal && k0 + BK - 1 > rw0) ||
-                         (window > 0 && k0 <= rw0 + 63 - window);
-  if (need_mask) {
+                                             float scale_log2, bool whole,
+                                             const int (&qv)[2], const int* kp) {
+  if constexpr (POS) {
+    if (!whole) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + 8 * j + col + e;
+          const bool in = kj < S;
+          const int kpj = in ? kp[kj] : 0;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float& x = sc[4 * j + 2 * hf + e];
+            x = in && pos_kept(qv[hf], kpj, causal, window) ? x * scale_log2
+                                                             : -CUDART_INF_F;
+          }
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+    }
+  } else if (k0 + BK > S || (causal && k0 + BK - 1 > rw0) ||
+             (window > 0 && k0 <= rw0 + 63 - window)) {
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int qp = row + 8 * ((i >> 1) & 1);
@@ -164,15 +217,16 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], float (&o)[D /
   }
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool POS>
 __global__ void __launch_bounds__(NTH, 1)
 fa_wgmma(const __grid_constant__ CUtensorMap tmq,
          const __grid_constant__ CUtensorMap tmk,
          const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ out,
          float* __restrict__ lse, int H, int G, int S, int n_q, long long osb,
          long long osh, long long oss, float scale_log2, int causal, int window,
-         int perm_q, int perm_k, int perm_v) {
-  using C = Cfg<D>;
+         int perm_q, int perm_k, int perm_v, const PosArgs ps) {
+  constexpr int DK = padded<D>;
+  using C = Cfg<DK>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -191,12 +245,33 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
 
   // the KV tiles this query tile can see
   const int q_last = min(q0 + BQ, S) - 1;
-  const int kt_end = (causal ? q_last : S - 1) / BK + 1;
+  int kt_end = (causal ? q_last : S - 1) / BK + 1;
   int kt_begin = 0;
   if (window > 0) {
     const int k_min = q0 - window + 1;  // lowest key any row here keeps
     kt_begin = k_min > 0 ? k_min / BK : 0;
   }
+  // under positions every KV tile is weighed by its positions' range
+  // against the block's (q_blk): warp 0 sets the bits of the tiles kept
+  // before the ring starts, and the producer and the consumers walk those
+  // (``next``), never reading a skipped tile's range
+  const int2* ktab = ps.ktab + (long long)b * ps.T64;
+  uint32_t* kept_bits = reinterpret_cast<uint32_t*>(smem + C::BITS_OFF);
+  if constexpr (POS) {
+    kt_begin = 0;
+    kt_end = (S - 1) / BK + 1;
+    if (threadIdx.x < 32) {
+      const int2 q_blk = pos_range(ps.qtab + (long long)b * ps.T64, ps.T64, q0, BQ);
+      mark_tiles(kept_bits, kt_end, [&](int kt) {
+        return !pos_none(q_blk, pos_range(ktab, ps.T64, kt * BK, BK), causal, window);
+      });
+    }
+  }
+  // the first tile from kt on that the block walks
+  auto next = [&](int kt) {
+    if constexpr (POS) return next_tile(kept_bits, kt, kt_end);
+    else return kt;
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -217,7 +292,7 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
 #pragma unroll
       for (int hf = 0; hf < C::HALVES; ++hf)
         tma_load_sbh(sQ + hf * BQ * 128, &tmq, q_full, hf * 64, q0, h, b, perm_q);
-      for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+      for (int kt = next(kt_begin), it = 0; kt < kt_end; kt = next(kt + 1)) {
         const int s = it % NST;
         mbar_wait(empty(s), ((it / NST) & 1) ^ 1);
         mbar_expect_tx(k_full(s), C::KV_BYTES);
@@ -230,6 +305,7 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
         for (int hf = 0; hf < C::HALVES; ++hf)
           tma_load_sbh(sV + s * C::KV_BYTES + hf * BK * 128, &tmv, v_full(s),
                        hf * 64, kt * BK, hk, b, perm_v);
+        ++it;
       }
     }
     return;
@@ -244,28 +320,63 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
   const int col = 2 * (lane & 3);               // first key column a thread holds
   const uint32_t sQw = sQ + wg * 64 * 128;      // its Q rows in each half
 
-  float o[D / 2];
+  float o[DK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) o[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  // under positions: the warpgroup's range and its two rows' positions
+  int2 q_wg = make_int2(0, 0);
+  int qv[2] = {0, 0};
+  const int* kp = ps.k + (long long)b * S;
+  if constexpr (POS) {
+    if (rw0 < S) q_wg = pos_range(ps.qtab + (long long)b * ps.T64, ps.T64, rw0, 64);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      if (row + 8 * hf < S) qv[hf] = ps.q[(long long)b * S + row + 8 * hf];
+  }
+
+  // under positions each walked tile's range, read one tile ahead (0.342
+  // against 0.369 ms read at the tile, at qwen2-vl-7b's prefill shape)
+  int2 kr_next = make_int2(0, 0);
+  if constexpr (POS)
+    if (next(kt_begin) < kt_end)
+      kr_next = pos_range(ktab, ps.T64, next(kt_begin) * BK, BK);
 
   mbar_wait(q_full, 0);
   float sc[BK / 2];
   uint32_t pa[BK / 16][4];
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+  for (int kt = next(kt_begin), it = 0, kt_after = 0; kt < kt_end; kt = kt_after) {
+    kt_after = next(kt + 1);
+    bool whole = false;
+    int2 kr = make_int2(0, 0);
+    if constexpr (POS) {
+      kr = kr_next;
+      if (kt_after < kt_end) kr_next = pos_range(ktab, ps.T64, kt_after * BK, BK);
+    }
     const int s = it % NST;
     const uint32_t ph = (it / NST) & 1;
+    ++it;
     mbar_wait(k_full(s), ph);
+    if constexpr (POS) {
+      if (rw0 >= S || pos_none(q_wg, kr, causal, window)) {
+        // none of this warpgroup's pairs: release the stage once both of
+        // its loads have landed
+        mbar_wait(v_full(s), ph);
+        mbar_arrive(empty(s));
+        continue;
+      }
+      whole = kt * BK + BK <= S && pos_all(q_wg, kr, causal, window);
+    }
     wg_fence();
     qk<D>(sc, sQw, sK + s * C::KV_BYTES);
     wg_commit();
     wg_wait<0>();
     fence_regs(sc);
-    softmax_tile<D>(sc, o, m, l, pa, kt * BK, row, col, rw0, S, causal, window,
-                    scale_log2);
+    softmax_tile<DK, POS>(sc, o, m, l, pa, kt * BK, row, col, rw0, S, causal,
+                          window, scale_log2, whole, qv, kp);
     mbar_wait(v_full(s), ph);
     wg_fence();
-    pv<D>(o, pa, sV + s * C::KV_BYTES);
+    pv<DK>(o, pa, sV + s * C::KV_BYTES);
     wg_commit();
     wg_wait<0>();
     fence_regs(o);
@@ -314,56 +425,77 @@ fa_wgmma(const __grid_constant__ CUtensorMap tmq,
   }
 }
 
-template <int D, bool LSE>
+template <int D, bool LSE, bool POS>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
            int B, int H, int G, int S, long long qsb, long long qsh,
            long long qss, long long ksb, long long ksh, long long kss,
            long long vsb, long long vsh, long long vss, long long osb,
            long long osh, long long oss, float scale, int causal, int window,
-           cudaStream_t st) {
+           PosArgs ps, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   int pq, pk, pv, r;
   if ((r = make_map(&tq, &pq, q, D, S, H, B, qss, qsh, qsb, BQ)) != 0) return 1000 + r;
   if ((r = make_map(&tk, &pk, k, D, S, H / G, B, kss, ksh, ksb, BK)) != 0) return 1000 + r;
   if ((r = make_map(&tv, &pv, v, D, S, H / G, B, vss, vsh, vsb, BK)) != 0) return 1000 + r;
-  const int smem = Cfg<D>::SMEM;
+  // under positions, one word of kept-tile bits a 32 KV tiles
+  const int smem = Cfg<padded<D>>::SMEM + (POS ? 4 * ((S + 32 * BK - 1) / (32 * BK)) : 0);
   // above 48 KB a block's dynamic shared memory must be asked for, or the
   // launch is refused
   cudaError_t err = cudaFuncSetAttribute(
-      fa_wgmma<D, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_wgmma<D, LSE, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_q = (S + BQ - 1) / BQ;
-  fa_wgmma<D, LSE><<<dim3(B * H, n_q), NTH, smem, st>>>(
+  fa_wgmma<D, LSE, POS><<<dim3(B * H, n_q), NTH, smem, st>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, H, G, S, n_q, osb, osh,
-      oss, scale * LOG2E, causal, window, pq, pk, pv);
+      oss, scale * LOG2E, causal, window, pq, pk, pv, ps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bf16 q, k, v at head dim 64 or 128: 16-byte aligned data and every stride of
-// a dimension longer than 1 a multiple of 8 elements, which the caller
-// checks.  lse: null for the plain build, or f32 (B, H, SP), SP = 128 ceil(S
-// / 128), for the build that also writes each row's log-sum-exp (log2
-// units).  Returns a cudaError_t, or 1000 + the CUresult of a tensor map
-// that the CUDA driver refused.
+// bf16 q, k, v at head dim 64, 80 or 128: 16-byte aligned data and every
+// stride of a dimension longer than 1 a multiple of 8 elements, which the
+// caller checks.  lse: null for the plain build, or f32 (B, H, SP), SP = 128
+// ceil(S / 128), for the build that also writes each row's log-sum-exp (log2
+// units).  q_pos, k_pos: null for the masks by row index, or both (B, S)
+// int32 positions, with q_tab, k_tab each (B, T64) pairs (least, greatest)
+// of every 64-row tile's positions, T64 = ceil(S / 64).  Returns a
+// cudaError_t, or 1000 + the CUresult of a tensor map that the CUDA driver
+// refused.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, const void* k, const void* v, void* out, float* lse, int B,
     int H, int G, int S, int D, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
-    int causal, int window, void* stream) {
+    int causal, int window, const int* q_pos, const int* k_pos,
+    const int* q_tab, const int* k_tab, int T64, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_LAUNCH(DIM, LSE)                                                     \
-  launch<DIM, LSE>(q, k, v, out, lse, B, H, G, S, qsb, qsh, qss, ksb, ksh, kss, \
-                   vsb, vsh, vss, osb, osh, oss, scale, causal, window, st)
-  if (D == 64) return lse == nullptr ? FA_LAUNCH(64, false) : FA_LAUNCH(64, true);
-  if (D == 128) return lse == nullptr ? FA_LAUNCH(128, false) : FA_LAUNCH(128, true);
+  if ((q_pos == nullptr) != (k_pos == nullptr) ||
+      (q_pos != nullptr && (q_tab == nullptr || k_tab == nullptr ||
+                            T64 != (S + 63) / 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const PosArgs ps{q_pos, k_pos, reinterpret_cast<const int2*>(q_tab),
+                   reinterpret_cast<const int2*>(k_tab), T64};
+#define FA_LAUNCH(DIM, LSE, POS)                                                  \
+  launch<DIM, LSE, POS>(q, k, v, out, lse, B, H, G, S, qsb, qsh, qss, ksb, ksh,  \
+                        kss, vsb, vsh, vss, osb, osh, oss, scale, causal, window, \
+                        ps, st)
+#define FA_DIM(DIM)                                                            \
+  if (D == DIM) {                                                              \
+    if (q_pos == nullptr)                                                      \
+      return lse == nullptr ? FA_LAUNCH(DIM, false, false)                     \
+                            : FA_LAUNCH(DIM, true, false);                     \
+    return lse == nullptr ? FA_LAUNCH(DIM, false, true) : FA_LAUNCH(DIM, true, true); \
+  }
+  FA_DIM(64)
+  FA_DIM(80)
+  FA_DIM(128)
+#undef FA_DIM
 #undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dynamic shared memory a block of fa_wgmma takes at head dim D
 extern "C" int flash_attention_wgmma_smem(int D) {
-  return D == 64 ? Cfg<64>::SMEM : D == 128 ? Cfg<128>::SMEM : 0;
+  return D == 64 ? Cfg<64>::SMEM : D == 80 || D == 128 ? Cfg<128>::SMEM : 0;
 }

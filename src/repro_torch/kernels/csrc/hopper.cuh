@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the wgmma attention kernels
 // (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu) and the scan's
 // backward (ssm_scan_bwd.cu): mbarriers, TMA loads, wgmma descriptors and
-// products, and the host's tensor maps.
+// products, the host's tensor maps, and the attention kernels' tile and
+// element predicates over given positions.
 //
 // Layout they assume: a bf16 (rows, D) tile in shared memory is stored as
 // D / 64 "halves" of (rows, 64) with the 128-byte swizzle that TMA writes
@@ -179,6 +180,72 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- masks by given positions (the wgmma attention kernels' POS builds) ----
+
+// (b, S) int32 positions of queries and keys, and each one's table of the
+// least and greatest position (x, y) of every 64-row tile of a batch row,
+// (B, T64) with T64 = ceil(S / 64); all null without positions
+struct PosArgs {
+  const int* q;
+  const int* k;
+  const int2* qtab;
+  const int2* ktab;
+  int T64;
+};
+
+// the least and greatest position over rows r0 .. r0 + rows - 1 (r0 < S,
+// r0 a multiple of 64) of one batch row's table ``tab``: the tiles are
+// merged, the last one holding only rows below S
+__device__ __forceinline__ int2 pos_range(const int2* tab, int T64, int r0, int rows) {
+  const int e1 = min((r0 + rows - 1) >> 6, T64 - 1);
+  int2 r = tab[r0 >> 6];
+  for (int e = (r0 >> 6) + 1; e <= e1; ++e) {
+    const int2 x = tab[e];
+    r.x = min(r.x, x.x);
+    r.y = max(r.y, x.y);
+  }
+  return r;
+}
+
+// keys with positions in [k.x, k.y] against queries in [q.x, q.y]: no pair
+// is kept (the tile is skipped)
+__device__ __forceinline__ bool pos_none(int2 q, int2 k, int causal, int window) {
+  return (causal && k.x > q.y) || (window > 0 && k.y <= q.x - window);
+}
+// every pair is kept (no element mask)
+__device__ __forceinline__ bool pos_all(int2 q, int2 k, int causal, int window) {
+  return (!causal || k.y <= q.x) && (window <= 0 || k.x > q.y - window);
+}
+// the pair (query at qp, key at kp) is kept
+__device__ __forceinline__ bool pos_kept(int qp, int kp, int causal, int window) {
+  return (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+}
+
+// warp 0 of a block, all 32 lanes: bit t of ``bits`` (shared memory, n / 32
+// words rounded up) set where keep(t), for the tiles t < n
+template <typename Keep>
+__device__ __forceinline__ void mark_tiles(uint32_t* bits, int n, Keep keep) {
+  const int lane = threadIdx.x & 31;
+  for (int w = 0; 32 * w < n; ++w) {
+    const int t = 32 * w + lane;
+    const uint32_t b = __ballot_sync(0xffffffffu, t < n && keep(t));
+    if (lane == 0) bits[w] = b;
+  }
+}
+
+// the first tile t' >= t whose bit is set, or n
+__device__ __forceinline__ int next_tile(const uint32_t* bits, int t, int n) {
+  if (t >= n) return n;
+  int w = t >> 5;
+  uint32_t m = bits[w] & (0xffffffffu << (t & 31));
+  const int nw = (n + 31) >> 5;
+  while (m == 0) {
+    if (++w >= nw) return n;
+    m = bits[w];
+  }
+  return (w << 5) + __ffs(m) - 1;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

@@ -32,26 +32,31 @@ v's dtype before P.V as the reference rounds it, and the output is cast to
 q's dtype.  Any S is taken: the TPU kernel's S % block == 0 is a TPU tiling
 rule.
 
-On a card the forward kernel is a pure function of (dtype, D, whether
-positions are given), ``route``:
+On a card the forward kernel is a pure function of the dtype and D,
+``route``:
 
 * ``fa_wgmma`` (``csrc/flash_attention_wgmma.cu``) for bf16 at D in
-  ``WGMMA_DIMS`` (64 and 128, every attention config of the port):
-  warp-specialised, TMA loads and ``wgmma`` products;
+  ``WGMMA_DIMS`` (64, 80 and 128: every attention config of the port), with
+  or without positions: warp-specialised, TMA loads and ``wgmma`` products;
+  under positions the tiles it skips come from each 64-row tile's least and
+  greatest position (``pos_tiles``, the kernel's rule mirrored by
+  ``tile_classes``);
 * ``fa_mma`` (``csrc/flash_attention.cu``) for bf16 at the other head dims
-  of ``HEAD_DIMS``, and for bf16 with positions: ``mma.sync`` with 16-byte
-  loads;
+  of ``HEAD_DIMS`` (16, 32, 96, which no config uses): ``mma.sync`` with
+  16-byte loads, every tile visited under positions; ``route="fa_mma"``
+  also runs it on any bf16 call, as a yardstick;
 * ``fa_fwd`` (``csrc/flash_attention.cu``) for f32, on the CUDA cores, at any
   strides.
 
-The backward kernels are a pure function of the same three, ``bwd_route``:
+The backward kernels are a pure function of the same, ``bwd_route``:
 
 * ``fa_bwd_wgmma`` (``csrc/flash_attention_bwd_wgmma.cu``) where the
   forward is ``fa_wgmma``: a dQ kernel, then a dK/dV kernel, warp-
   specialised on TMA and ``wgmma``, reading the L that ``fa_wgmma``'s
   L-writing build saved in ``FlashAttentionFn.forward``;
 * ``fa_bwd_mma`` (``csrc/flash_attention_bwd.cu``) for the other bf16
-  calls (positions, other head dims): ``mma.sync``, L recomputed;
+  calls (D 16, 32, 96), and by name on any bf16 call: ``mma.sync``, L
+  recomputed;
 * ``fa_bwd_f32`` (``csrc/flash_attention_bwd.cu``) for f32, on the CUDA
   cores, L recomputed.
 
@@ -77,16 +82,23 @@ LOG2E = 1.4426950408889634
 #: the head dims the CUDA libraries are built for (the switches of their
 #: launch functions)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
-#: the bf16 head dims ``fa_wgmma`` takes
-WGMMA_DIMS = (64, 128)
+#: the bf16 head dims ``fa_wgmma`` takes (80 in the layout of 128)
+WGMMA_DIMS = (64, 80, 128)
+#: the rows of a tile of the position tables (``pos_tiles``)
+POS_TILE = 64
 
-#: the backward kernels' routes (``bwd_route``)
+#: the forward and backward kernels' routes (``route``, ``bwd_route``)
+ROUTES = ("fa_wgmma", "fa_mma", "fa_fwd")
 BWD_ROUTES = ("fa_bwd_wgmma", "fa_bwd_mma", "fa_bwd_f32")
+_BWD_OF = dict(zip(ROUTES, BWD_ROUTES))
 
 #: kernel launches so far (plain-version calls are not counted): the
-#: forward, the backward (one per call of its two kernels), and the
-#: backward by route
+#: forward, and by route; the backward (one per call of its two kernels),
+#: and by route
 launches = 0
+wgmma_launches = 0
+mma_launches = 0
+fwd_f32_launches = 0
 bwd_launches = 0
 bwd_wgmma_launches = 0
 bwd_mma_launches = 0
@@ -207,12 +219,13 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, causal=True, window=0,
 
 
 def route(dtype: torch.dtype, D: int, positions: bool = False) -> str:
-    """The forward kernel that runs a call on the card, from its dtype, head
-    dim and whether it has positions (``fa_wgmma`` masks by index only)."""
+    """The forward kernel that runs a call on the card, from its dtype and
+    head dim; ``fa_wgmma`` masks by index or by given positions alike, so
+    ``positions`` does not change it."""
     if dtype == torch.float32:
         return "fa_fwd"
     if dtype == torch.bfloat16:
-        return "fa_wgmma" if D in WGMMA_DIMS and not positions else "fa_mma"
+        return "fa_wgmma" if D in WGMMA_DIMS else "fa_mma"
     raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}")
 
 
@@ -220,8 +233,94 @@ def bwd_route(dtype: torch.dtype, D: int, positions: bool = False) -> str:
     """The backward kernels that run a call on the card: ``fa_bwd_wgmma``
     wherever the forward is ``fa_wgmma``, else ``fa_bwd_mma`` (bf16) or
     ``fa_bwd_f32``."""
-    return {"fa_wgmma": "fa_bwd_wgmma", "fa_mma": "fa_bwd_mma",
-            "fa_fwd": "fa_bwd_f32"}[route(dtype, D, positions)]
+    return _BWD_OF[route(dtype, D, positions)]
+
+
+def _named_route(name, dtype, D):
+    """The forward route a call runs: ``route``'s, or ``name`` where given,
+    which may be that one or ``fa_mma`` for any bf16 call (the kernel that
+    served positions and D = 80 before ``fa_wgmma`` took them, kept as a
+    yardstick)."""
+    r = route(dtype, D)
+    if name is None or name == r:
+        return r
+    if name not in ROUTES:
+        raise ValueError(f"route {name!r} is none of {ROUTES}")
+    if name == "fa_mma" and dtype == torch.bfloat16:
+        return name
+    raise ValueError(f"route {name} cannot run this call ({r} does)")
+
+
+def pos_tiles(pos, S: int):
+    """(B, ceil(S / POS_TILE), 2) int32: the least and greatest of each
+    POS_TILE-row tile's positions, (B, S) int32 ``pos``; the last tile
+    holds only rows below S.  Three launches on a card (two where S is a
+    multiple of the tile)."""
+    B = pos.shape[0]
+    n = -(-S // POS_TILE)
+    pad = n * POS_TILE - S
+    if pad:  # repeat the last position: it changes no tile's range
+        pos = torch.cat((pos, pos[:, -1:].expand(B, pad)), 1)
+    lo, hi = torch.aminmax(pos.reshape(B, n, POS_TILE), dim=-1)
+    return torch.stack((lo, hi), -1)
+
+
+#: ``tile_classes``' values: a tile keeps no pair (skipped, never loaded),
+#: some (masked element by element), or every pair (no mask)
+SKIP, MASK, WHOLE = 0, 1, 2
+
+
+def tile_classes(q_tab, k_tab, S: int, causal: bool, window: int,
+                 q_rows: int = POS_TILE, k_rows: int = POS_TILE):
+    """Plain version of the wgmma kernels' tile rule under positions: for
+    each batch row, q_rows-row query tile and k_rows-row key tile (each a
+    multiple of POS_TILE), SKIP where no pair is kept (causal and the keys'
+    least position above the queries' greatest, or under a window the
+    keys' greatest at or below the queries' least less the window), WHOLE
+    where every pair is kept and the key tile lies below S, else MASK; the
+    ranges merge the tables' tiles (``pos_tiles``).  (B, nq, nk) int64."""
+    def merged(tab, rows):
+        f = rows // POS_TILE
+        n = tab.shape[1]
+        pad = (-n) % f
+        if pad:  # the last tile's range stands for the missing ones
+            tab = torch.cat((tab, tab[:, -1:].expand(-1, pad, -1)), 1)
+        t = tab.reshape(tab.shape[0], -1, f, 2).long()
+        return t[..., 0].amin(-1), t[..., 1].amax(-1)
+
+    q_lo, q_hi = (x[:, :, None] for x in merged(q_tab, q_rows))
+    k_lo, k_hi = (x[:, None, :] for x in merged(k_tab, k_rows))
+    none = torch.zeros(q_lo.shape[0], q_lo.shape[1], k_lo.shape[2],
+                       dtype=torch.bool)
+    every = torch.ones_like(none)
+    if causal:
+        none = none | (k_lo > q_hi)
+        every = every & (k_hi <= q_lo)
+    if window:
+        none = none | (k_hi <= q_lo - window)
+        every = every & (k_lo > q_hi - window)
+    inside = torch.arange(k_lo.shape[2]) * k_rows + k_rows <= S
+    every = every & inside[None, None, :]
+    return torch.where(none, SKIP, torch.where(every, WHOLE, MASK))
+
+
+#: the card's streaming multiprocessors (H100 SXM)
+SMS = 132
+
+
+def dkdv_splits(B: int, Hkv: int, S: int, G: int) -> int:
+    """Over how many blocks ``fa_bwd_wgmma``'s dK/dV kernel splits each KV
+    group's G query heads: 1 where its B * Hkv * ceil(S / 128) blocks fill
+    the card's SMs (every training shape of stablelm-1.6b and qwen3-8b,
+    whose results stay those of the unsplit kernel) or S < 512 (a block's
+    walk is short: the terms' round trip through memory and the summing
+    launch would cost what the split saves), else the least divisor of G
+    that makes about two waves, or G."""
+    blocks = B * Hkv * -(-S // 128)
+    if blocks >= SMS or S < 512:
+        return 1
+    want = -(-2 * SMS // blocks)
+    return next((d for d in range(2, G) if G % d == 0 and d >= want), G)
 
 
 def _lse_rows(S: int) -> int:
@@ -244,11 +343,13 @@ _SIGNATURES = {
         [_I, _P, _P, _P, _P] + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P, _P, _P],
         _I)},
     "flash_attention_wgmma": {"flash_attention_wgmma_launch": (
-        [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P], _I)},
+        [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _I] + [_P] * 4 + [_I, _P],
+        _I)},
     "flash_attention_bwd": {"flash_attention_bwd_launch": (
         [_I] + [_P] * 12 + [_I] * 5 + [_P, _F, _I, _I, _P], _I)},
     "flash_attention_bwd_wgmma": {"flash_attention_bwd_wgmma_launch": (
-        [_P] * 10 + [_I] * 6 + [_P, _F, _I, _I, _P], _I)},
+        [_P] * 10 + [_I] * 6 + [_P, _F, _I, _I] + [_P] * 4 + [_I, _I, _P, _P],
+        _I)},
 }
 
 
@@ -290,22 +391,44 @@ def _pos_arg(pos, B, S, dev):
     return pos, pos.data_ptr()
 
 
+def _wgmma_pos(q_pos, k_pos, B, S, dev):
+    """The wgmma kernels' position arguments: (tensors kept alive, (q_pos,
+    k_pos, q_tab, k_tab, T64) as the launch takes them), all null without
+    positions; where one of the two is given, the other is the row index.
+    A call with positions adds at most ten small launches: for each of the
+    two, ``pos_tiles``' two or three and two copies (to int32 and to a
+    contiguous (B, S)) where given otherwise, or the row index and its
+    copy to (B, S) where missing; one set where q_pos is k_pos, as in
+    training (two launches where those are int32 (B, S) and S is a
+    multiple of 64; six in a prefill, which gives q_pos alone)."""
+    if q_pos is None and k_pos is None:
+        return (), (None, None, None, None, 0)
+    same = q_pos is k_pos
+    index = lambda: torch.arange(S, device=dev, dtype=torch.int32)  # noqa: E731
+    qp = _pos_arg(index() if q_pos is None else q_pos, B, S, dev)[0]
+    kp = qp if same else _pos_arg(index() if k_pos is None else k_pos, B, S,
+                                  dev)[0]
+    q_tab = pos_tiles(qp, S)
+    k_tab = q_tab if same else pos_tiles(kp, S)
+    keep = (qp, kp, q_tab, k_tab)
+    return keep, tuple(t.data_ptr() for t in keep) + (q_tab.shape[1],)
+
+
 def _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
-                    with_lse=False):
-    """One launch of the forward kernel that ``route`` names; with
-    ``with_lse`` (the ``fa_wgmma`` route only), of its L-writing build, and
-    then (out, L), L a (B, H, S) view of f32 (B, H, ``_lse_rows(S)``)."""
-    global launches
+                    with_lse=False, route=None):
+    """One launch of the forward kernel that ``route`` names (None:
+    ``route()``'s); with ``with_lse`` (the ``fa_wgmma`` route only), of its
+    L-writing build, and then (out, L), L a (B, H, S) view of f32 (B, H,
+    ``_lse_rows(S)``)."""
+    global launches, wgmma_launches, mma_launches, fwd_f32_launches
     dev = q.device
     B, H, Hkv, S, D = _check(q, k, v, window)
+    fwd_route = _named_route(route, q.dtype, D)
+    if with_lse and fwd_route != "fa_wgmma":
+        raise ValueError(f"only fa_wgmma writes L; this call runs {fwd_route}")
     if q.dtype == torch.bfloat16 and not _aligned((q, k, v)):
         raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
                          "elements and 16-byte aligned data")
-    qp, qp_ptr = _pos_arg(q_pos, B, S, dev)
-    kp, kp_ptr = _pos_arg(k_pos, B, S, dev)
-    fwd_route = route(q.dtype, D, qp is not None or kp is not None)
-    if with_lse and fwd_route != "fa_wgmma":
-        raise ValueError(f"only fa_wgmma writes L; this call runs {fwd_route}")
     (qsb, qsh, qss), (ksb, ksh, kss), (vsb, vsh, vss) = map(_strides,
                                                             (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
@@ -316,37 +439,48 @@ def _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
             out.stride(0), out.stride(2), out.stride(1), _scale(D, scale),
             int(bool(causal)), int(window))
     if fwd_route == "fa_wgmma":
+        keep, pos = _wgmma_pos(q_pos, k_pos, B, S, dev)
         lib = _build.library("flash_attention_wgmma",
                              _SIGNATURES["flash_attention_wgmma"])
         status = lib.flash_attention_wgmma_launch(
-            *ptrs, None if lse is None else lse.data_ptr(), *args,
+            *ptrs, None if lse is None else lse.data_ptr(), *args, *pos,
             _build.stream_ptr(dev))
     else:
+        keep = (_pos_arg(q_pos, B, S, dev), _pos_arg(k_pos, B, S, dev))
         lib = _build.library("flash_attention", _SIGNATURES["flash_attention"])
         status = lib.flash_attention_launch(_DTYPE_CODE[q.dtype], *ptrs, *args,
-                                            qp_ptr, kp_ptr,
+                                            keep[0][1], keep[1][1],
                                             _build.stream_ptr(dev))
+    del keep  # the launch is queued: the stream orders any reuse
     _build.check_status("flash_attention", status)
     launches += 1
+    if fwd_route == "fa_wgmma":
+        wgmma_launches += 1
+    elif fwd_route == "fa_mma":
+        mma_launches += 1
+    else:
+        fwd_f32_launches += 1
     out = out.permute(0, 2, 1, 3)
     return out if lse is None else (out, lse[..., :S])
 
 
-def flash_attention_with_lse(q, k, v, *, causal=True, window=0, scale=None):
+def flash_attention_with_lse(q, k, v, *, causal=True, window=0, scale=None,
+                             q_pos=None, k_pos=None):
     """(out, L): the forward and its log-sum-exp L, f32 (B, H, S) in log2
     units (``flash_attention_lse_plain``), the L the ``fa_bwd_wgmma``
     backward reads.  On the CPU the plain versions; on a card one launch of
-    ``fa_wgmma``'s L-writing build (bf16 at D in ``WGMMA_DIMS``; other
-    calls raise), whose out equals the plain build's bit for bit."""
+    ``fa_wgmma``'s L-writing build (bf16 at D in ``WGMMA_DIMS``, with or
+    without positions; other calls raise), whose out equals the plain
+    build's bit for bit."""
     dev = _build.device_of(q, k, v)
+    kw = dict(causal=causal, window=window, scale=scale, q_pos=q_pos,
+              k_pos=k_pos)
     if dev.type == "cpu":
-        return (flash_attention_plain(q, k, v, causal=causal, window=window,
-                                      scale=scale),
-                flash_attention_lse_plain(q, k, causal=causal, window=window,
-                                          scale=scale))
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse_plain(q, k, **kw))
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
-    return _forward_kernel(q, k, v, causal, window, scale, None, None,
+    return _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
                            with_lse=True)
 
 
@@ -376,12 +510,13 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
     shapes and dtypes of q, k and v (views of (B, S, heads, D) tensors).
     Two kernels, one launch counted, under ``bwd_launches`` and its
     route's counter.  ``lse``: the forward's L ((B, H, S), log2 units, as
-    ``flash_attention_with_lse`` gives it), taken by the ``fa_bwd_wgmma``
-    route only; where that route is given none (a direct call), it gets L
-    from one more forward launch, the L-writing build of ``fa_wgmma``.  The
-    other routes recompute L themselves and refuse one.  ``route``: None
-    for ``bwd_route``'s, or a route named to compare kernels on one call
-    (``fa_bwd_mma`` runs any bf16 call, the others only their own)."""
+    ``flash_attention_with_lse`` gives it, under the same positions), taken
+    by the ``fa_bwd_wgmma`` route only; where that route is given none (a
+    direct call), it gets L from one more forward launch, the L-writing
+    build of ``fa_wgmma``.  The other routes recompute L themselves and
+    refuse one.  ``route``: None for ``bwd_route``'s, or a route named to
+    compare kernels on one call (``fa_bwd_mma`` runs any bf16 call, the
+    others only their own)."""
     global bwd_launches, bwd_wgmma_launches, bwd_mma_launches, bwd_f32_launches
     dev = _build.device_of(q, k, v, o, do)
     if dev.type != "cuda":
@@ -390,7 +525,7 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"be q's {tuple(q.shape)}")
-    r = bwd_route(q.dtype, D, q_pos is not None or k_pos is not None)
+    r = bwd_route(q.dtype, D)
     if route is not None and route != r and not (
             route == "fa_bwd_mma" and q.dtype == torch.bfloat16):
         raise ValueError(f"route {route} cannot run this call ({r} does)")
@@ -417,17 +552,24 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
             _build.stream_ptr(dev))
     if r == "fa_bwd_wgmma":
         if lse is None:
-            lse = _forward_kernel(q, k, v, causal, window, scale, None, None,
-                                  with_lse=True)[1]
+            lse = _forward_kernel(q, k, v, causal, window, scale, q_pos,
+                                  k_pos, with_lse=True)[1]
         lse = _lse_arg(lse, B, H, S)
         # each (b, h, row)'s Delta, from the dq kernel to the dkdv kernel
         delta = torch.empty((B, H, _lse_rows(S)), dtype=torch.float32,
                             device=dev)
+        keep, pos = _wgmma_pos(q_pos, k_pos, B, S, dev)
+        # a split group's f32 dK and dV terms, summed by the last kernel
+        n_split = dkdv_splits(B, Hkv, S, H // Hkv)
+        part = (torch.empty((2, n_split, B, Hkv, S, D), dtype=torch.float32,
+                            device=dev) if n_split > 1 else None)
         lib = _build.library("flash_attention_bwd_wgmma",
                              _SIGNATURES["flash_attention_bwd_wgmma"])
         status = lib.flash_attention_bwd_wgmma_launch(
             *ptrs, lse.data_ptr(), delta.data_ptr(), B, H, H // Hkv, S,
-            _lse_rows(S), D, strides, *tail)
+            _lse_rows(S), D, strides, *tail[:3], *pos, n_split,
+            None if part is None else part.data_ptr(), tail[3])
+        del keep, part
         _build.check_status("flash_attention_bwd_wgmma", status)
         bwd_wgmma_launches += 1
     else:
@@ -454,30 +596,32 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel, with the backward kernels as its gradient
     (tensors on a card only; on the CPU autograd runs through the plain
-    version).  On the ``fa_bwd_wgmma`` route the forward is ``fa_wgmma``'s
-    L-writing build and its L is saved for the backward."""
+    version).  On the ``fa_wgmma`` route the forward is its L-writing build
+    and its L is saved for the backward; a forward route named
+    (``fa_mma``) takes its own backward (``fa_bwd_mma``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale):
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, window, scale, route):
         lse = None
-        if bwd_route(q.dtype, q.shape[-1],
-                     q_pos is not None or k_pos is not None) == "fa_bwd_wgmma":
+        r = _named_route(route, q.dtype, q.shape[-1])
+        if r == "fa_wgmma":
             out, lse = _forward_kernel(q, k, v, causal, window, scale, q_pos,
                                        k_pos, with_lse=True)
         else:
-            out = _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos)
+            out = _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
+                                  route=r)
         ctx.save_for_backward(q, k, v, out, q_pos, k_pos, lse)
-        ctx.mask = (causal, window, scale)
+        ctx.mask = (causal, window, scale, _BWD_OF[r])
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, q_pos, k_pos, lse = ctx.saved_tensors
-        causal, window, scale = ctx.mask
+        causal, window, scale, r = ctx.mask
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, do, causal=causal, window=window, scale=scale,
-            q_pos=q_pos, k_pos=k_pos, lse=lse)
-        return dq, dk, dv, None, None, None, None, None
+            q_pos=q_pos, k_pos=k_pos, lse=lse, route=r)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 #: the dims each argument may be sharded over, by role (q, k, v, q_pos,
@@ -488,22 +632,28 @@ _OUT_SHARDS = {0: "batch", 1: "heads"}
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                    q_pos=None, k_pos=None):
+                    q_pos=None, k_pos=None, route=None):
     """q: (B, H, S, D); k, v: (B, Hkv, S, D), any strides with the last one
     1; q_pos, k_pos: optional (B, S) integer positions that the masks
     compare in place of the row index.  Returns (B, H, S, D) in q's dtype
     (on a card, a view of a (B, S, H, D) tensor).  Where a gradient is
     wanted on a card, the call goes through ``FlashAttentionFn``.
     DTensors may be sharded over batch and heads: each rank runs the kernel
-    on its shard (``kernels/_dtensor.py``)."""
+    on its shard (``kernels/_dtensor.py``).  ``route``: None for
+    ``route()``'s kernel, or one named to compare kernels on one call
+    (``fa_mma`` runs any bf16 call, the others only their own); it is
+    checked on the CPU too, where the plain version runs whatever it
+    names."""
     if _dtensor.any_dtensor(q, k, v, q_pos, k_pos):
         return _dtensor.on_shards(
             "flash_attention",
             lambda q, k, v, qp, kp: flash_attention(
                 q, k, v, causal=causal, window=window, scale=scale, q_pos=qp,
-                k_pos=kp),
+                k_pos=kp, route=route),
             (q, k, v, q_pos, k_pos), _SHARDS, _OUT_SHARDS)
     dev = _build.device_of(q, k, v)
+    if route is not None:
+        _named_route(route, q.dtype, q.shape[-1])
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_pos=q_pos, k_pos=k_pos)
@@ -511,5 +661,6 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, q_pos, k_pos, causal, window,
-                                      scale)
-    return _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos)
+                                      scale, route)
+    return _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
+                           route=route)

@@ -27,12 +27,17 @@ lags_select = _lags.lags_select
 ssm_scan = _ssm.ssm_scan
 
 #: {kernel name: (module, counter attribute)}; the backward kernels count
-#: beside their forwards, attention's also by route (``fa_bwd_*``, whose sum
-#: is ``flash_attention_bwd``); ``ssm_scan_ckpt`` counts the launches of
-#: ``ssm_scan``'s checkpoint-writing build among ``ssm_scan``'s
+#: beside their forwards, attention's forward and backward also by route
+#: (``fa_wgmma``, ``fa_mma``, ``fa_fwd``, whose sum is ``flash_attention``,
+#: and ``fa_bwd_*``, whose sum is ``flash_attention_bwd``);
+#: ``ssm_scan_ckpt`` counts the launches of ``ssm_scan``'s
+#: checkpoint-writing build among ``ssm_scan``'s
 _COUNTERS = {"lags_select": (_lags, "launches"),
              "decode_attention": (_dec, "launches"),
              "flash_attention": (_fa, "launches"),
+             "fa_wgmma": (_fa, "wgmma_launches"),
+             "fa_mma": (_fa, "mma_launches"),
+             "fa_fwd": (_fa, "fwd_f32_launches"),
              "ssm_scan": (_ssm, "launches"),
              "ssm_scan_ckpt": (_ssm, "ckpt_launches"),
              "flash_attention_bwd": (_fa, "bwd_launches"),

@@ -479,11 +479,10 @@ def test_flash_bwd_plain_given_lse_of_fully_masked_rows():
 @pytest.mark.parametrize("positions", [False, True])
 def test_bwd_route(dtype, D, positions):
     """The wgmma backward exactly where the forward is fa_wgmma (bf16, D of
-    WGMMA_DIMS, no positions); mma.sync for the other bf16 calls, the CUDA
-    cores for f32."""
+    WGMMA_DIMS: 64, 80 and 128, with or without positions); mma.sync for
+    the other bf16 head dims, the CUDA cores for f32."""
     want = ("fa_bwd_f32" if dtype == torch.float32 else
-            "fa_bwd_wgmma" if D in (64, 128) and not positions else
-            "fa_bwd_mma")
+            "fa_bwd_wgmma" if D in (64, 80, 128) else "fa_bwd_mma")
     assert fa.bwd_route(dtype, D, positions) == want
     assert (want == "fa_bwd_wgmma") == (fa.route(dtype, D, positions)
                                         == "fa_wgmma")
@@ -508,3 +507,22 @@ def test_lse_arg_layout():
     torch.testing.assert_close(got[..., :S], dense, rtol=0, atol=0)
     with pytest.raises(ValueError, match="must be"):
         fa._lse_arg(dense[:, :, :10], B, H, S)
+
+
+@pytest.mark.parametrize("B,Hkv,S,G,want", [
+    (8, 32, 2048, 1, 1),  # stablelm-1.6b: 2048 blocks
+    (4, 8, 2048, 4, 1),  # qwen3-8b: 512 blocks
+    (1, 4, 1536, 7, 7),  # qwen2-vl-7b: 48 blocks, G = 7 has no other divisor
+    (1, 2, 1536, 7, 7),  # its rank of a (1, 2) mesh
+    (1, 8, 1536, 2, 2),  # gemma3-27b's rank of a (1, 2) mesh: 96 blocks
+    (1, 1, 2048, 16, 16),  # 16 blocks: 33 wanted, 16 at most
+    (1, 4, 4096, 16, 4),  # 128 blocks: 3 wanted, 4 the least divisor above
+    (2, 16, 512, 1, 1),  # hubert-xlarge: G = 1
+    (2, 2, 300, 16, 1),  # S < 512
+    (2, 2, 1, 16, 1)])
+def test_dkdv_splits(B, Hkv, S, G, want):
+    """The dK/dV kernel splits a KV group's heads over blocks only where
+    its blocks leave the card's SMs idle and S is at least 512; the split
+    divides G."""
+    got = fa.dkdv_splits(B, Hkv, S, G)
+    assert got == want and G % got == 0

@@ -652,9 +652,15 @@ def test_flash_attention_bwd_routes_on_card(card):
         fa.flash_attention_bwd(q, k, v, o, do, lse=lse, route="fa_bwd_mma")
     with pytest.raises(ValueError, match="cannot run"):
         fa.flash_attention_bwd(q, k, v, o, do, route="fa_bwd_f32")
+    # fa_mma writes no L: not at D = 96, not by name on fa_wgmma's call
+    q96, k96, v96, _ = _bwd_inputs(card, 1, 4, 2, 300, 96)
     pos = torch.arange(300, device="cuda", dtype=torch.int32)[None]
     with pytest.raises(ValueError, match="only fa_wgmma writes L"):
-        fa._forward_kernel(q, k, v, True, 0, None, pos, pos, with_lse=True)
+        fa._forward_kernel(q96, k96, v96, True, 0, None, pos, pos,
+                           with_lse=True)
+    with pytest.raises(ValueError, match="only fa_wgmma writes L"):
+        fa._forward_kernel(q, k, v, True, 0, None, pos, pos, with_lse=True,
+                           route="fa_mma")
 
 
 def test_flash_attention_autograd_runs_the_wgmma_route(card):
@@ -689,6 +695,146 @@ def test_flash_attention_fully_masked_rows_on_card(card):
                                         k_pos=k_pos)
     for g, w in zip((dq, dk, dv), want):
         torch.testing.assert_close(g, w, **TOL[torch.float32])
+
+
+# -- fa_wgmma and fa_bwd_wgmma under given positions and at head dim 80 -----
+
+def _position_kind(gen, kind, B, S):
+    """(q_pos, k_pos) int32 (B, S) on the card: rising with the row, with
+    repeats and gaps, the same shuffled (not monotonic), or queries 9
+    behind the keys (their first 9 rows keep no key under a causal mask)."""
+    idx = torch.arange(S, device="cuda", dtype=torch.int32).repeat(B, 1)
+    if kind == "rising":
+        return idx, idx
+    pos = _positions(gen, B, S)
+    if kind == "repeats":
+        return pos, pos
+    if kind == "unsorted":
+        perm = torch.argsort(torch.rand(B, S, generator=gen, device="cuda"), 1)
+        pos = torch.gather(pos, 1, perm)
+        return pos, pos
+    assert kind == "no_key"
+    return idx - 9, idx
+
+
+# (D, S, G, causal, window, kind): D = 80 full and causal; each kind of
+# positions, with and without a window; ragged S; G 1, 7, 16
+WGMMA_POS_CASES = (
+    [(80, S, G, causal, 0, None) for S in (1, 77, 130, 300)
+     for G, causal in ((1, False), (7, True))]
+    + [(D, S, G, True, w, kind) for D in (64, 80, 128)
+       for kind in ("rising", "repeats", "unsorted", "no_key")
+       for S, G, w in ((77, 1, 0), (300, 16, 0), (130, 7, 50))]
+    + [(128, 1, 7, True, 0, "repeats"), (64, 300, 1, False, 100, "unsorted")])
+
+
+@pytest.mark.parametrize("D,S,G,causal,window,kind", WGMMA_POS_CASES)
+def test_flash_attention_wgmma_positions_and_d80_match_plain(
+        card, D, S, G, causal, window, kind):
+    """The new fa_wgmma cases (head dim 80; given positions: rising,
+    repeated with gaps, unsorted, rows with no kept key) and their
+    fa_bwd_wgmma backward: the forward against its plain version, the
+    L-writing build's output bit-equal to it and its L against the plain
+    L (f32 TOL), then dq, dk, dv from that L against the plain backward
+    (TOL and the 64-row tile limit); one launch of each route, none of the
+    mma kernels."""
+    B, Hkv = 2, 2
+    q, k, v, do = _bwd_inputs(card, B, G * Hkv, Hkv, S, D)
+    q_pos, k_pos = (None, None) if kind is None else _position_kind(
+        card, kind, B, S)
+    kw = dict(causal=causal, window=window, q_pos=q_pos, k_pos=k_pos)
+    assert fa.route(torch.bfloat16, D, kind is not None) == "fa_wgmma"
+    n0 = (fa.wgmma_launches, fa.mma_launches, fa.bwd_wgmma_launches,
+          fa.bwd_mma_launches)
+    o = fa.flash_attention(q, k, v, **kw)
+    _assert_kernel_close(o, fa.flash_attention_plain(q, k, v, **kw),
+                         torch.bfloat16, "forward")
+    o_l, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    assert torch.equal(o, o_l)
+    torch.testing.assert_close(lse, fa.flash_attention_lse_plain(q, k, **kw),
+                               **TOL[torch.float32])
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    assert (fa.wgmma_launches, fa.mma_launches, fa.bwd_wgmma_launches,
+            fa.bwd_mma_launches) == (n0[0] + 2, n0[1], n0[2] + 1, n0[3])
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        _assert_kernel_close(g, w, torch.bfloat16, f"d{name}")
+    if kind == "no_key" and causal:
+        assert int(torch.count_nonzero(o[:, :, :9])) == 0
+        assert int(torch.count_nonzero(lse[:, :, :9])) == 0
+        assert int(torch.count_nonzero(got[0][:, :, :9])) == 0
+
+
+@pytest.mark.parametrize("which", ["qwen2-vl-7b", "hubert-xlarge"])
+def test_flash_attention_wgmma_at_the_training_shapes(card, which):
+    """The two training shapes that ran on the mma kernels: qwen2-vl-7b's
+    (B=1, H=28, Hkv=4, S=1536, D=128, causal over M-RoPE's stream 0, moved
+    up by 3 from position 5) and hubert-xlarge's (B=2, H=16, S=512, D=80,
+    full), forward and backward against their plain versions, and against
+    the mma kernels run by name on the same call."""
+    if which == "qwen2-vl-7b":
+        B, H, Hkv, S, D, causal = 1, 28, 4, 1536, 128, True
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")[None].clone()
+        pos[0, 5:] += 3
+    else:
+        B, H, Hkv, S, D, causal, pos = 2, 16, 16, 512, 80, False, None
+    q, k, v, do = _bwd_inputs(card, B, H, Hkv, S, D)
+    kw = dict(causal=causal, q_pos=pos, k_pos=pos)
+    o = fa.flash_attention(q, k, v, **kw)
+    _assert_kernel_close(o, fa.flash_attention_plain(q, k, v, **kw),
+                         torch.bfloat16, "forward")
+    m0 = fa.mma_launches
+    o_mma = fa.flash_attention(q, k, v, route="fa_mma", **kw)
+    assert fa.mma_launches == m0 + 1
+    _assert_kernel_close(o_mma, fa.flash_attention_plain(q, k, v, **kw),
+                         torch.bfloat16, "forward fa_mma")
+    want = fa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    for route in (None, "fa_bwd_mma"):
+        got = fa.flash_attention_bwd(q, k, v, o, do, route=route, **kw)
+        for name, g, w in zip("qkv", got, want):
+            _assert_kernel_close(g, w, torch.bfloat16, f"{route} d{name}")
+
+
+@pytest.mark.parametrize("D,positions", [(80, False), (128, True)])
+def test_flash_attention_bwd_wgmma_positions_is_deterministic(card, D,
+                                                              positions):
+    """No atomics under positions or at D = 80 either: two backward runs
+    give the same bits."""
+    q, k, v, do = _bwd_inputs(card, 2, 8, 2, 1000, D)
+    pos = _positions(card, 2, 1000) if positions else None
+    kw = dict(q_pos=pos, k_pos=pos)
+    o, lse = fa.flash_attention_with_lse(q, k, v, **kw)
+    a = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    b = fa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_attention_forward_routes_on_card(card):
+    """``route=`` on the forward: ``fa_mma`` runs fa_wgmma's calls by name
+    (positions, D = 80), counted under its own route and under autograd
+    with its own backward; a route that cannot run the call is refused."""
+    q, k, v, do = _bwd_inputs(card, 1, 8, 2, 200, 80)
+    pos = _positions(card, 1, 200)
+    kw = dict(q_pos=pos, k_pos=pos, window=64)
+    n0 = (fa.wgmma_launches, fa.mma_launches)
+    got = fa.flash_attention(q, k, v, route="fa_mma", **kw)
+    assert (fa.wgmma_launches, fa.mma_launches) == (n0[0], n0[1] + 1)
+    _assert_kernel_close(got, fa.flash_attention_plain(q, k, v, **kw),
+                         torch.bfloat16, "fa_mma by name")
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    b0 = fa.bwd_mma_launches
+    out = fa.flash_attention(qg, kg, vg, route="fa_mma", **kw)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert fa.bwd_mma_launches == b0 + 1
+    want = fa.flash_attention_bwd_plain(q, k, v, out.detach(), do, **kw)
+    for name, g, w in zip("qkv", grads, want):
+        _assert_kernel_close(g, w, torch.bfloat16, f"fa_mma autograd d{name}")
+    for bad in ("fa_fwd", "fa_wgmma_v2"):
+        with pytest.raises(ValueError):
+            fa.flash_attention(q, k, v, route=bad, **kw)
+    with pytest.raises(ValueError, match="cannot run"):
+        fa.flash_attention(q.float(), k.float(), v.float(), route="fa_mma")
 
 
 SSM_BWD_CASES = [(1, 128, 256, 8, True, True), (2, 256, 512, 16, True, True),
@@ -1023,9 +1169,10 @@ def nccl_mesh():
 
 @pytest.mark.parametrize("S", [77, 2048])
 def test_flash_attention_noncausal_d80_on_head_shards(nccl_mesh, S):
-    """hubert's attention (non-causal, D = 80, bf16: ``fa_mma``) on DTensors
-    split by heads over the world-1 mesh's "model" axis: the kernel runs on
-    the rank's shard, its output is that shard of the plain result."""
+    """hubert's attention (non-causal, D = 80, bf16: ``fa_wgmma``) on
+    DTensors split by heads over the world-1 mesh's "model" axis: the kernel
+    runs on the rank's shard, its output is that shard of the plain
+    result."""
     from repro_torch.distributed import sharding as sh
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1034,10 +1181,11 @@ def test_flash_attention_noncausal_d80_on_head_shards(nccl_mesh, S):
     spec = sh.PartitionSpec(None, "model", None, None)
     dq, dk, dv = (sh.distribute(t, spec, nccl_mesh) for t in (q, k, v))
     pl = sh.placements(spec, nccl_mesh)
-    before = fa.launches
+    before = (fa.launches, fa.wgmma_launches)
     out = fa.flash_attention(dq, dk, dv, causal=False)
-    assert fa.launches == before + 1 and fa.route(torch.bfloat16, 80) == \
-        "fa_mma"
+    assert (fa.launches, fa.wgmma_launches) == (before[0] + 1,
+                                                before[1] + 1)
+    assert fa.route(torch.bfloat16, 80) == "fa_wgmma"
     assert tuple(out.placements) == tuple(pl)
     want = fa.flash_attention_plain(q, k, v, causal=False)
     torch.testing.assert_close(out.to_local().float(), want.float(),
@@ -1188,20 +1336,25 @@ def test_flash_attention_backward_on_dtensor_shards(nccl_mesh, dtype, route):
 
 
 @pytest.mark.parametrize("D,causal,window,positions,route", [
-    (80, False, 0, False, "fa_bwd_mma"),  # hubert-xlarge's heads
-    (128, True, 0, True, "fa_bwd_mma"),  # qwen2-vl-7b's positions
-    (128, True, 64, False, "fa_bwd_wgmma")],  # gemma3-27b's window
-    ids=["mma-D80-noncausal", "mma-positions", "wgmma-window"])
+    (80, False, 0, False, "fa_bwd_wgmma"),  # hubert-xlarge's heads
+    (128, True, 0, True, "fa_bwd_wgmma"),  # qwen2-vl-7b's positions
+    (128, True, 64, False, "fa_bwd_wgmma"),  # gemma3-27b's window
+    (128, True, 0, True, "fa_bwd_mma")],  # the mma kernels, by name
+    ids=["mma-D80-noncausal", "mma-positions", "wgmma-window",
+         "mma-by-name"])
 def test_flash_attention_backward_routes_on_dtensor_shards(
         nccl_mesh, D, causal, window, positions, route):
     """The bf16 routes the other families' sharded training takes, on
-    DTensor shards split by batch and heads on the world-1 mesh: the
-    ``mma`` backward where the forward is ``fa_mma`` (a head dim of 80,
-    non-causal; given positions, split by batch as q is, stream 0 off the
-    row index in row 1) and the windowed ``fa_bwd_wgmma``; one launch of
-    the forward and of the route's backward, the gradients in the
-    arguments' placements, output and gradients the plain version's (TOL
-    and the 64-row tile limit)."""
+    DTensor shards split by batch and heads on the world-1 mesh: the wgmma
+    backward where the forward is ``fa_wgmma``, at a head dim of 80
+    (non-causal), under given positions (split by batch as q is, stream 0
+    off the row index in row 1; the position tables made from the rank's
+    shard) and under a window; and the ``mma`` kernels where the forward
+    names ``fa_mma``; one launch of the forward and of the route's
+    backward, the gradients in the arguments' placements, output and
+    gradients the plain version's (TOL and the 64-row tile limit).  (The
+    first two ids name the mma routes these calls took before fa_wgmma
+    took positions and D = 80.)"""
     from repro_torch.distributed import sharding as sh
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1216,12 +1369,14 @@ def test_flash_attention_backward_routes_on_dtensor_shards(
     dpos = None if pos is None else sh.distribute(
         pos, sh.PartitionSpec("data", None), nccl_mesh)
     counter = route.replace("fa_", "") + "_launches"
+    named = "fa_mma" if route == "fa_bwd_mma" else None
     n0 = (fa.launches, getattr(fa, counter))
     kw = dict(causal=causal, window=window)
-    out = fa.flash_attention(dq, dk, dv, q_pos=dpos, k_pos=dpos, **kw)
+    out = fa.flash_attention(dq, dk, dv, q_pos=dpos, k_pos=dpos, route=named,
+                             **kw)
     got = torch.autograd.grad(out, (dq, dk, dv), ddo)
     assert (fa.launches, getattr(fa, counter)) == (n0[0] + 1, n0[1] + 1)
-    assert fa.bwd_route(torch.bfloat16, D, positions) == route
+    assert fa.bwd_route(torch.bfloat16, D, positions) == "fa_bwd_wgmma"
     assert all(tuple(g.placements) == tuple(t.placements)
                for g, t in zip(got, (dq, dk, dv)))
     qp, kp, vp = (t.detach().requires_grad_(True) for t in (q, k, v))
