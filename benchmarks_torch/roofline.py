@@ -8,10 +8,9 @@ Three terms per cell:
   collective_s = wire_bytes_per_device / (links * link_bw)
 
 FLOPs and HBM bytes come from the analytic per-arch model in
-``flops_model``, as in the reference.  The port's dry run executes no
-sharded step, so its report has no collectives: such a row prints
-``collective_s=n/a`` and picks the dominant term between compute and
-memory only, and says so.
+``flops_model``, as in the reference; the wire bytes from the dry run's
+report: the collectives its executed step issued on rank 0
+(``repro_torch.launch.dryrun``).
 
 MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE); the ratio
 MODEL_FLOPS / executed FLOPs shows how much compute is useful (remat
@@ -48,19 +47,18 @@ def main(report_path: str = "dryrun_report.json") -> list:
         mf = model_flops(c["arch"], c["shape"])
         n_dev = 512 if c["mesh"] == "2x16x16" else 256
         comp_s = hlo_f / n_dev / CHIP.peak_flops
-        terms_s = [("compute", comp_s), ("memory", terms["memory_s"])]
-        if terms["collective_s"] is None:
-            coll, note = "n/a", " (collectives n/a)"
-        else:
-            terms_s.append(("collective", terms["collective_s"]))
-            coll, note = f"{terms['collective_s']:.4f}", ""
-        dom = max(terms_s, key=lambda kv: kv[1])[0]
+        dom = max(
+            ("compute", comp_s),
+            ("memory", terms["memory_s"]),
+            ("collective", terms["collective_s"]),
+            key=lambda kv: kv[1],
+        )[0]
         rows.append((
             f"roofline.{c['arch']}.{c['shape']}.{c['mesh']}",
             (time.time() - t0) * 1e6,
             (
                 f"compute_s={comp_s:.4f};memory_s={terms['memory_s']:.4f};"
-                f"collective_s={coll};dominant={dom}{note};"
+                f"collective_s={terms['collective_s']:.4f};dominant={dom};"
                 f"model_flops={mf:.3e};hlo_flops={hlo_f:.3e};"
                 f"useful={mf/max(hlo_f,1e-9)*100:.0f}%"
             ),

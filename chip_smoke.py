@@ -208,12 +208,19 @@ Drives ``repro_torch`` only (no JAX, nothing of ``repro``):
     ``fa_bwd_wgmma``; ``--only-distributed`` builds the kernels, runs only
     this phase and stops;
 29. the dry run, the roofline and the figure drivers: (a) ``python -m
-    repro_torch.launch.dryrun --all`` in a child process (fake process
-    groups of 256 and 512 ranks, no card), 62 cells ok and 18 skipped with
-    the reference's reasons, each ok cell's bytes a device (arguments and
-    outputs) equal to the reference's (``REF_DRYRUN``); (b) the
-    ``roofline.*`` rows of ``benchmarks_torch.roofline`` over its report
-    on the H100's published figures, and the share of the card's bf16 peak
+    repro_torch.launch.dryrun --all`` in a child process at nice 19 on
+    every core but one, started after phase 14 so that it runs beside
+    phases 15-28 (a fake process group of 512 ranks, no card: each cell's
+    sharded step executed as rank 0 on meta DTensors, its cells in child
+    processes, one a core), 62 cells ok and 18 skipped with the
+    reference's reasons, each ok cell's bytes a device (arguments and
+    outputs) equal to the reference's (``REF_DRYRUN``), its FLOPs, bytes
+    accessed, collectives (wire bytes above 0), temporaries and step
+    seconds there and only the code size unavailable; its own seconds, and
+    the five cells with the most temporaries against the card's 80 GB; (b)
+    the ``roofline.*`` rows of ``benchmarks_torch.roofline`` over its
+    report on the H100's published figures, each with its collective term
+    and its dominant term, and the share of the card's bf16 peak
     that ``flops_model``'s MODEL_FLOPS gives at the step times of phases
     25 (stablelm-1.6b train), 9 (Qwen3-8B prefill) and 7 (Qwen3-8B decode),
     as ``mfu=``; (c) on the card, while the child runs:
@@ -310,6 +317,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -334,6 +342,41 @@ def bound_ms(n_bytes, n_ops, dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# The bounds of the kernels' calls by row index, from each kernel module's
+# ``cost`` (FLOPs, HBM bytes), the one formula the dry run also counts with
+
+
+def flash_bound(fa, B, H, Hkv, S, D, dtype="bfloat16"):
+    """One causal forward: q.k and p.v over the pairs the mask keeps."""
+    route = "fa_fwd" if dtype == "float32" else "fa_wgmma"
+    flops, n_bytes = fa.cost(route, B, H, Hkv, S, D, True, 0)
+    return bound_ms(n_bytes, flops, dtype)
+
+
+def flash_bwd_bound(fa, B, H, Hkv, S, D, dtype="bfloat16"):
+    """One causal backward: the five products of a minimal design (S, dP,
+    dV, dK, dQ; the wgmma kernels compute seven), the forward's L read."""
+    route = "fa_bwd_f32" if dtype == "float32" else "fa_bwd_wgmma"
+    flops, n_bytes = fa.cost(route, B, H, Hkv, S, D, True, 0,
+                             products=fa.MIN_BWD_PRODUCTS)
+    return bound_ms(n_bytes, flops, dtype)
+
+
+def decode_bound(dec, B, H, Hkv, L, D, kv_len, dtype="bfloat16", lse=False):
+    """One decode call over the cache rows ``kv_len`` (a list) keeps."""
+    flops, n_bytes = dec.cost(B, H, Hkv, L, D, 2 if dtype == "bfloat16"
+                              else 4, rows=sum(kv_len), lse=lse)
+    return bound_ms(n_bytes, flops, dtype)
+
+
+def ssm_bound(ssm, B, S, I, N, backward=False):
+    """One scan (f32), or its backward given the forward's checkpoints
+    (their reads not counted: the function's inputs are dA, dBx, C, h0,
+    dy and dh_last)."""
+    flops, n_bytes = ssm.cost(B, S, I, N, backward=backward)
+    return bound_ms(n_bytes, flops, "float32")
 
 
 class Timer:
@@ -808,14 +851,9 @@ def time_decode(torch, dec, timer, B=16, H=32, Hkv=8, L=512, D=128,
     lib_ms = library_ms(torch, timer, f"SDPA decode L={L}",
                         lambda: F.scaled_dot_product_attention(
                             q4, k4, v4, attn_mask=mask, enable_gqa=True))
-    esize = 2 if dtype == "bfloat16" else 4
-    n_rows = sum(kv_len)  # cache rows this kv_len needs, per KV head
-    n_bytes = (2 * B * H * D * esize  # q in, out
-               + 2 * n_rows * Hkv * D * esize  # K and V rows once
-               + B * 4)
-    n_ops = 4 * n_rows * H * D  # q.k and p.v, 2 flops a multiply-add
-    b, by = bound_ms(n_bytes, n_ops, dtype)
-    b_lse, by_lse = bound_ms(n_bytes + B * H * 4, n_ops, dtype)
+    b, by = decode_bound(dec, B, H, Hkv, L, D, kv_len, dtype)
+    b_lse, by_lse = decode_bound(dec, B, H, Hkv, L, D, kv_len, dtype,
+                                 lse=True)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
                 bound_by=by, runs_ms=runs[False],
                 lse=dict(ms=sum(runs[True]) / 2, runs_ms=runs[True],
@@ -834,11 +872,7 @@ def time_flash(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=True, enable_gqa=True)
     lib_ms = library_ms(torch, timer, "SDPA prefill", sdpa, iters=10)
-    esize = 2 if dtype == "bfloat16" else 4
-    n_bytes = B * S * (2 * H + 2 * Hkv) * D * esize  # q, k, v in; out
-    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
-    n_ops = 4 * pairs * D * B * H  # q.k and p.v, 2 flops a multiply-add
-    b, by = bound_ms(n_bytes, n_ops, dtype)
+    b, by = flash_bound(fa, B, H, Hkv, S, D, dtype)
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b,
                 bound_by=by)
 
@@ -848,10 +882,7 @@ def time_ssm(torch, ssm, timer, B, S, I, N):
     dA, dBx, C, h0 = ssm_inputs(torch, gen, B, S, I, N)
     ms = timer.ms(lambda: ssm.ssm_scan(dA, dBx, C, h0))
     plain_ms = timer.ms(lambda: ssm.ssm_scan_plain(dA, dBx, C, h0), iters=5)
-    # f32: dA, dBx, C, h0 in; y, h_last out
-    n_bytes = 4 * (2 * B * S * I * N + B * S * N + 2 * B * I * N + B * S * I)
-    n_ops = 4 * B * S * I * N  # h = a*h + b, y += h*c
-    b, by = bound_ms(n_bytes, n_ops, "float32")
+    b, by = ssm_bound(ssm, B, S, I, N)
     # no one PyTorch call computes a selective scan
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b,
                 bound_by=by)
@@ -2506,13 +2537,7 @@ def time_flash_bwd(torch, fa, timer, B, H, Hkv, S, D, dtype="bfloat16"):
                         lambda: torch.autograd.grad(out, (qs, ks, vs), do,
                                                     retain_graph=True),
                         iters=10)
-    esize = 2 if dtype == "bfloat16" else 4
-    # q, o, dO in and dQ out (H heads); k, v in and dK, dV out (Hkv heads)
-    n_bytes = B * S * D * esize * (4 * H + 4 * Hkv)
-    pairs = S * (S + 1) // 2  # (query, key) pairs the causal mask keeps
-    # five products: S, dP, dV, dK, dQ, 2 flops a multiply-add
-    n_ops = 5 * 2 * pairs * D * B * H
-    b, by = bound_ms(n_bytes, n_ops, dtype)
+    b, by = flash_bwd_bound(fa, B, H, Hkv, S, D, dtype)
     del out, qs, ks, vs
     torch.cuda.empty_cache()
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
@@ -2858,12 +2883,7 @@ def time_ssm_bwd(torch, ssm, timer, B, S, I, N):
         seen.append((label, dict(timer.last, card_before=state)))
     plain_ms = timer.ms(lambda: ssm.ssm_scan_bwd_plain(dA, dBx, C, h0, dy,
                                                        dh), iters=3, warmup=1)
-    # f32: dA, dBx, C, h0, dy, dh_last in; d(dA), d(dBx), dC, dh0 out
-    n_bytes = 4 * (4 * B * S * I * N + 2 * B * S * N + 3 * B * I * N
-                   + B * S * I)
-    # dh (multiply-add), d(dA), the carried dA * dh, dC (multiply-add)
-    n_ops = 6 * B * S * I * N
-    b, by = bound_ms(n_bytes, n_ops, "float32")
+    b, by = ssm_bound(ssm, B, S, I, N, backward=True)
     mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     # no one PyTorch call computes a selective scan or its gradient
     return dict(ms=mean(runs["bwd"]), plain_ms=plain_ms, library_ms=None,
@@ -3533,26 +3553,59 @@ MEASURED = {}
 
 def dry_run_child(report):
     """Phase 29(a)'s child process: ``repro_torch.launch.dryrun --all``,
-    its report to ``report``.  The dry run starts default process groups of
-    its own (fake, 256 then 512 ranks), so it runs beside this process's
-    state, not in it."""
+    its report to ``report`` and its output beside it (``.log``).  The dry
+    run starts a fake default process group of its own and runs its cells
+    in child processes of its own, one a core it may use, on the host alone
+    (meta tensors, no card): so it runs beside this process's state, not in
+    it, at the lowest priority (nice 19) and on every core but one, so that
+    the card's phases keep the host first."""
+    import atexit
     import os
 
+    def lowly():
+        os.nice(19)
+        cores = sorted(os.sched_getaffinity(0))
+        if len(cores) > 1:
+            os.sched_setaffinity(0, cores[1:])
+
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    return subprocess.Popen(
+    log = open(f"{report}.log", "w")
+    # a session of its own: ``stop`` ends the dry run's workers with it
+    child = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--out",
-         str(report)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+         str(report)], cwd=ROOT, env=env, stdout=log,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True,
+        preexec_fn=lowly)
+    child.report, child.log, child.t0 = Path(report), log, time.perf_counter()
+
+    def stop():
+        if child.poll() is None:
+            os.killpg(child.pid, 9)
+            child.wait()
+
+    child.stop = stop
+    atexit.register(stop)
+    return child
 
 
-def check_dry_run(child, report):
+def check_dry_run(child):
     """Phase 29(a): 62 cells ok and 18 skipped with the reference's
     reasons; each ok cell's bytes a device, arguments and outputs, equal to
-    ``REF_DRYRUN``."""
-    out, _ = child.communicate(timeout=600)
+    ``REF_DRYRUN``; each ok cell's executed figures there (FLOPs, bytes
+    accessed, collectives with wire bytes, temporaries, the step's
+    seconds), and only the code size unavailable."""
+    try:
+        child.wait(timeout=600)
+    finally:
+        child.log.close()
+    wall = time.perf_counter() - child.t0
+    out = Path(child.log.name).read_text()
+    if child.returncode != 0:
+        print("\n".join(x for x in out.splitlines()
+                        if x.startswith("FAILED ")))
     require(child.returncode == 0, f"the dry run exited {child.returncode}: "
             f"{out[-2000:]}")
-    cells = json.loads(Path(report).read_text())
+    cells = json.loads(child.report.read_text())
     ok = {(c["arch"], c["shape"], c["mesh"]): c for c in cells
           if c["status"] == "ok"}
     skipped = [c for c in cells if c["status"] == "skipped"]
@@ -3565,16 +3618,41 @@ def check_dry_run(child, report):
     require(set(ok) == set(REF_DRYRUN), "the ok cells are not the "
             "reference's")
     for key, (args, outs) in REF_DRYRUN.items():
-        mem = ok[key]["memory"]
+        c = ok[key]
+        mem = c["memory"]
         got = (mem["argument_size_in_bytes"], mem["output_size_in_bytes"])
         require(got == (args, outs), f"{key}: bytes a device (arguments, "
                 f"outputs) {got}, the reference {(args, outs)}")
-    fit = out.strip().splitlines()[-2]
-    print(f"phase 29(a) dry run (a child process, fake groups of 256 and 512 "
-          f"ranks, meta tensors placed as DTensors): 62 cells ok, 18 skipped "
-          f"with the reference's reasons; arguments and outputs a device "
-          f"equal to the reference's shard arithmetic in every ok cell; "
-          f"{fit}")
+        figures = (c["flops"], c["bytes_accessed"], c["collectives"],
+                   mem["temp_size_in_bytes"], c["compile_s"])
+        require(None not in figures and c["collectives"]["total_bytes"] > 0,
+                f"{key}: executed figures {figures}")
+        require(mem["generated_code_size_in_bytes"] is None and
+                c["unavailable"].split(":")[0] ==
+                "generated_code_size_in_bytes",
+                f"{key}: unavailable {c['unavailable']!r}")
+    lines = out.strip().splitlines()
+    fit = next(x for x in lines if "above the card's" in x)
+    own = next(x for x in lines if x.startswith("dry run: "))
+    print(f"phase 29(a) dry run (a child process, a fake group of 512 ranks, "
+          f"each cell's sharded step executed as rank 0 on meta DTensors): "
+          f"62 cells ok, 18 skipped with the reference's reasons; arguments "
+          f"and outputs a device equal to the reference's shard arithmetic in "
+          f"every ok cell; FLOPs, bytes, collectives, temporaries and the "
+          f"step's seconds in every ok cell; {fit}; {own}, {wall:.1f} s from "
+          f"its start beside the card's phases to its end")
+    own = {" x ".join(k): c["dtensor_collectives"] for k, c in ok.items()
+           if c["dtensor_collectives"]}
+    print(f"phase 29(a) collectives of DTensor's own redistribution (ROADMAP "
+          f"Queue C item 19), by the op they served: {own or 'none'}")
+    top = sorted(ok.values(), key=lambda c: -c["memory"]["temp_size_in_bytes"])
+    for c in top[:5]:
+        mem = c["memory"]
+        print(f"phase 29(a) temporaries {c['arch']} x {c['shape']} x "
+              f"{c['mesh']}: {mem['temp_size_in_bytes'] / 1e9:.2f} GB, with "
+              f"the arguments {(mem['temp_size_in_bytes'] + mem['argument_size_in_bytes']) / 1e9:.2f}"
+              f" GB of the card's 80 GB")
+    return child.report
 
 
 def roofline_and_mfu(report, card):
@@ -3587,11 +3665,16 @@ def roofline_and_mfu(report, card):
     from repro_torch.launch.hlo_analysis import CHIP
 
     rows = roofline.main(str(report))
-    require(len(rows) == 62 and all(r[0].startswith("roofline.") and
-                                    "collective_s=n/a" in r[2] for r in rows),
-            f"{len(rows)} roofline rows")
-    for name, _, derived in rows:
-        print(f"{name}: {derived}")
+    terms = [dict(kv.split("=") for kv in r[2].split(";")) for r in rows]
+    # a number in every row (printed to 4 decimals: a decode cell's wire
+    # bytes take well under 0.1 ms of the links)
+    require(len(rows) == 62 and all(r[0].startswith("roofline.") for r in rows)
+            and all(float(t["collective_s"]) >= 0 for t in terms),
+            f"{len(rows)} roofline rows, collective_s "
+            f"{[t.get('collective_s') for t in terms]}")
+    for (name, _, derived), t in zip(rows, terms):
+        print(f"{name}: collective_s={t['collective_s']} "
+              f"dominant={t['dominant']}; {derived}")
     for key in (("train", "stablelm-1.6b", 8, 2048),
                 ("prefill", "qwen3-8b", 4, 2048),
                 ("decode", "qwen3-8b", 16, 512)):
@@ -3667,23 +3750,20 @@ def drivers_on_card(torch, ops, card):
     return n
 
 
-def figures(torch, ops, card):
-    """Phase 29: the dry run in a child process while the card runs the
-    drivers, then the roofline and the shares of the card's peak.  Returns
-    the drivers' launches."""
-    import tempfile
-
+def figures(torch, ops, card, child=None):
+    """Phase 29: the dry run in a child process (``child``, started beside
+    the card's earlier phases; None starts it here) while the card runs
+    the drivers, then the roofline and the shares of the card's peak.
+    Returns the drivers' launches."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
-        report = Path(d) / "dryrun_report.json"
-        child = dry_run_child(report)
+        if child is None:
+            child = dry_run_child(Path(d) / "dryrun_report.json")
         try:
             n = drivers_on_card(torch, ops, card)
-            check_dry_run(child, report)
+            report = check_dry_run(child)
         finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+            child.stop()
         roofline_and_mfu(report, card)
     print(f"phase 29 the dry run, the roofline and the drivers: "
           f"{time.perf_counter() - t0:.1f} s wall")
@@ -5064,6 +5144,10 @@ def main():
     simulators(torch, ops, card)
 
     lap("11-14")
+    # phase 29(a)'s dry run on the host alone, beside phases 15-28: after
+    # phases 11-14, whose tick loops run side by side in nine processes
+    dry_dir = tempfile.TemporaryDirectory()
+    dry_run = dry_run_child(Path(dry_dir.name) / "dryrun_report.json")
     # phase 15: the reduced families, card against CPU
     t0 = time.perf_counter()
     check_families_small(torch)
@@ -5130,7 +5214,7 @@ def main():
 
     lap("28")
     # phase 29: the dry run, the roofline and the figure drivers
-    add_counts(counts, figures(torch, ops, card))
+    add_counts(counts, figures(torch, ops, card, dry_run))
 
     lap("29")
     # phase 30: prefill and decode sharded over two ranks on the card

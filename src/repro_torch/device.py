@@ -1,7 +1,9 @@
 """Device resolution for the port's entry points.
 
 Entry points run on the card by default.  Without one they raise, unless the
-caller asks for the CPU: there is no silent move to the CPU.
+caller asks for the CPU: there is no silent move to the CPU.  The dry run
+(``launch/dryrun.py``) runs them on the meta device: shapes and dtypes,
+no data.
 """
 from __future__ import annotations
 
@@ -9,11 +11,11 @@ import torch
 
 
 def resolve(device=None) -> torch.device:
-    """``None`` means ``cuda``.  Returns a ``torch.device`` of type cuda or
-    cpu; raises if cuda is asked for and no card is present."""
+    """``None`` means ``cuda``.  Returns a ``torch.device`` of type cuda,
+    cpu or meta; raises if cuda is asked for and no card is present."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev} (cuda, cpu or meta)")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' "

@@ -59,6 +59,16 @@ term of a sum.  ``psum``'s gradient passes as it is (every rank's
 consumers of the sum are the same), and ``reduce_grad`` sums a gradient
 over the ranks whose consumers differ (Megatron's f and g).  No move goes
 through DTensor's own redistribution, forward or backward.
+
+``recording()`` turns on a record of the collectives issued (every one
+goes through ``_move`` or ``_all_reduce``, so ``psum``, ``pmax``,
+``reduce_grad`` and the moves' transposes under autograd are in it): by
+the reference's kind names (``hlo_analysis.COLLECTIVE_FACTOR``), the
+calls executed and their wire bytes, the result's local bytes times the
+kind's factor (``note``; the dry run's counter also notes any collective
+of DTensor's own redistribution, which the models avoid).  The reference's ``count`` is the number of HLO
+instructions (a loop body's once), with only the bytes multiplied by trip
+counts; here both count what ran.  Off, it costs one test a collective.
 """
 from __future__ import annotations
 
@@ -70,6 +80,8 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.hlo_analysis import COLLECTIVE_FACTOR
 
 # logical axis -> physical mesh axis (or tuple of axes)
 TRAIN_RULES = {
@@ -167,6 +179,33 @@ def sharding_ctx(mesh, rules: Optional[dict] = None):
 
 def active_mesh():
     return _CTX.mesh
+
+
+_RECORD: dict | None = None
+
+
+@contextmanager
+def recording():
+    """Record the collectives issued inside: yields {kind: {"count",
+    "bytes"}} over every kind of ``COLLECTIVE_FACTOR``, filled as they
+    run (see the module's docstring)."""
+    global _RECORD
+    prev = _RECORD
+    _RECORD = {k: {"count": 0, "bytes": 0.0} for k in COLLECTIVE_FACTOR}
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def note(kind: str, result) -> None:
+    """Add one collective of ``kind`` whose result is ``result`` to the
+    active record (``recording``), if any."""
+    if _RECORD is not None:
+        entry = _RECORD[kind]
+        entry["count"] += 1
+        entry["bytes"] += (result.numel() * result.element_size()
+                           * COLLECTIVE_FACTOR[kind])
 
 
 def recompute_context():
@@ -327,7 +366,8 @@ def _place(t, spec, mesh):
     pl = placements(spec if spec is not None else PartitionSpec(), mesh)
     if isinstance(t, DTensor):
         return redistribute(t, pl)
-    dev = torch.device(mesh.device_type)
+    # the mesh's device; a meta tensor (the dry run) stays on meta
+    dev = t.device if t.is_meta else torch.device(mesh.device_type)
     if all(p.is_replicate() for p in pl):
         shard = t.to(dev)
     else:  # a copy: the caller's full tensor can be dropped
@@ -450,16 +490,19 @@ def _move(x, target):
                                    *src.shape[1:]), dtype=src.dtype,
                                   device=src.device)
                 dist.reduce_scatter_tensor(out, src, group=mesh.get_group(m))
+                note("reduce-scatter", out)
                 t, cur[m] = out.movedim(0, d), target[m]
                 continue
             t = t.contiguous().clone()
             dist.all_reduce(t, group=mesh.get_group(m))
+            note("all-reduce", t)
         else:  # Shard(d): gather along d
             d, n = p.dim % x.ndim, mesh.size(m)
             src = t.movedim(d, 0).contiguous()
             out = torch.empty((n * src.shape[0], *src.shape[1:]),
                               dtype=src.dtype, device=src.device)
             dist.all_gather_into_tensor(out, src, group=mesh.get_group(m))
+            note("all-gather", out)
             t = out.movedim(0, d)
         cur[m] = Replicate()
     coord = mesh.get_coordinate()
@@ -537,6 +580,7 @@ def _all_reduce(t, axes, op, mesh=None):
     for a in axes:
         if axis_sizes(mesh)[a] > 1:
             dist.all_reduce(t, op=op, group=mesh.get_group(a))
+            note("all-reduce", t)
     return t
 
 

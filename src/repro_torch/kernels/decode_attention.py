@@ -36,6 +36,10 @@ cache rows are split across blocks by ``split_plan``; each split writes f32
 partials and the last block of each (b, KV head) merges them, counting on a
 per-device buffer of counters that the kernel leaves zero.  Calls on one
 device run on one stream at a time, as the model issues them.
+
+For tensors on the meta device (the dry run) ``decode_attention`` takes
+the shape-only route of ``kernels/_meta.py``: the card route's checks and
+outputs, no kernel, the call's ``cost`` recorded.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, _dtensor
+from repro_torch.kernels import _build, _dtensor, _meta
 
 NEG_INF = -1e30
 
@@ -56,6 +60,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = {torch.float32: (8, 16, 32, 64, 128, 256),
              torch.bfloat16: (16, 32, 64, 128, 256)}
 
+#: query heads a KV head, at most: the kernel's larger group bound
+MAX_GROUP = 16
 SMS = 132  # streaming multiprocessors of an H100 SXM
 MIN_BLOCK_BYTES = 256 << 10  # K and V bytes a block moves, at least
 ROW_GRAIN = 64  # a split's rows are a multiple of this
@@ -75,6 +81,22 @@ def route(dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "dec_split"
     raise ValueError(f"decode_attention takes float32 or bfloat16, not {dtype}")
+
+
+def cost(B: int, H: int, Hkv: int, L: int, D: int, esize: int,
+         rows: int | None = None, lse: bool = False,
+         starts: bool = False) -> tuple:
+    """(FLOPs, HBM bytes) of one call over a cache of L rows: q.k and p.v,
+    2 flops a multiply-add, over ``rows`` attended cache rows summed over
+    the batch (default B * L: every row of the cache, as the dry run
+    counts it, where ``kv_len`` lies on the meta device and no data says
+    how many are valid); bytes: q in and out (H heads), the attended K and
+    V rows once (Hkv heads), ``kv_len`` (with ``starts``, ``kv_start``)
+    read, and with ``lse`` the f32 (B, H) log-sum-exp written."""
+    n_rows = B * L if rows is None else rows
+    n_bytes = (2 * B * H * D * esize + 2 * n_rows * Hkv * D * esize
+               + B * 4 * (1 + bool(starts)) + B * H * 4 * bool(lse))
+    return 4 * n_rows * H * D, n_bytes
 
 
 def split_plan(B: int, Hkv: int, L: int, D: int, esize: int):
@@ -150,27 +172,9 @@ _SHARDS = ({0: "batch", 1: "heads"}, {0: "batch", 1: "heads"},
 _OUT_SHARDS = ({0: "batch", 1: "heads"}, {0: "batch", 1: "heads"})
 
 
-def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None,
-                     with_lse=False):
-    """q: (B, H, D); k, v: (B, Hkv, L, D), any strides with the last one 1;
-    kv_len: (B,) valid prefix length; kv_start: optional (B,) first valid
-    row.  Returns (B, H, D) in q's dtype, and with ``with_lse`` also the
-    f32 (B, H) log-sum-exp."""
-    global launches
-    if _dtensor.any_dtensor(q, k, v, kv_len, kv_start):
-        return _dtensor.on_shards(
-            "decode_attention",
-            lambda *a: decode_attention(*a[:4], scale=scale, kv_start=a[4],
-                                        with_lse=with_lse),
-            (q, k, v, kv_len, kv_start), _SHARDS,
-            _OUT_SHARDS if with_lse else _OUT_SHARDS[0])
-    dev = _build.device_of(*(t for t in (q, k, v, kv_len, kv_start)
-                             if t is not None))
-    if dev.type == "cpu":
-        return decode_attention_plain(q, k, v, kv_len, scale=scale,
-                                      kv_start=kv_start, with_lse=with_lse)
-    if dev.type != "cuda":
-        raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
+def _check(q, k, v, kv_len, kv_start):
+    """The shared checks of a call on the card (or the meta device);
+    returns (B, H, Hkv, L, D)."""
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q (B,H,D) and k, v (B,Hkv,L,D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -190,12 +194,46 @@ def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None,
     if D not in HEAD_DIMS[q.dtype]:
         raise ValueError(f"head_dim {D} is not built into the kernel "
                          f"({HEAD_DIMS[q.dtype]} for {q.dtype})")
+    if H // Hkv > MAX_GROUP:
+        raise ValueError(f"G={H // Hkv} exceeds the kernel's {MAX_GROUP}")
+    return B, H, Hkv, L, D
+
+
+def decode_attention(q, k, v, kv_len, *, scale=None, kv_start=None,
+                     with_lse=False):
+    """q: (B, H, D); k, v: (B, Hkv, L, D), any strides with the last one 1;
+    kv_len: (B,) valid prefix length; kv_start: optional (B,) first valid
+    row.  Returns (B, H, D) in q's dtype, and with ``with_lse`` also the
+    f32 (B, H) log-sum-exp."""
+    global launches
+    if _dtensor.any_dtensor(q, k, v, kv_len, kv_start):
+        return _dtensor.on_shards(
+            "decode_attention",
+            lambda *a: decode_attention(*a[:4], scale=scale, kv_start=a[4],
+                                        with_lse=with_lse),
+            (q, k, v, kv_len, kv_start), _SHARDS,
+            _OUT_SHARDS if with_lse else _OUT_SHARDS[0])
+    dev = _build.device_of(*(t for t in (q, k, v, kv_len, kv_start)
+                             if t is not None))
+    if dev.type == "cpu":
+        return decode_attention_plain(q, k, v, kv_len, scale=scale,
+                                      kv_start=kv_start, with_lse=with_lse)
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention runs on cuda or cpu, not {dev}")
+    B, H, Hkv, L, D = _check(q, k, v, kv_len, kv_start)
     esize = q.element_size()
     if not (all(t.stride(i) * esize % 16 == 0 for t in (k, v) for i in range(3)
                 if t.shape[i] > 1)
-            and all(t.data_ptr() % 16 == 0 for t in (k, v))):
+            and (dev.type == "meta"
+                 or all(t.data_ptr() % 16 == 0 for t in (k, v)))):
         raise ValueError("k and v need strides that are multiples of 16 bytes "
                          "and 16-byte aligned data")
+    if dev.type == "meta":
+        _meta.record("decode_attention", route(q.dtype), cost(
+            B, H, Hkv, L, D, esize, lse=with_lse,
+            starts=kv_start is not None), q, k)
+        out = _meta.empty((B, H, D), q.dtype)
+        return (out, _meta.empty((B, H), torch.float32)) if with_lse else out
     lib = _build.library("decode_attention", _SIGNATURES)
     G = H // Hkv
     if G > lib.decode_attention_max_group():

@@ -64,6 +64,12 @@ L is each (b, head, row)'s log-sum-exp of its kept scaled scores in log2
 units (the scale times log2 e, as the bf16 kernels compute exp2), 0 for a
 row with no kept key.
 
+For tensors on the meta device (the dry run) ``flash_attention`` and
+``flash_attention_with_lse`` take the shape-only route of
+``kernels/_meta.py``: the card route's checks and outputs, no kernel,
+the call's ``cost`` recorded; under autograd the backward records
+``bwd_route``'s kernels.
+
 The bf16 kernels read 16 bytes at a time (TMA needs 16-byte aligned data and
 strides): their inputs' strides must be multiples of 8 elements, as the
 model's projections are, and anything else is refused.
@@ -75,7 +81,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, _dtensor
+from repro_torch.kernels import _build, _dtensor, _meta
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
@@ -105,6 +111,51 @@ bwd_mma_launches = 0
 bwd_f32_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the S x D products each route computes for a kept (query, key) pair:
+#: the forward's two (S, P V); ``fa_bwd_wgmma``'s seven (S and dP in both
+#: of its kernels, dV, dK, dQ); ``fa_bwd_mma``'s and ``fa_bwd_f32``'s eight
+#: (their dq kernel's first pass recomputes S once more for L)
+PRODUCTS = {"fa_wgmma": 2, "fa_mma": 2, "fa_fwd": 2, "fa_bwd_wgmma": 7,
+            "fa_bwd_mma": 8, "fa_bwd_f32": 8}
+#: the backward's products in a minimal design (S, dP, dV, dK, dQ): what
+#: its bound counts
+MIN_BWD_PRODUCTS = 5
+
+
+def kept_pairs(S: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs of an S-row call that a mask by row index
+    keeps: causal keeps k <= q, a window > 0 keeps k > q - window."""
+    w = min(window, S) if window else 0
+    if causal:
+        return S * (S + 1) // 2 if not w else w * (w + 1) // 2 + (S - w) * w
+    return S * S if not w else S * S - (S - w) * (S - w + 1) // 2
+
+
+def cost(route: str, B: int, H: int, Hkv: int, S: int, D: int,
+         causal: bool = True, window: int = 0, *, lse: bool = False,
+         positions: int = 0, products: int | None = None) -> tuple:
+    """(FLOPs, HBM bytes) of one call of ``route``'s kernel (a forward or a
+    backward route): ``products`` (default the route's ``PRODUCTS``) S x D
+    products, 2 flops a multiply-add, over the (b, head, query, key)
+    triples the mask keeps, counted by row index (``kept_pairs``; a mask by
+    given positions keeps what its data says, which a count from shapes
+    cannot see).  Bytes: each input read once and each output written
+    once, bf16 (f32 on ``fa_fwd`` and ``fa_bwd_f32``): the forward's q,
+    out (H heads) and k, v (Hkv heads), with ``lse`` the f32 L it also
+    writes; the backward's q, o, dO, dQ and k, v, dK, dV, and on
+    ``fa_bwd_wgmma`` the forward's L; ``positions`` (B, S) int32 tables
+    read once each."""
+    esize = 4 if route in ("fa_fwd", "fa_bwd_f32") else 2
+    n = PRODUCTS[route] if products is None else products
+    flops = n * 2 * kept_pairs(S, causal, window) * D * B * H
+    if route in BWD_ROUTES:
+        n_bytes = B * S * D * esize * (4 * H + 4 * Hkv)
+        lse = route == "fa_bwd_wgmma"
+    else:
+        n_bytes = B * S * D * esize * (2 * H + 2 * Hkv)
+    n_bytes += 4 * B * H * S * bool(lse) + 4 * B * S * positions
+    return flops, n_bytes
 
 
 def _scale(D: int, scale):
@@ -478,6 +529,9 @@ def flash_attention_with_lse(q, k, v, *, causal=True, window=0, scale=None,
     if dev.type == "cpu":
         return (flash_attention_plain(q, k, v, **kw),
                 flash_attention_lse_plain(q, k, **kw))
+    if dev.type == "meta":
+        return _meta_forward(q, k, v, causal, window, q_pos, k_pos,
+                             with_lse=True)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     return _forward_kernel(q, k, v, causal, window, scale, q_pos, k_pos,
@@ -593,6 +647,48 @@ def flash_attention_bwd(q, k, v, o, do, *, causal=True, window=0, scale=None,
     return dq, dk, dv
 
 
+def _meta_forward(q, k, v, causal, window, q_pos, k_pos, route=None,
+                  with_lse=False):
+    """The shape-only route (``kernels/_meta.py``): the card route's checks,
+    its output (a (B, H, S, D) view of a (B, S, H, D) tensor) and, with
+    ``with_lse``, its L; the call's ``cost`` recorded under the kernel the
+    card would launch.  Under autograd the forward is ``fa_wgmma``'s
+    L-writing build where the route is ``fa_wgmma``, and the backward
+    records ``bwd_route``'s kernels and returns meta gradients."""
+    B, H, Hkv, S, D = _check(q, k, v, window)
+    r = _named_route(route, q.dtype, D)
+    if with_lse and r != "fa_wgmma":
+        raise ValueError(f"only fa_wgmma writes L; this call runs {r}")
+    if q.dtype == torch.bfloat16 and not all(
+            st % 8 == 0 for t in (q, k, v) for st in _strides(t)):
+        raise ValueError("bf16 q, k, v need strides that are multiples of 8 "
+                         "elements")
+    n_pos = (q_pos is not None) + (k_pos is not None and k_pos is not q_pos)
+    mask = (B, H, Hkv, S, D, causal, window)
+    grad = _meta.wants_grad(q, k, v)
+    lse = with_lse or (grad and r == "fa_wgmma")
+
+    def forward(q, k, v):
+        _meta.record("flash_attention", r, cost(r, *mask, lse=lse,
+                                                positions=n_pos), q, k)
+        out = _meta.empty((B, S, H, D), q.dtype).permute(0, 2, 1, 3)
+        if not with_lse:
+            return out
+        return out, _meta.empty((B, H, _lse_rows(S)), torch.float32)[..., :S]
+
+    if not grad:
+        return forward(q, k, v)
+
+    def backward(do, *_):
+        br = _BWD_OF[r]
+        _meta.record("flash_attention_grad", br,
+                     cost(br, *mask, positions=n_pos), do)
+        return tuple(_meta.empty((B, S, t.shape[1], D), t.dtype).permute(
+            0, 2, 1, 3) for t in (q, k, v))
+
+    return _meta.MetaFn.apply(forward, backward, q, k, v)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """The forward kernel, with the backward kernels as its gradient
     (tensors on a card only; on the CPU autograd runs through the plain
@@ -657,6 +753,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_pos=q_pos, k_pos=k_pos)
+    if dev.type == "meta":
+        return _meta_forward(q, k, v, causal, window, q_pos, k_pos, route)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

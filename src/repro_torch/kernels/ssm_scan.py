@@ -19,6 +19,12 @@ h0 (B, I, N) -> (y (B, S, I) in dA's dtype, h_last (B, I, N) f32).  The state
 is carried in f32 across all of S; the TPU kernel's time chunks and channel
 blocks are VMEM tiling and are not carried over.  On a card the kernel takes
 f32 inputs only: the Mamba mixer builds dA and dBx in f32.
+
+For tensors on the meta device (the dry run) ``ssm_scan`` and
+``ssm_scan_with_ckpt`` take the shape-only route of ``kernels/_meta.py``:
+the card route's checks and outputs, no kernel, the call's ``cost``
+recorded; under autograd the forward is ``ssm_fwd<true>`` with its
+checkpoints, and the backward records ``ssm_bwd_tma + ssm_bwd_dc``.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _dtensor
+from repro_torch.kernels import _build, _dtensor, _meta
 
 #: steps a checkpointed segment: the states at t = 0, SEG, 2 SEG, ... are kept
 SEG = 16
@@ -37,6 +43,27 @@ SEG = 16
 launches = 0
 ckpt_launches = 0
 bwd_launches = 0
+
+
+#: the card's kernels: the forward's two builds and the backward's pair
+FWD, FWD_CKPT, BWD = "ssm_fwd<false>", "ssm_fwd<true>", "ssm_bwd_tma + ssm_bwd_dc"
+
+
+def cost(B: int, S: int, I: int, N: int, *, ckpt: bool = False,
+         backward: bool = False) -> tuple:
+    """(FLOPs, HBM bytes) of one call, all f32.  The forward: dA, dBx, C,
+    h0 in, y, h_last out, 4 flops an element of (B, S, I, N) (h = a h + b,
+    y += h c); with ``ckpt`` (``ssm_fwd<true>``) also the checkpoints
+    written, (B, ceil(S / SEG), I, N).  The backward: dA, dBx, C, h0, dy,
+    dh_last in, d(dA), d(dBx), dC, dh0 out, 6 flops an element (dh's
+    multiply-add, d(dA), the carried dA dh, dC's multiply-add); with
+    ``ckpt`` also the checkpoints read."""
+    big, ck = B * S * I * N, B * -(-S // SEG) * I * N * bool(ckpt)
+    if backward:
+        return 6 * big, 4 * (4 * big + 2 * B * S * N + 3 * B * I * N
+                             + B * S * I + ck)
+    return 4 * big, 4 * (2 * big + B * S * N + 2 * B * I * N + B * S * I
+                         + ck)
 
 
 def ssm_scan_plain(dA, dBx, C, h0):
@@ -159,6 +186,8 @@ def ssm_scan_with_ckpt(dA, dBx, C, h0):
     if dev.type == "cpu":
         return (*ssm_scan_plain(dA, dBx, C, h0),
                 ssm_scan_ckpt_plain(dA, dBx, h0))
+    if dev.type == "meta":
+        return _meta_forward(dA, dBx, C, h0, with_ckpt=True)
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
     return _forward_kernel(dA, dBx, C, h0, with_ckpt=True)
@@ -210,6 +239,38 @@ def ssm_scan_bwd(dA, dBx, C, h0, dy, dh_last, hck=None):
     return d_dA, d_dBx, dC, dh0
 
 
+def _meta_forward(dA, dBx, C, h0, with_ckpt=False):
+    """The shape-only route (``kernels/_meta.py``): the card route's checks
+    and outputs (y, h_last, and with ``with_ckpt`` the checkpoints), the
+    call's ``cost`` recorded under the kernel the card would launch.  Under
+    autograd the forward is ``ssm_fwd<true>``, and the backward records
+    ``ssm_bwd_tma + ssm_bwd_dc`` and returns meta gradients."""
+    B, S, I, N = _check(dA, dBx, C, h0)
+    grad = _meta.wants_grad(dA, dBx, C, h0)
+    ckpt = with_ckpt or grad
+
+    def forward(dA, dBx, C, h0):
+        _meta.record("ssm_scan", FWD_CKPT if ckpt else FWD,
+                     cost(B, S, I, N, ckpt=ckpt), dA, dBx)
+        out = (_meta.empty((B, S, I), torch.float32),
+               _meta.empty((B, I, N), torch.float32))
+        if with_ckpt:
+            out += (_meta.empty((B, -(-S // SEG), I, N), torch.float32),)
+        return out
+
+    if not grad:
+        return forward(dA, dBx, C, h0)
+
+    def backward(dy, *_):
+        _meta.record("ssm_scan_grad", BWD,
+                     cost(B, S, I, N, ckpt=True, backward=True), dy)
+        f32 = torch.float32
+        return (_meta.empty((B, S, I, N), f32), _meta.empty((B, S, I, N), f32),
+                _meta.empty((B, S, N), f32), _meta.empty((B, I, N), h0.dtype))
+
+    return _meta.MetaFn.apply(forward, backward, dA, dBx, C, h0)
+
+
 class SSMScanFn(torch.autograd.Function):
     """The forward kernel's checkpoint-writing build, with the backward
     kernels as its gradient (tensors on a card only; on the CPU autograd
@@ -250,6 +311,8 @@ def ssm_scan(dA, dBx, C, h0):
     dev = _build.device_of(dA, dBx, C, h0)
     if dev.type == "cpu":
         return ssm_scan_plain(dA, dBx, C, h0)
+    if dev.type == "meta":
+        return _meta_forward(dA, dBx, C, h0)
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dev}")
     if torch.is_grad_enabled() and any(

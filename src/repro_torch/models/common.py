@@ -50,7 +50,8 @@ def rope_angles(positions, head_dim: int, theta: float, mrope_sections=None):
         # frequency j reads the stream of the section it falls in
         stream = torch.repeat_interleave(
             torch.arange(3, device=positions.device),
-            torch.tensor(mrope_sections, device=positions.device))
+            torch.tensor(mrope_sections, device=positions.device),
+            output_size=sum(mrope_sections))
         ang = positions.float()[..., stream] * freqs
     else:
         if positions.dim() == 3:

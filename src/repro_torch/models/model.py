@@ -202,6 +202,19 @@ def _embed_split(tokens, table):
     return sh.from_local(x, x.shape, None, None, None)
 
 
+def _off_index(stream0, index, rows) -> bool:
+    """Whether some rank's (b, S) positions ``stream0`` are off the row
+    index ``index`` (decided over the mesh axes ``rows``, so that every
+    rank takes the same branch).  On the meta device (the dry run) no data
+    decides it, and the positions are taken as given: the reference's
+    traced mask always compares them."""
+    if stream0.device.type == "meta":
+        return True
+    off = torch.tensor([float(not torch.equal(
+        stream0, index.expand_as(stream0)))], device=stream0.device)
+    return bool(sh.pmax(off, rows)[0] > 0)
+
+
 def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev,
           sharded=False):
     """(cos/sin of the positions, or None where the config has no rope;
@@ -219,9 +232,7 @@ def _rope(cfg: ModelConfig, batch: dict, B: int, S: int, start: int, dev,
         rows = sh.shard_axes(pos, 0)
         pos = sh.local(pos)
         stream0 = (pos[..., 0] if pos.dim() == 3 else pos).to(torch.int32)
-        off = torch.tensor([float(not torch.equal(
-            stream0, index.expand_as(stream0)))], device=dev)
-        if sh.pmax(off, rows)[0] > 0:  # a rank's rows are off the index
+        if _off_index(stream0, index, rows):
             mask_pos = stream0.contiguous()
             if sharded:
                 mask_pos = sh.from_local(mask_pos, (B, S), "batch", None)

@@ -336,9 +336,12 @@ def test_ssm_scan_with_ckpt_on_cpu_is_the_plain_versions():
     torch.testing.assert_close(h_last, h_p, rtol=0, atol=0)
     torch.testing.assert_close(hck, ssm.ssm_scan_ckpt_plain(dA, dBx, h0),
                                rtol=0, atol=0)
+    # on the meta device (the dry run) the card route's outputs, shapes only
     m = torch.empty(2, 37, 16, 8, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ssm.ssm_scan_with_ckpt(m, m, m[..., 0, :], m[:, 0])
+    y, h_last, hck = ssm.ssm_scan_with_ckpt(m, m, m[..., 0, :], m[:, 0])
+    assert (y.shape, h_last.shape, hck.shape) == ((2, 37, 16), (2, 16, 8),
+                                                  (2, 3, 16, 8))
+    assert y.is_meta and hck.dtype == torch.float32
 
 
 def test_ssm_bwd_with_ckpt_chains_through_chunks():

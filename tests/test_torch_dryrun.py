@@ -6,9 +6,11 @@ The CLI runs in a child process: it starts a fake default process group of
 tests' gloo groups).  qwen3-8b x train_4k on both production meshes: the
 bytes one device holds of the arguments and of the outputs equal the
 reference's, computed here from ``repro.launch.specs.build_lowerable``'s
-ShapeDtypeStructs and PartitionSpecs (no compile); what only XLA's
-compiled module gives is null, with the reason; neither ``jax`` nor
-``repro`` is imported by the child.  A rule-skipped cell gives the
+ShapeDtypeStructs and PartitionSpecs (no compile); the executed step's
+figures are there (rank 0's FLOPs within [0.75, 2] of
+``flops_model.cell_flops``' share of a device, collectives, temporaries),
+the roofline reads its collectives, and only the code size is null, with
+the reason; neither ``jax`` nor ``repro`` is imported by the child.  A rule-skipped cell gives the
 reference's reason.  ``chip_smoke.py``'s ``REF_DRYRUN`` holds the same
 arithmetic for every cell.
 """
@@ -32,9 +34,12 @@ from repro.launch import specs as jspecs
 from repro.models import model as jax_model
 from repro.models.params import spec_to_pspecs, spec_to_sds
 from repro_torch.distributed import sharding as sh
-from repro_torch.launch import dryrun
+from repro_torch.launch import dryrun, hlo_analysis
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:  # benchmarks_torch
+    sys.path.insert(0, str(ROOT))
+from benchmarks_torch import flops_model, roofline  # noqa: E402
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 N_METRICS = 5  # nll, aux, loss, grad_norm, lr: f32 scalars, replicated
@@ -119,14 +124,29 @@ def test_cli_cell_equals_reference_bytes(tmp_path, mesh_name):
     mem = cell["memory"]
     assert (mem["argument_size_in_bytes"], mem["output_size_in_bytes"]) == \
         ref_bytes("qwen3-8b", "train_4k", mesh_name)
-    # what only the reference's compiled module gives: null, with the reason
+    # the executed step's figures: rank 0's FLOPs near the analytic
+    # model's share of a device, its collectives, its temporaries
     for key in ("flops", "bytes_accessed", "collectives", "compile_s"):
-        assert cell[key] is None
-    assert mem["temp_size_in_bytes"] is None
+        assert cell[key] is not None
+    assert mem["temp_size_in_bytes"] > 0
+    assert cell["collectives"]["total_bytes"] > 0
+    assert set(cell["collectives"]) == {*hlo_analysis.COLLECTIVE_FACTOR,
+                                        "total_bytes"}
+    n_dev = math.prod(MESHES[mesh_name][0])
+    ratio = cell["flops"] / (flops_model.cell_flops("qwen3-8b", "train_4k")
+                             / n_dev)
+    print(f"{mesh_name}: rank 0's executed FLOPs / flops_model.cell_flops's "
+          f"share = {ratio:.4f}")
+    assert 0.75 <= ratio <= 2.0
+    # eager PyTorch compiles no module: the one figure left null
     assert mem["generated_code_size_in_bytes"] is None
-    assert "not executed" in cell["unavailable"]
+    assert "generated_code_size_in_bytes" in cell["unavailable"]
     assert cell["fits_card"] is True
     assert "above the card's 80 GB: 0 of 1 ok cells" in stdout
+    # the roofline reads its collectives
+    (_, _, derived), = roofline.main(str(tmp_path / "report.json"))
+    terms = dict(kv.split("=") for kv in derived.split(";"))
+    assert float(terms["collective_s"]) > 0
 
 
 def test_cli_rule_skipped_cell(tmp_path):

@@ -172,15 +172,17 @@ def test_serving_rows_equal_reference():
 
 
 def test_roofline_row_without_collectives(tmp_path):
+    """A cell whose report has no collectives has no wire bytes, as the
+    reference's ``roofline_terms`` reads it."""
     cell = {"arch": "qwen3-8b", "shape": "train_4k", "mesh": "16x16",
-            "status": "ok", "collectives": None}
+            "status": "ok"}
     report = tmp_path / "r.json"
     report.write_text(json.dumps([cell, {"status": "skipped"}]))
     (name, _, derived), = roofline.main(str(report))
     assert name == "roofline.qwen3-8b.train_4k.16x16"
     d = dict(kv.split("=") for kv in derived.split(";"))
-    assert d["collective_s"] == "n/a"
-    assert d["dominant"] == "compute (collectives n/a)"
+    assert d["collective_s"] == "0.0000"
+    assert d["dominant"] == "compute"
     comp = flops_model.cell_flops("qwen3-8b", "train_4k") / 256 / 989e12
     assert d["compute_s"] == f"{comp:.4f}"
     mem = flops_model.memory_bytes("qwen3-8b", "train_4k", 256) / 3.35e12

@@ -149,15 +149,17 @@ def test_wrappers_do_not_fall_back_to_the_plain_version(monkeypatch):
     m = lambda *s, dt=torch.float32: torch.empty(*s, dtype=dt, device="meta")  # noqa: E731
     with pytest.raises(ValueError, match="cuda or cpu"):
         lags_mod.lags_select(m(8), m(8), m(8), m(8, dt=torch.bool), 2)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        dec_mod.decode_attention(m(1, 2, 16), m(1, 2, 32, 16),
-                                 m(1, 2, 32, 16), m(1, dt=torch.int32))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa_mod.flash_attention(m(1, 4, 32, 16), m(1, 2, 32, 16),
-                               m(1, 2, 32, 16))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        ssm_mod.ssm_scan(m(1, 8, 32, 16), m(1, 8, 32, 16), m(1, 8, 16),
-                         m(1, 32, 16))
+    # on the meta device (the dry run) the shape-only route: the card
+    # route's outputs, no kernel and no plain version
+    out = dec_mod.decode_attention(m(1, 2, 16), m(1, 2, 32, 16),
+                                   m(1, 2, 32, 16), m(1, dt=torch.int32))
+    assert out.is_meta and out.shape == (1, 2, 16)
+    out = fa_mod.flash_attention(m(1, 4, 32, 16), m(1, 2, 32, 16),
+                                 m(1, 2, 32, 16))
+    assert out.is_meta and out.shape == (1, 4, 32, 16)
+    y, h = ssm_mod.ssm_scan(m(1, 8, 32, 16), m(1, 8, 32, 16), m(1, 8, 16),
+                            m(1, 32, 16))
+    assert y.is_meta and y.shape == (1, 8, 32) and h.shape == (1, 32, 16)
     with pytest.raises(ValueError, match="several devices"):
         lags_mod.lags_select(m(8), torch.zeros(8), m(8), m(8, dt=torch.bool), 2)
     with pytest.raises(ValueError, match="several devices"):

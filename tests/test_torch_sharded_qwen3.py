@@ -12,7 +12,10 @@ heads over 3 ranks: prefill takes the reference's head padding (4 -> 6
 heads, K and V repeated to one head per query head) and every KV head is
 replicated.  Decode splits the 24 cache rows over "model" on every mesh.
 Each rank holds exactly the parameter and cache bytes its shards hold by
-the rules, and the kernels' plain versions ran on local shapes.
+the rules, and the kernels' plain versions ran on local shapes.  The dry
+run's execution of the same prefill and decode cells on a fake (2, 2)
+group (rank 0 alone, meta tensors) records exactly the collectives that
+rank 0 of the live world issued.
 """
 import numpy as np
 import pytest
@@ -88,3 +91,22 @@ def test_kernels_ran_on_local_shards(runs, shape):
         assert dec == [[[B, cfg.n_heads, cfg.head_dim],
                         [B, cfg.n_kv_heads, L // tp, cfg.head_dim]]] * (
             cfg.n_layers * world.N_DECODE)
+
+
+def test_fake_group_records_the_live_collectives(runs):
+    """Each kind's calls and wire bytes of prefill and of the first decode
+    step (cache length S, as the dry run's decode cell has it): rank 0 of
+    the live (2, 2) gloo world against ``dryrun.execute`` on a fake group,
+    the same cells (the fake prefill fills a cache of S rows, the live one
+    of S + DECODE_PAD: nothing moves the cache)."""
+    got = world.fake_cells({
+        step: (NAME, OVERRIDES, step, world.S, world.B, [2, 2])
+        for step in ("prefill", "decode")})
+    _, ranks = runs[0]["2x2"]
+    for step, live in (("prefill", "collectives/prefill"),
+                       ("decode", "collectives/decode0")):
+        want = ranks[0][live]
+        fake = {k: v for k, v in got[step]["collectives"].items()
+                if k != "total_bytes"}
+        assert sum(v["count"] for v in want.values()) > 0, step
+        assert fake == want, step

@@ -28,7 +28,12 @@ TRAIN_RULES)``, then the decode cell's ``fn`` on arguments placed by its
 and cache bytes beside those its shards should hold by the rules, and the
 local shapes its kernel wrappers ran on; rank 0 writes the gathered logits
 and caches.  DTensor's own collectives are refused in the ranks
-(``forbid_dtensor_collectives``).
+(``forbid_dtensor_collectives``), and each rank records the collectives
+that prefill and each decode step issue (``sharding.recording``).
+
+``fake_cells(cases)`` runs cells of the dry run (``launch/dryrun.py::
+execute``) on reduced configs and small meshes of a fake process group in
+a child process, and returns what each recorded.
 
 This module imports no JAX, so that the spawned ranks do not either.
 """
@@ -535,9 +540,10 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         batch = sh.distribute(batch, specs._batch_sds(
             cfg, ShapeConfig("prefill", S, B, "prefill"), "prefill",
             sh.TRAIN_RULES, mesh)[1], mesh)
-        with sh.sharding_ctx(mesh, sh.TRAIN_RULES):
+        with sh.sharding_ctx(mesh, sh.TRAIN_RULES), sh.recording() as coll:
             logits, cache = model.prefill(params, cfg, batch, max_len=L,
                                           device="cpu")
+        out["collectives/prefill"] = coll
         out["bytes/params_train"] = [_local_bytes(params), _rule_bytes(
             P.param_specs(cfg), mesh, sh.TRAIN_RULES)]
         got = {"logits0": sh.full(logits)}
@@ -556,8 +562,10 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
             cache = sh.distribute(cache, low.in_shardings[2], mesh)
             for i, step in enumerate(steps):
                 step = sh.distribute(step, low.in_shardings[1], mesh)
-                with sh.sharding_ctx(mesh, low.rules):
+                with sh.sharding_ctx(mesh, low.rules), \
+                        sh.recording() as coll:
                     logits, cache = low.fn(params, step, cache, S + i)
+                out[f"collectives/decode{i}"] = coll
                 got[f"logits{i + 1}"] = sh.full(logits)
             for i, layer in enumerate(cache):
                 for leaf, t in layer.items():
@@ -920,6 +928,61 @@ def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1,
         n_fwd
     out["ssm_scan_grad"] = [v[0][:3] for v in one["ssm_scan"]] * n_fwd
     return out
+
+
+# --- the dry run's cells on a fake group ---------------------------------
+
+FAKE_SCRIPT = r"""
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs.base import ShapeConfig, get_config, reduced
+from repro_torch.launch import dryrun
+out = {}
+for key, (name, overrides, step, S, B, mesh) in json.loads(sys.argv[1]).items():
+    cfg = reduced(get_config(name), **overrides)
+    w = dryrun.execute(cfg, ShapeConfig(step, S, B, step), mesh)
+    shapes = {}
+    for c in w["kernel_calls"]:
+        shapes.setdefault(c.wrapper, []).append(
+            c.shapes[0] if c.wrapper.endswith("_grad") else c.shapes)
+    out[key] = dict(flops=w["flops"], bytes=w["bytes_accessed"],
+                    temp=w["temp_size_in_bytes"], collectives=w["collectives"],
+                    shapes=shapes, kernels=sorted({c.kernel for c in
+                                                   w["kernel_calls"]}))
+print(json.dumps(out))
+"""
+
+
+def start_fake_cells(cases: dict) -> subprocess.Popen:
+    """Start a child that executes the dry run's cells of {key: (config
+    name, overrides of ``reduced``, step, S, global batch, mesh shape)};
+    ``fake_cells`` reads it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
+    proc = subprocess.Popen([sys.executable, "-c", FAKE_SCRIPT,
+                             json.dumps(cases)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    proc.started = time.monotonic()
+    return proc
+
+
+def fake_cells(cases) -> dict:
+    """{key: {"flops", "bytes", "temp", "collectives", "shapes" (the local
+    shapes each kernel wrapper's meta route ran on, as ``_record_shapes``
+    gives them), "kernels"}} of the cells (a dict as ``start_fake_cells``
+    takes, or the child it started)."""
+    proc = cases if isinstance(cases, subprocess.Popen) else \
+        start_fake_cells(cases)
+    try:
+        out, err = proc.communicate(timeout=max(
+            0.1, JOIN_S - (time.monotonic() - proc.started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the dry run's cells did not end in {JOIN_S} s")
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
 
 
 # --- the train cases: the reference's steps against the port's ------------
