@@ -3593,7 +3593,9 @@ def check_dry_run(child):
     reasons; each ok cell's bytes a device, arguments and outputs, equal to
     ``REF_DRYRUN``; each ok cell's executed figures there (FLOPs, bytes
     accessed, collectives with wire bytes, temporaries, the step's
-    seconds), and only the code size unavailable."""
+    seconds), only the code size unavailable, and no redistribution that
+    DTensor planned by itself, nor any collective of one, in any ok
+    cell."""
     try:
         child.wait(timeout=600)
     finally:
@@ -3641,10 +3643,19 @@ def check_dry_run(child):
           f"every ok cell; FLOPs, bytes, collectives, temporaries and the "
           f"step's seconds in every ok cell; {fit}; {own}, {wall:.1f} s from "
           f"its start beside the card's phases to its end")
-    own = {" x ".join(k): c["dtensor_collectives"] for k, c in ok.items()
-           if c["dtensor_collectives"]}
-    print(f"phase 29(a) collectives of DTensor's own redistribution (ROADMAP "
-          f"Queue C item 19), by the op they served: {own or 'none'}")
+    # every collective goes through distributed/sharding.py: no DTensor
+    # operation mixes placements that DTensor reconciles by itself (ROADMAP
+    # Queue C item 19, on this machine's torch)
+    import torch
+
+    for field, what in (("dtensor_collectives", "collectives of DTensor's "
+                         "own redistribution, by the op they served"),
+                        ("dtensor_redistributions", "redistributions "
+                         "DTensor planned by itself, collective or local")):
+        own = {" x ".join(k): c[field] for k, c in ok.items() if c[field]}
+        print(f"phase 29(a) {what} (torch {torch.__version__}): "
+              f"{own or 'none'}")
+        require(not own, f"{what} in {len(own)} cells: {own}")
     top = sorted(ok.values(), key=lambda c: -c["memory"]["temp_size_in_bytes"])
     for c in top[:5]:
         mem = c["memory"]
@@ -4115,7 +4126,8 @@ def run_job(torch, ops, job, mesh=None):
 def sharded_rank(rank, store, out_dir, phase):
     """One rank of phase 30 or 31: a gloo group of ``SHARDED_RANKS``
     processes on cuda:0, a (1, 2) ("data", "model") mesh, every job of
-    ``JOBS[phase]``; writes its results to out_dir/rank{rank}.pt."""
+    ``JOBS[phase]`` with DTensor's own collectives refused; writes its
+    results to out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -4123,10 +4135,12 @@ def sharded_rank(rank, store, out_dir, phase):
     dist.init_process_group("gloo", store=dist.FileStore(store, SHARDED_RANKS),
                             rank=rank, world_size=SHARDED_RANKS)
     try:
+        from repro_torch.distributed import sharding as sh
         from repro_torch.kernels import ops
         from repro_torch.launch.mesh import make_local_mesh
 
         res = {"collectives": gloo_cuda_collectives(torch, rank)}
+        sh.forbid_dtensor_collectives()  # every one through sharding
         mesh = make_local_mesh(1, SHARDED_RANKS)
         for k, job in enumerate(JOBS[phase]):
             res[k] = run_job(torch, ops, job, mesh)
@@ -4358,6 +4372,15 @@ class TrainJob(NamedTuple):
 # window of 1024 and past qwen2-vl's 1024 vision rows, at B = 1: every
 # activation the ranks exchange crosses the host (gloo), so the script's
 # time follows B x S.
+#
+# Last, qwen3-8b in f32 with one KV head on its first 2 layers: "model"
+# splits its 32 query heads but not the KV head, so each rank pairs its
+# query heads with the replicated KV head (``models/attention.py::
+# _paired``) and the gradients of k and v are each rank's term of a sum
+# (ROADMAP Queue C item 19).  No config pairs at tp 2 (every config's KV
+# heads split over two ranks), so the override is the only way to reach
+# that path with two ranks; its depth is chosen for the script's time, not
+# by the budget.
 TRAIN_STEPS = 2
 TRAIN_JOBS = (
     TrainJob("stablelm-1.6b", {"n_layers": 4}, (2, 1), 2, 512, False, False),
@@ -4378,7 +4401,11 @@ TRAIN_JOBS = (
     TrainJob("qwen3-moe-235b-a22b", {"n_layers": 1, **F32}, (1, 2), 2, 512,
              True, True),
     TrainJob("jamba-v0.1-52b", {"n_layers": 2, **F32}, (1, 2), 2, 512, True,
-             True))
+             True),
+    TrainJob("qwen3-8b", {"n_layers": 2, "n_kv_heads": 1, **F32}, (1, 2), 2,
+             512, True, True))
+# the jobs whose depth is chosen for the script's time, not by STATE_BUDGET
+TIME_CUT = ("stablelm-1.6b", "falcon-mamba-7b", "qwen3-8b")
 # the state of a job's world-1 run (and of its two ranks together) that its
 # depth is cut to: the rest of the card holds the step's activations,
 # its temporaries and the allocator's slack
@@ -4443,9 +4470,9 @@ def state_bytes(cfg):
 
 def cut_depth(job):
     """(the full config's layers, the job's state bytes, the state of one
-    layer more or None at full depth); for the six configs' jobs
-    (``TRAIN_JOBS`` past falcon-mamba-7b) the phase requires the state
-    within ``STATE_BUDGET`` and one layer more beyond it."""
+    layer more or None at full depth); for the six configs' jobs (those
+    not in ``TIME_CUT``) the phase requires the state within
+    ``STATE_BUDGET`` and one layer more beyond it."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
@@ -4629,8 +4656,8 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
 
 def train_sharded_rank(rank, store, out_dir):
     """One rank of phase 32: a gloo group of ``SHARDED_RANKS`` processes on
-    cuda:0, every job of ``TRAIN_JOBS`` on its mesh; writes its results to
-    out_dir/rank{rank}.pt."""
+    cuda:0, every job of ``TRAIN_JOBS`` on its mesh with DTensor's own
+    collectives refused; writes its results to out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -4638,9 +4665,11 @@ def train_sharded_rank(rank, store, out_dir):
     dist.init_process_group("gloo", store=dist.FileStore(store, SHARDED_RANKS),
                             rank=rank, world_size=SHARDED_RANKS)
     try:
+        from repro_torch.distributed import sharding as sh
         from repro_torch.kernels import ops
         from repro_torch.launch.mesh import make_local_mesh
 
+        sh.forbid_dtensor_collectives()  # every one through sharding
         res = {}
         for k, job in enumerate(TRAIN_JOBS):
             res[k] = train_job_steps(torch, ops, job,
@@ -4691,11 +4720,13 @@ def train_launches(torch, cfg, S):
     return {k: v * TRAIN_STEPS for k, v in want.items()}
 
 
-def train_shapes(cfg, job):
-    """{wrapper: [local shapes of its first two arguments]} a rank of
-    ``job.mesh`` runs, forward and backward: attention on its batch rows
-    and heads (query and KV heads split alike), the scan on its batch rows
-    and inner channels, each chunk of at most 256 steps."""
+def train_shapes(cfg, job, m):
+    """{wrapper: [local shapes of its first two arguments]} the rank at
+    ``m`` on "model" of ``job.mesh`` runs, forward and backward: attention
+    on its batch rows and heads (the KV heads split with the query heads,
+    or, where "model" does not split them, the ones its query heads read),
+    the scan on its batch rows and inner channels, each chunk of at most
+    256 steps."""
     from repro_torch.configs.base import layer_specs
     from repro_torch.models.mamba import CHUNK
 
@@ -4704,10 +4735,13 @@ def train_shapes(cfg, job):
     kinds = {s.kind for s in layer_specs(cfg)}
     out = {}
     if "attn" in kinds:
-        require(cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0,
-                f"{cfg.name}: {tp} ranks do not split the heads alike")
-        one = sorted({((B, cfg.n_heads // tp, S, cfg.head_dim),
-                       (B, cfg.n_kv_heads // tp, S, cfg.head_dim))})
+        require(cfg.n_heads % tp == 0, f"{cfg.name}: {tp} ranks do not "
+                f"split the query heads")
+        hl = cfg.n_heads // tp
+        kv = (cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else
+              len({h // cfg.q_per_kv for h in range(m * hl, (m + 1) * hl)}))
+        one = sorted({((B, hl, S, cfg.head_dim),
+                       (B, kv, S, cfg.head_dim))})
         out["flash_attention"] = out["flash_attention_bwd"] = one
     if "mamba" in kinds:
         inner = cfg.d_inner // tp if cfg.d_inner % tp == 0 else cfg.d_inner
@@ -4767,12 +4801,13 @@ def train_sharded_on_card(torch, ops, card):
     launches of the attention and scan kernels, forward and backward (by
     route), on the steps, and the local shapes of both, forward and
     backward (``train_shapes``: half the batch rows on (2, 1), half the
-    heads or inner channels on (1, 2)); no gradient a partial sum; finite
-    losses; for a held job the first step's loss, grad norm and
-    gradients within ``TRAIN_RTOL`` of the world-1 run, the second step's
-    loss and grad norm within ``TRAIN_RTOL`` plus 4x the witness's move,
-    and the update's cosine >= 0.99.  Returns the launches of both ranks'
-    steps, summed."""
+    heads or inner channels on (1, 2), the one KV head whole); no gradient
+    a partial sum; finite losses; for a held job the first step's loss,
+    grad norm and gradients within ``TRAIN_RTOL`` of the world-1 run, the
+    second step's loss and grad norm within ``TRAIN_RTOL`` plus 4x the
+    witness's move, and the update's cosine >= 0.99.  The ranks refuse
+    DTensor's own collectives.  Returns the launches of both ranks' steps,
+    summed."""
     import dataclasses
     import tempfile
 
@@ -4794,7 +4829,7 @@ def train_sharded_on_card(torch, ops, card):
               + f" (budget {STATE_BUDGET / 1e9:.0f} GB of the card for the "
               f"world-1 run, and for the two ranks' halves beside each "
               f"other)")
-        if job.config not in ("stablelm-1.6b", "falcon-mamba-7b"):
+        if job.config not in TIME_CUT:
             if state > STATE_BUDGET or (more is not None
                                         and more <= STATE_BUDGET):
                 fails.append(f"{job.config}: {n} layers is not the depth "
@@ -4836,9 +4871,9 @@ def train_sharded_on_card(torch, ops, card):
         limits = ([TRAIN_RTOL] + [TRAIN_RTOL + 4 * m for m in
                                   wit["steps"][1:]] if wit else None)
         n_want = train_launches(torch, cfg, job.S)
-        shapes_want = train_shapes(cfg, job)
         for r, res in enumerate(ranks):
             got = res[k]
+            shapes_want = train_shapes(cfg, job, r % job.mesh[1])
             add_counts(total, got["counts"])
             for key in ("param_bytes", "moment_bytes"):
                 need(got[key][0] == got[key][1], f"{label} rank {r}: "

@@ -645,6 +645,33 @@ def reduce_grad(t, axes):
     return t
 
 
+def forbid_dtensor_collectives():
+    """Make every collective of DTensor's own redistribution raise in this
+    process (DTensor's functional collectives and its placements' scatter,
+    broadcast and all-to-all): a guard for sharded runs, whose collectives
+    all go through this module and whose DTensor operations are laid out
+    to need none.  With torch 2.11 and gloo on an H100 host, DTensor's
+    functional all-gather of a CUDA tensor ended the process, and DTensor
+    reconciles mixed placements with a collective on one version where
+    another changes a label locally."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import placement_types
+
+    def refuse(*a, **kw):
+        raise AssertionError("a DTensor operation ran a collective of its "
+                             "own redistribution")
+
+    for mod, names in ((funcol, ("all_reduce", "all_gather_single",
+                                 "all_gather_tensor", "reduce_scatter_single",
+                                 "reduce_scatter_tensor",
+                                 "all_to_all_single")),
+                       (placement_types, ("shard_dim_alltoall", "mesh_scatter",
+                                          "mesh_broadcast"))):
+        for n in names:
+            if hasattr(mod, n):
+                setattr(mod, n, refuse)
+
+
 def pmax(t, axes):
     """``psum``'s maximum, in place and without a gradient (the choices it
     serves, a softmax's shift and the position masks, take none)."""

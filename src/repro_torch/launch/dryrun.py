@@ -38,8 +38,10 @@ partitioner would refuse it.  The report keeps the reference's layout:
 * ``generated_code_size_in_bytes`` stays ``null``, and ``unavailable``
   says why;
 * ``dtensor_collectives``: the collectives DTensor's own redistribution
-  issued (in ``collectives`` too), by the op they served, which the
-  models are laid out to need none of (``{}``).
+  issued (in ``collectives`` too), by the op they served, and
+  ``dtensor_redistributions``: every redistribution DTensor planned by
+  itself, collective or local, by the op and placements; the models are
+  laid out to need none of either (``{}``).
 
 ``execute(cfg, shape, mesh_shape)`` does one cell's work for any config,
 shape and mesh (the tests run reduced configs on small fake meshes).  The
@@ -239,6 +241,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         collectives=w["collectives"],
         memory=mem,
         dtensor_collectives=w["dtensor_collectives"],
+        dtensor_redistributions=w["dtensor_redistributions"],
         fits_card=(mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
                    <= CHIP.hbm_bytes),
         unavailable=UNAVAILABLE,

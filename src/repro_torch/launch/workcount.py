@@ -36,7 +36,11 @@ and counts the collective ops it sees, so that the dry run can tell a
 collective that bypassed ``sharding`` from none.  A collective of
 DTensor's own redistribution (a functional collective, which the models
 are laid out to need none of) is noted in the record too, by kind, and
-counted under the DTensor op it served (``dtensor_collectives``).
+counted under the DTensor op it served (``dtensor_collectives``), and
+every redistribution DTensor plans by itself, collective or local, by the
+op it served and the placements it moved between
+(``dtensor_redistributions``): a plan that is a local relabel on one
+torch version may be a collective on another.
 """
 from __future__ import annotations
 
@@ -171,6 +175,7 @@ class WorkCounter(TorchDispatchMode):
         self.peak = 0
         self.collective_ops = collections.Counter()
         self.dtensor_collectives = collections.Counter()
+        self.dtensor_redistributions = collections.Counter()
         self._dtensor_op = None
         self._kept: set = set()
         self._tracked: set = set()
@@ -232,18 +237,51 @@ class WorkCounter(TorchDispatchMode):
 
 
 @contextmanager
+def _planned_redistributions(counter):
+    """Count into ``counter.dtensor_redistributions`` each redistribution
+    DTensor plans by itself inside: the ones its op dispatch plans for an
+    operand, under the op it served, and its ``from_local``/``redistribute``
+    transposes' (``redistribute_local_tensor`` where each calls it)."""
+    from torch.distributed.tensor import _api, _dispatch
+
+    def counted(mod, orig):
+        def call(local, current, target, *a, **kw):
+            op = (counter._dtensor_op if mod is _dispatch
+                  else "from_local/redistribute")
+            counter.dtensor_redistributions[
+                f"{op}: {tuple(current.placements)} -> "
+                f"{tuple(target.placements)}"] += 1
+            return orig(local, current, target, *a, **kw)
+        return call
+
+    # the op dispatch's must be there (a count of 0 must mean no plan)
+    mods = [_dispatch] + [m for m in (_api,)
+                          if hasattr(m, "redistribute_local_tensor")]
+    originals = [m.redistribute_local_tensor for m in mods]
+    for m, orig in zip(mods, originals):
+        m.redistribute_local_tensor = counted(m, orig)
+    try:
+        yield
+    finally:
+        for m, orig in zip(mods, originals):
+            m.redistribute_local_tensor = orig
+
+
+@contextmanager
 def count_work(args=()):
     """Count rank 0's work inside; yields a dict that holds, on leaving,
     "flops", "bytes_accessed", "temp_size_in_bytes", "collectives" (the
     reference's ``{kind: {"count", "bytes"}, "total_bytes"}``),
     "kernel_calls" (``_meta.Call``s), "collective_ops" (the collective ops
-    seen, by name) and "dtensor_collectives" (DTensor's own, by the op
-    they served).  ``args``: the step's arguments, whose storages are not
-    temporaries."""
+    seen, by name), "dtensor_collectives" (DTensor's own, by the op they
+    served) and "dtensor_redistributions" (the redistributions DTensor
+    planned by itself, by the op and placements).  ``args``: the step's
+    arguments, whose storages are not temporaries."""
     res: dict = {}
     counter = WorkCounter()
     counter.keep(args)
-    with sh.recording() as coll, _meta.recording() as calls, counter:
+    with sh.recording() as coll, _meta.recording() as calls, \
+            _planned_redistributions(counter), counter:
         yield res
     coll["total_bytes"] = sum(v["bytes"] for v in coll.values())
     res.update(
@@ -251,4 +289,5 @@ def count_work(args=()):
         bytes_accessed=counter.bytes + sum(c.bytes for c in calls),
         temp_size_in_bytes=counter.peak, collectives=coll,
         kernel_calls=calls, collective_ops=counter.collective_ops,
-        dtensor_collectives=dict(counter.dtensor_collectives))
+        dtensor_collectives=dict(counter.dtensor_collectives),
+        dtensor_redistributions=dict(counter.dtensor_redistributions))

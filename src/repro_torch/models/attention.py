@@ -73,12 +73,16 @@ each rank's shards:
 * Windows and given positions in prefill need nothing more: the kernel
   takes the window, and the positions (B, S) split by batch as q is.
 * Training (no cache) runs prefill's path with gradients: they come back
-  through the kernel's backward on each rank's shards, through the
+  through the kernel's backward on each rank's shards and through the
   gathers of ``_qkv`` and ``_out`` (``sharding.redistribute``'s
-  transposes), and, where a rank reads its slice of heads replicated over
-  "model" (``_paired``, ``_padded``), summed over "model"
-  (``sharding.reduce_grad``); the padded heads' gradients are dropped
-  with them.
+  transposes).  Where a rank reads its slice of KV heads replicated over
+  "model" beside its own query heads (``_paired``), its gradient of k and
+  v is its term of a sum over "model", as its query heads' is, and the
+  gather's transpose sums them together; where it reads its slice of the
+  padded heads (``_padded``), the gradients of q, k and v are summed over
+  "model" (``sharding.reduce_grad``), and the padded heads' gradients are
+  dropped with them.  No DTensor operation mixes placements that DTensor
+  would reconcile by itself (tests/test_torch_dtensor_placements.py).
 """
 from __future__ import annotations
 
@@ -175,30 +179,36 @@ def _heads_dtensor(t, tp: int, B: int):
 
 def _kv_for(k, heads, G: int):
     """The KV heads that query heads ``heads`` (a range) read, from the
-    local (B, Hkv, S, D) ``k``: a slice where the range holds whole groups
+    local (B, S, Hkv, D) ``k``: a slice where the range holds whole groups
     (or lies in one), else one KV head per query head (index h // G)."""
     idx = torch.arange(heads.start, heads.stop) // G
     first, n = int(idx[0]), int(idx[-1] - idx[0]) + 1
     g = len(idx) // n
     if len(idx) % n == 0 and torch.equal(
             idx, first + torch.arange(len(idx)) // g):
-        return k[:, first:first + n]
-    return k[:, idx.to(k.device)]
+        return k[:, :, first:first + n]
+    return k[:, :, idx.to(k.device)]
 
 
 def _paired(q, k, v, cfg: ModelConfig):
     """k, v for q split over "model" by heads: as they are where "model"
     splits the KV heads alike; where it splits only the query heads, each
-    rank's slice of the replicated KV heads, paired with its query heads."""
+    rank's slice of the replicated KV heads, paired with its query heads.
+
+    Each rank's gradient of k and v is then its term of a sum over "model"
+    (``Partial()``), as the gradient of the layer's input through its query
+    heads is, so that autograd sums terms of one placement.  The heads are
+    picked in the projections' (B, S, Hkv, D) layout, where their gradient
+    comes back contiguous: DTensor reduces a partial sum that it must copy
+    (the reshape of a strided gradient) instead of keeping it partial."""
     tp, r = _model_rank(q)
     if tp == 1 or sh.shard_axes(k, 1) or not sh.shard_axes(q, 1):
         return k, v
     hl = cfg.n_heads // tp
     heads = range(r * hl, (r + 1) * hl)
-    # each rank reads its own KV heads: their gradients summed over "model"
-    return tuple(_heads_dtensor(_kv_for(sh.reduce_grad(
-        sh.local(t), ("model",)), heads, cfg.q_per_kv), tp, q.shape[0])
-        for t in (k, v))
+    return tuple(_heads_dtensor(_kv_for(
+        sh.local(t, partial=("model",)).transpose(1, 2), heads,
+        cfg.q_per_kv).transpose(1, 2), tp, q.shape[0]) for t in (k, v))
 
 
 def _padded(q, k, v, cfg: ModelConfig):
@@ -328,7 +338,8 @@ def _decode_split_rows(params: dict, x, q, ck, cv, cache_len: int,
         with_lse=True)
     out = merge_partials([out], [lse], axes).to(ql.dtype)  # (B, H, D)
     out = sh.from_local(out[:, None], q.shape, "batch", None, None, None)
-    return _out(params, out, x)
+    # each rank's heads of wo's split (a chunk, no collective)
+    return _out(params, constrain(out, "batch", None, "heads", None), x)
 
 
 def merge_partials(outs, lses, axes=()):

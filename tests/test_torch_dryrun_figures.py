@@ -83,7 +83,7 @@ def _cells() -> dict:
 
 
 REF_SCRIPT = r"""
-import json, sys
+import json, re, sys
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
@@ -106,7 +106,13 @@ for key, (name, ov, step, S, B, shape) in json.loads(sys.argv[1]).items():
                            out_shardings=to_ns(low.out_shardings),
                            donate_argnums=low.donate_argnums).lower(
             *low.args_sds).compile()
-    out[key] = collective_stats_attributed(compiled.as_text())
+    text = compiled.as_text()
+    # the collectives of the embedding's lookup (jnp.take), kind and result
+    lookup = re.findall(r"= (\S+) (all-gather|all-reduce|reduce-scatter|"
+                        r"all-to-all|collective-permute)(?:-start)?\(.*"
+                        r"op_name=\"[^\"]*_take", text)
+    out[key] = dict(collective_stats_attributed(text),
+                    lookup=[f"{k} {t.split('{')[0]}" for t, k in lookup])
 print(json.dumps(out))
 """
 
@@ -168,8 +174,8 @@ def test_collectives_by_hand_have_the_reference_bytes():
     f32 (8, 6) DTensor over "data" of (2, 2): one all-gather, one
     reduce-scatter, one all-reduce, each with the wire bytes that the
     reference's parser gives the same collective in HLO.  A collective of
-    DTensor's own redistribution is recorded too, under the op it
-    served."""
+    DTensor's own redistribution is recorded too, under the op it served,
+    and its plan under the op and placements."""
     script = r"""
 import json
 import torch
@@ -199,7 +205,8 @@ y = DTensor.from_local(torch.empty(8, 3, device="meta"), mesh,
                        stride=(6, 1))
 with count_work() as w:
     x + y
-out["dtensor"] = [w["dtensor_collectives"], w["collectives"]]
+out["dtensor"] = [w["dtensor_collectives"], w["collectives"],
+                  w["dtensor_redistributions"]]
 print(json.dumps(out))
 """
     env = dict(os.environ, PYTHONPATH=str(world.ROOT / "src"),
@@ -209,10 +216,13 @@ print(json.dumps(out))
                           timeout=world.JOIN_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
-    ops, rec = got.pop("dtensor")
+    ops, rec, plans = got.pop("dtensor")
     assert list(ops) == ["aten::add.Tensor"]
     assert sum(v["count"] for k, v in rec.items() if k != "total_bytes") == \
         ops["aten::add.Tensor"] > 0
+    # and the plan itself, by the op and the placements it moved between
+    assert plans == {"aten::add.Tensor: (Shard(dim=1), Replicate()) -> "
+                     "(Shard(dim=0), Replicate())": 1}
     hlo = ("HloModule m\n\nENTRY %main (p: f32[8,6]) -> f32[8,6] {{\n"
            "  %p = f32[8,6]{{1,0}} parameter(0)\n"
            "  ROOT %r = {} {}(f32[8,6]{{1,0}} %p)\n}}\n")
@@ -336,7 +346,8 @@ def test_collectives_against_the_reference(runs):
     """The reduced qwen3-8b prefill and train cells: the port's executed
     collectives beside the reference's compiled ones, kind by kind (wire
     bytes a device, the reference's loop bodies multiplied by their trip
-    counts), the totals within a factor of 4."""
+    counts), the totals within a factor of 4; printed too, the
+    reference's collectives of the embedding's lookup."""
     port, ref = runs
     for key in sorted(ref):
         got, want = port[key]["collectives"], ref[key]
@@ -345,6 +356,7 @@ def test_collectives_against_the_reference(runs):
               f"{got['total_bytes'] / want['total_bytes']:.3f}); by kind "
               + ", ".join(f"{k} {got[k]['count']}/{want[k]['count']} calls "
                           f"{got[k]['bytes']:.0f}/{want[k]['bytes']:.0f} B"
-                          for k in ref_hlo.COLLECTIVE_FACTOR))
+                          for k in ref_hlo.COLLECTIVE_FACTOR)
+              + f"; the reference's lookup: {want['lookup']}")
         assert want["total_bytes"] / 4 <= got["total_bytes"] <= \
             4 * want["total_bytes"], key

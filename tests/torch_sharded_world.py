@@ -28,8 +28,9 @@ TRAIN_RULES)``, then the decode cell's ``fn`` on arguments placed by its
 and cache bytes beside those its shards should hold by the rules, and the
 local shapes its kernel wrappers ran on; rank 0 writes the gathered logits
 and caches.  DTensor's own collectives are refused in the ranks
-(``forbid_dtensor_collectives``), and each rank records the collectives
-that prefill and each decode step issue (``sharding.recording``).
+(``sharding.forbid_dtensor_collectives``), and each rank records the
+collectives that prefill and each decode step issue
+(``sharding.recording``).
 
 ``fake_cells(cases)`` runs cells of the dry run (``launch/dryrun.py::
 execute``) on reduced configs and small meshes of a fake process group in
@@ -471,30 +472,6 @@ def _record_shapes():
     return seen
 
 
-def forbid_dtensor_collectives():
-    """Make every collective of DTensor's own redistribution raise: the
-    port runs its collectives through ``sharding.redistribute`` and places
-    every DTensor operation so that it needs none (with torch 2.11 and
-    gloo on an H100 host, DTensor's functional all-gather of a CUDA tensor
-    ends the process)."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import placement_types
-
-    def refuse(*a, **kw):
-        raise AssertionError("a DTensor operation ran a collective of its "
-                             "own redistribution")
-
-    for mod, names in ((funcol, ("all_reduce", "all_gather_single",
-                                 "all_gather_tensor", "reduce_scatter_single",
-                                 "reduce_scatter_tensor",
-                                 "all_to_all_single")),
-                       (placement_types, ("shard_dim_alltoall", "mesh_scatter",
-                                          "mesh_broadcast"))):
-        for n in names:
-            if hasattr(mod, n):
-                setattr(mod, n, refuse)
-
-
 def _batches(ref):
     """The prefill batch and the decode steps' batches the reference
     drew, as torch tensors."""
@@ -532,7 +509,7 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         S = next(iter(batch.values())).shape[1]
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
-        forbid_dtensor_collectives()
+        sh.forbid_dtensor_collectives()
         out: dict = {}
         params = P.shard_params(cfg, full, mesh, sh.TRAIN_RULES)
         L = S + specs.DECODE_PAD
@@ -643,7 +620,7 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
         tc = train_loop.TrainConfig(accum_steps=accum)
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
-        forbid_dtensor_collectives()
+        sh.forbid_dtensor_collectives()
         low = specs.build_lowerable(cfg, ShapeConfig("train", seq, TRAIN_B,
                                                      "train"), mesh, tc)
         state = train_loop.state_from_jax(cfg, jstate, device="cpu",
@@ -949,7 +926,8 @@ for key, (name, overrides, step, S, B, mesh) in json.loads(sys.argv[1]).items():
     out[key] = dict(flops=w["flops"], bytes=w["bytes_accessed"],
                     temp=w["temp_size_in_bytes"], collectives=w["collectives"],
                     shapes=shapes, kernels=sorted({c.kernel for c in
-                                                   w["kernel_calls"]}))
+                                                   w["kernel_calls"]}),
+                    redistributions=w["dtensor_redistributions"])
 print(json.dumps(out))
 """
 
@@ -970,8 +948,9 @@ def start_fake_cells(cases: dict) -> subprocess.Popen:
 def fake_cells(cases) -> dict:
     """{key: {"flops", "bytes", "temp", "collectives", "shapes" (the local
     shapes each kernel wrapper's meta route ran on, as ``_record_shapes``
-    gives them), "kernels"}} of the cells (a dict as ``start_fake_cells``
-    takes, or the child it started)."""
+    gives them), "kernels", "redistributions" (those DTensor planned by
+    itself)}} of the cells (a dict as ``start_fake_cells`` takes, or the
+    child it started)."""
     proc = cases if isinstance(cases, subprocess.Popen) else \
         start_fake_cells(cases)
     try:
@@ -1137,7 +1116,7 @@ def grad_world(rank, store, out_dir):
         from repro_torch.distributed import sharding as sh
         from repro_torch.launch.mesh import make_local_mesh
 
-        forbid_dtensor_collectives()
+        sh.forbid_dtensor_collectives()
         mesh = make_local_mesh(1, 2, device="cpu")
         pl = {"shard": Shard(0), "replicate": Replicate(),
               "partial": Partial()}
