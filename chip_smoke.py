@@ -4126,8 +4126,8 @@ def run_job(torch, ops, job, mesh=None):
 def sharded_rank(rank, store, out_dir, phase):
     """One rank of phase 30 or 31: a gloo group of ``SHARDED_RANKS``
     processes on cuda:0, a (1, 2) ("data", "model") mesh, every job of
-    ``JOBS[phase]`` with DTensor's own collectives refused; writes its
-    results to out_dir/rank{rank}.pt."""
+    ``JOBS[phase]`` with DTensor's own collectives and plans refused;
+    writes its results to out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -4141,13 +4141,27 @@ def sharded_rank(rank, store, out_dir, phase):
 
         res = {"collectives": gloo_cuda_collectives(torch, rank)}
         sh.forbid_dtensor_collectives()  # every one through sharding
+        sh.forbid_dtensor_plans()
         mesh = make_local_mesh(1, SHARDED_RANKS)
         for k, job in enumerate(JOBS[phase]):
-            res[k] = run_job(torch, ops, job, mesh)
+            try:
+                res[k] = run_job(torch, ops, job, mesh)
+            except Exception as e:  # name the job in the rank's error
+                raise RuntimeError(f"phase {phase} job {k}: {job}") from e
             dist.barrier()
+        res["dtensor_plans"] = dict(sh.DTENSOR_PLANS)
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def check_plans(phase, ranks):
+    """Print the redistributions DTensor planned by itself in each rank of
+    ``phase`` (``sharding.forbid_dtensor_plans`` refuses the first, so a
+    rank that ran to its end holds none) and require none."""
+    plans = [r["dtensor_plans"] for r in ranks]
+    print(f"phase {phase} DTensor plans of its own, by rank: {plans}")
+    require(not any(plans), f"phase {phase}: DTensor planned {plans}")
 
 
 def expected_launches(cfg, S, n_decode):
@@ -4221,6 +4235,7 @@ def sharded_on_card(torch, ops, card, phase=30):
                 if p.is_alive():
                     p.kill()
         ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(SHARDED_RANKS)]
+    check_plans(phase, ranks)
     coll = ranks[0]["collectives"]
     print(f"phase {phase} gloo moves for CUDA tensors (2 ranks on cuda:0): "
           + ", ".join(f"{k} {v}" for k, v in coll.items()))
@@ -4657,7 +4672,8 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
 def train_sharded_rank(rank, store, out_dir):
     """One rank of phase 32: a gloo group of ``SHARDED_RANKS`` processes on
     cuda:0, every job of ``TRAIN_JOBS`` on its mesh with DTensor's own
-    collectives refused; writes its results to out_dir/rank{rank}.pt."""
+    collectives and plans refused; writes its results to
+    out_dir/rank{rank}.pt."""
     import torch
     import torch.distributed as dist
 
@@ -4670,11 +4686,17 @@ def train_sharded_rank(rank, store, out_dir):
         from repro_torch.launch.mesh import make_local_mesh
 
         sh.forbid_dtensor_collectives()  # every one through sharding
+        sh.forbid_dtensor_plans()
         res = {}
         for k, job in enumerate(TRAIN_JOBS):
-            res[k] = train_job_steps(torch, ops, job,
-                                     make_local_mesh(*job.mesh))
+            try:
+                res[k] = train_job_steps(torch, ops, job,
+                                         make_local_mesh(*job.mesh))
+            except Exception as e:  # name the job in the rank's error
+                raise RuntimeError(f"phase 32 job {k}: {job.config} "
+                                   f"{job.overrides} on {job.mesh}") from e
             dist.barrier()
+        res["dtensor_plans"] = dict(sh.DTENSOR_PLANS)
         torch.save(res, f"{out_dir}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4806,7 +4828,7 @@ def train_sharded_on_card(torch, ops, card):
     grad norm and gradients within ``TRAIN_RTOL`` of the world-1 run, the
     second step's loss and grad norm within ``TRAIN_RTOL`` plus 4x the
     witness's move, and the update's cosine >= 0.99.  The ranks refuse
-    DTensor's own collectives.  Returns the launches of both ranks' steps,
+    DTensor's own collectives and plans.  Returns the launches of both ranks' steps,
     summed."""
     import dataclasses
     import tempfile
@@ -4854,6 +4876,7 @@ def train_sharded_on_card(torch, ops, card):
                 if p.is_alive():
                     p.kill()
         ranks = [torch.load(f"{d}/rank{r}.pt") for r in range(SHARDED_RANKS)]
+    check_plans(32, ranks)
     t_ranks = time.perf_counter() - t_phase - t_world1
     total = {}
 

@@ -34,7 +34,13 @@ torch 2.11.0 and gloo on an H100 host, DTensor's functional all-gather of
 a CUDA tensor ended the process (SIGSEGV), while the plain calls moved the
 same tensors.  The
 models place every DTensor operation so that it needs no redistribution
-of its own (the tests hold them to that).
+of its own: ``forbid_dtensor_plans`` makes any plan of DTensor's own
+raise, as the tests' ranks and the card's sharded phases do, since a plan
+that relabels on one torch version moves data on another.  A dimension of
+size 1 is never split (``placements``), and over a mesh axis of one rank
+a weight is whole (``gathered``) and so is the activation it meets in a
+product (``whole_on_one_rank``): DTensor cannot view such a split, and
+would split the weight by itself.
 
 ``distribute`` is the reference's ``jax.device_put`` with a tree of
 ``NamedSharding``s: each full tensor becomes a DTensor holding only the
@@ -72,6 +78,7 @@ counts; here both count what ran.  Off, it costs one test a collective.
 """
 from __future__ import annotations
 
+import collections
 import math
 import threading
 from contextlib import contextmanager
@@ -254,18 +261,21 @@ def to_pspec(logical, rules: Optional[dict] = None, mesh=None,
     return PartitionSpec(*out)
 
 
-def placements(spec, mesh) -> tuple:
+def placements(spec, mesh, shape=None) -> tuple:
     """DTensor placements of ``spec`` on ``mesh``: ``Shard(dim)`` for each
     mesh dimension that splits tensor dimension ``dim``, ``Replicate()``
     for the others.  A tuple entry must name its axes in mesh order (the
     first outermost), which is how DTensor splits one dimension over
-    several mesh dimensions."""
+    several mesh dimensions.  Given the tensor's ``shape``, a dimension of
+    size 1 is not split: only mesh axes of one rank can split it, where
+    nothing moves, and DTensor cannot view such a split (it plans a
+    redistribution of its own, or refuses)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        if entry is None:
+        if entry is None or shape is not None and shape[dim] == 1:
             continue
         axes = (entry,) if isinstance(entry, str) else tuple(entry)
         idx = [names.index(a) for a in axes]
@@ -296,7 +306,7 @@ def constrain(x, *logical):
     from torch.distributed.tensor import DTensor
 
     if isinstance(x, DTensor):
-        return redistribute(x, placements(spec, mesh))
+        return redistribute(x, placements(spec, mesh, x.shape))
     if mesh.size() == 1:
         return x
     raise NotImplementedError(
@@ -363,7 +373,8 @@ def _place(t, spec, mesh):
 
     if not isinstance(t, torch.Tensor):
         return t
-    pl = placements(spec if spec is not None else PartitionSpec(), mesh)
+    pl = placements(spec if spec is not None else PartitionSpec(), mesh,
+                    t.shape)
     if isinstance(t, DTensor):
         return redistribute(t, pl)
     # the mesh's device; a meta tensor (the dry run) stays on meta
@@ -550,6 +561,22 @@ def gathered(w):
         for m, p in enumerate(w.placements)])
 
 
+def whole_on_one_rank(x):
+    """The DTensor ``x`` with its splits over mesh axes of one rank taken
+    as replicated (nothing moves), as ``gathered`` takes a weight's: an
+    activation split over a one-rank axis is made so before a product
+    that contracts the split dimension with a gathered weight, which would
+    otherwise make DTensor plan a split of the weight by itself.  Anything
+    else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    return redistribute(x, [Replicate() if mesh.size(m) == 1 else p
+                            for m, p in enumerate(x.placements)])
+
+
 def shard_axes(x, dim: int) -> tuple:
     """The names of the mesh dimensions that split dimension ``dim`` of the
     DTensor ``x``, in mesh order (none for a plain tensor)."""
@@ -672,6 +699,56 @@ def forbid_dtensor_collectives():
                 setattr(mod, n, refuse)
 
 
+def _watch_dtensor_plans(on_plan):
+    """Call ``on_plan(by, current, target)`` before each redistribution
+    DTensor plans by itself (its ``redistribute_local_tensor``), from here
+    on: ``by`` is "op" where its op dispatch plans one for an operand, and
+    "from_local/redistribute" for those transposes' gradients.  Returns the
+    function that undoes it."""
+    from torch.distributed.tensor import _api, _dispatch
+
+    def watched(by, orig):
+        def call(local, current, target, *a, **kw):
+            on_plan(by, current, target)
+            return orig(local, current, target, *a, **kw)
+        return call
+
+    # the op dispatch's must be there (no call must mean no plan)
+    mods = [(_dispatch, "op")] + [
+        (m, "from_local/redistribute") for m in (_api,)
+        if hasattr(m, "redistribute_local_tensor")]
+    originals = [m.redistribute_local_tensor for m, _ in mods]
+    for (m, by), orig in zip(mods, originals):
+        m.redistribute_local_tensor = watched(by, orig)
+
+    def undo():
+        for (m, _), orig in zip(mods, originals):
+            m.redistribute_local_tensor = orig
+    return undo
+
+
+#: the redistributions DTensor planned by itself in this process since
+#: ``forbid_dtensor_plans``, by "<by>: <placements> -> <placements>"
+DTENSOR_PLANS: collections.Counter = collections.Counter()
+
+
+def forbid_dtensor_plans():
+    """Make every redistribution that DTensor plans by itself raise in this
+    process, collective or not, after counting it in ``DTENSOR_PLANS``: a
+    guard for sharded runs beside ``forbid_dtensor_collectives``.  A plan
+    that is a local relabel on one torch version is a collective on
+    another (an all-reduce on 2.11 where 2.13 relabels), so the models are
+    laid out to need none, and every move goes through ``redistribute``."""
+    def refuse(by, current, target):
+        plan = (f"{by}: {tuple(current.placements)} -> "
+                f"{tuple(target.placements)}")
+        DTENSOR_PLANS[plan] += 1
+        raise AssertionError(
+            f"DTensor planned a redistribution of its own ({plan})")
+
+    _watch_dtensor_plans(refuse)
+
+
 def pmax(t, axes):
     """``psum``'s maximum, in place and without a gradient (the choices it
     serves, a softmax's shift and the position masks, take none)."""
@@ -732,7 +809,7 @@ def from_local(t, shape, *logical, partial=(), partial_grad=()):
 
     mesh = _CTX.mesh
     shape = tuple(shape)
-    pl = list(placements(to_pspec(logical, shape=shape), mesh))
+    pl = list(placements(to_pspec(logical, shape=shape), mesh, shape))
     for m, name in enumerate(mesh.mesh_dim_names):
         if name in partial:
             if pl[m].is_shard():
@@ -746,7 +823,7 @@ def zeros(shape, dtype, logical, device):
     """A DTensor of zeros of ``shape``, laid out by the logical axes under
     the active mesh and rules, allocating only the rank's shard."""
     mesh = _CTX.mesh
-    pl = placements(to_pspec(logical, shape=tuple(shape)), mesh)
+    pl = placements(to_pspec(logical, shape=tuple(shape)), mesh, shape)
     local_shape = list(shape)
     for m, p in enumerate(pl):
         if p.is_shard():

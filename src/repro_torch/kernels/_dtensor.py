@@ -41,7 +41,10 @@ def on_shards(name: str, fn, args, shards, out_shards):
     dims the kernel treats independently; ``out_shards``: one such dict for
     a single output, or a tuple of them, one per output.  Each mesh
     dimension may shard one role, and then shards it in every argument that
-    has it and leaves the others replicated."""
+    has it and leaves the others replicated.  A mesh dimension of one rank
+    splits nothing (each rank's shard is the whole there, whatever the
+    placement: a dimension of size 1 is not split, its neighbours may be),
+    and the outputs are replicated over it."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     present = [(a, s) for a, s in zip(args, shards, strict=True)
@@ -54,7 +57,7 @@ def on_shards(name: str, fn, args, shards, out_shards):
         if a.device_mesh != mesh:
             raise ValueError(f"{name}: arguments on different meshes")
         for m, p in enumerate(a.placements):
-            if p.is_replicate():
+            if p.is_replicate() or mesh.size(m) == 1:
                 continue
             dim = p.dim % a.ndim if p.is_shard() else None
             if dim not in s or a.shape[dim] % mesh.size(m):
@@ -69,6 +72,8 @@ def on_shards(name: str, fn, args, shards, out_shards):
             roles[m] = s[dim]
     for a, s in present:
         for m, role in enumerate(roles):
+            if mesh.size(m) == 1:  # one rank: its shard is the whole
+                continue
             want = None if role is None else _dim_of(s, role)
             p = a.placements[m]
             ok = p == Shard(want) if want is not None else p.is_replicate()

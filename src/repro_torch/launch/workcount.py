@@ -241,30 +241,18 @@ def _planned_redistributions(counter):
     """Count into ``counter.dtensor_redistributions`` each redistribution
     DTensor plans by itself inside: the ones its op dispatch plans for an
     operand, under the op it served, and its ``from_local``/``redistribute``
-    transposes' (``redistribute_local_tensor`` where each calls it)."""
-    from torch.distributed.tensor import _api, _dispatch
+    transposes' (``sharding._watch_dtensor_plans``)."""
+    def count(by, current, target):
+        op = counter._dtensor_op if by == "op" else by
+        counter.dtensor_redistributions[
+            f"{op}: {tuple(current.placements)} -> "
+            f"{tuple(target.placements)}"] += 1
 
-    def counted(mod, orig):
-        def call(local, current, target, *a, **kw):
-            op = (counter._dtensor_op if mod is _dispatch
-                  else "from_local/redistribute")
-            counter.dtensor_redistributions[
-                f"{op}: {tuple(current.placements)} -> "
-                f"{tuple(target.placements)}"] += 1
-            return orig(local, current, target, *a, **kw)
-        return call
-
-    # the op dispatch's must be there (a count of 0 must mean no plan)
-    mods = [_dispatch] + [m for m in (_api,)
-                          if hasattr(m, "redistribute_local_tensor")]
-    originals = [m.redistribute_local_tensor for m in mods]
-    for m, orig in zip(mods, originals):
-        m.redistribute_local_tensor = counted(m, orig)
+    undo = sh._watch_dtensor_plans(count)
     try:
         yield
     finally:
-        for m, orig in zip(mods, originals):
-            m.redistribute_local_tensor = orig
+        undo()
 
 
 @contextmanager

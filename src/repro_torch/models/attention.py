@@ -127,6 +127,7 @@ def _qkv(params: dict, x, cfg: ModelConfig, rope):
 def _out(params: dict, out, x):
     """out: (B, S, H, D) -> y (B, S, M)."""
     B, S, H, D = out.shape
+    out = sh.whole_on_one_rank(out)  # as wo, gathered
     y = out.reshape(B, S, H * D) @ sh.gathered(params["wo"]).to(
         x.dtype).reshape(H * D, x.shape[-1])
     return constrain(y, "batch", "seq_sp", None)

@@ -166,7 +166,8 @@ def mamba_mixer(params: dict, x, cfg: ModelConfig, cache: dict | None):
     y = (y + xc32 * p["D"]).to(dt_) * F.silu(z)
     if sharded:
         y = sh.from_local(y, (B, S, I), "batch", "seq", "ssm_inner")
-    out = y @ sh.gathered(params["out_proj"]).to(dt_)  # sharded: partial
+    w_out = sh.gathered(params["out_proj"]).to(dt_)
+    out = sh.whole_on_one_rank(y) @ w_out  # sharded: partial
     if cache is not None:
         sh.local(cache["h"]).copy_(h_last)
         sh.local(cache["conv"]).copy_(new_conv)

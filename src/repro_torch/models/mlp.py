@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, gathered
+from repro_torch.distributed.sharding import (constrain, gathered,
+                                               whole_on_one_rank)
 
 
 def mlp(params: dict, x):
@@ -21,5 +22,5 @@ def mlp(params: dict, x):
     g = x @ w["w_gate"]
     u = x @ w["w_up"]
     h = constrain(F.silu(g) * u, "batch", "seq", "mlp")
-    y = h @ w["w_down"]
+    y = whole_on_one_rank(h) @ w["w_down"]  # as w_down, gathered
     return constrain(y, "batch", "seq_sp", None)

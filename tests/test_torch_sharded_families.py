@@ -83,9 +83,7 @@ def test_each_rank_holds_only_its_shards(runs, case, shape):
 @pytest.mark.parametrize("case,shape", PARAMS, ids=IDS)
 def test_kernels_ran_on_local_shards(runs, case, shape):
     want = world.kernel_shapes(_cfg(case), shape, CASES[case][2])
-    for rec in runs[case][0][world.tag(shape)][1]:
-        for kernel, shapes in want.items():
-            assert rec["shapes"][kernel] == shapes, kernel
+    world.assert_kernel_calls(runs[case][0][world.tag(shape)][1], want)
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 3)], ids=world.tag)

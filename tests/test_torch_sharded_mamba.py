@@ -81,7 +81,6 @@ def test_scan_ran_on_local_channels(runs, shape):
     inner = cfg.d_inner // tp if cfg.d_inner % tp == 0 else cfg.d_inner
     want = [world.B // dp, world.S, inner, cfg.ssm_state]
     _, ranks = runs[0][world.tag(shape)]
-    for rec in ranks:
-        assert rec["shapes"]["ssm_scan"] == [[want, want]] * cfg.n_layers
-        assert rec["shapes"]["flash_attention"] == []
-        assert rec["shapes"]["decode_attention"] == []
+    world.assert_kernel_calls(ranks, {
+        "ssm_scan": [[want, want]] * cfg.n_layers, "flash_attention": [],
+        "decode_attention": []})

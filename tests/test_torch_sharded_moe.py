@@ -93,9 +93,7 @@ def test_kernels_ran_on_local_shards(runs, case, shape):
     to 6 a rank at tp 3), decode's decode_attention on every head over the
     rank's cache rows."""
     want = world.kernel_shapes(_cfg(case), shape, CASES[case][2])
-    for rec in runs[case][0][world.tag(shape)][1]:
-        for kernel, shapes in want.items():
-            assert rec["shapes"][kernel] == shapes, kernel
+    world.assert_kernel_calls(runs[case][0][world.tag(shape)][1], want)
 
 
 @pytest.mark.parametrize("shape", ONE_RANK_MODEL, ids=world.tag)
@@ -111,9 +109,7 @@ def test_one_kv_head_on_a_one_rank_model_axis(runs, shape):
     world.assert_outputs_match(port, ref, shape, cfg)
     world.assert_rule_bytes(ranks)
     want = world.kernel_shapes(cfg, shape, world.S)
-    for rec in ranks:
-        for kernel, shapes in want.items():
-            assert rec["shapes"][kernel] == shapes, kernel
+    world.assert_kernel_calls(ranks, want)
 
 
 def test_the_experts_and_their_width_split_as_the_rules_say():

@@ -83,14 +83,13 @@ def test_kernels_ran_on_local_shards(runs, shape):
     heads = -(-cfg.n_heads // tp)
     kv_heads = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else heads
     _, ranks = runs[0][world.tag(shape)]
-    for rec in ranks:
-        fa, dec = rec["shapes"]["flash_attention"], rec["shapes"][
-            "decode_attention"]
-        assert fa == [[[B, heads, world.S, cfg.head_dim],
-                       [B, kv_heads, world.S, cfg.head_dim]]] * cfg.n_layers
-        assert dec == [[[B, cfg.n_heads, cfg.head_dim],
-                        [B, cfg.n_kv_heads, L // tp, cfg.head_dim]]] * (
-            cfg.n_layers * world.N_DECODE)
+    world.assert_kernel_calls(ranks, {
+        "flash_attention": [[[B, heads, world.S, cfg.head_dim],
+                             [B, kv_heads, world.S, cfg.head_dim]]]
+        * cfg.n_layers,
+        "decode_attention": [[[B, cfg.n_heads, cfg.head_dim],
+                              [B, cfg.n_kv_heads, L // tp, cfg.head_dim]]]
+        * (cfg.n_layers * world.N_DECODE)})
 
 
 def test_fake_group_records_the_live_collectives(runs):

@@ -19,18 +19,26 @@ move by 1e-7 (relative), the tolerance of a chaotic stack.  It writes the
 parameters, the batches, and each mesh's logits and cache (gathered) to
 ``.npz`` files.
 
-``world(tmp, name, overrides, shape)`` runs the port's same steps in a gloo
-world of data x model processes (``torch.multiprocessing.spawn``, a
-``FileStore``): parameters placed by ``params.shard_params`` and the batch
+``run_all(tmp, name, overrides, meshes)`` runs the port's same steps in
+gloo worlds of data x model processes (forked by a server process that
+imported torch and the port once, ``_spawn``; a ``FileStore``): parameters placed by ``params.shard_params`` and the batch
 by ``_batch_sds``' specs, prefill under ``sharding_ctx(mesh,
 TRAIN_RULES)``, then the decode cell's ``fn`` on arguments placed by its
 ``in_shardings`` under its rules.  Each rank records its local parameter
 and cache bytes beside those its shards should hold by the rules, and the
 local shapes its kernel wrappers ran on; rank 0 writes the gathered logits
-and caches.  DTensor's own collectives are refused in the ranks
-(``sharding.forbid_dtensor_collectives``), and each rank records the
-collectives that prefill and each decode step issue
-(``sharding.recording``).
+and caches.  DTensor's own collectives and plans are refused in the
+ranks (``gloo_rank``), and each rank records the collectives that prefill
+and each decode step issue (``sharding.recording``).
+
+``run_cases`` starts every case's reference at once, and runs each case's
+worlds once its reference has ended.  A reference waits for one of
+``REF_SLOTS`` lock files shared by the session's test workers before it
+starts its work.  A reference, a world's ranks and a child of the dry
+run's cells report their progress to a file as they start and end each
+unit of their work; each fails once it has reported none for ``JOIN_S``
+(a train reference: ``REF_TRAIN_S``), counted from its start or its last
+report (``_left``), so that load slows it without failing it.
 
 ``fake_cells(cases)`` runs cells of the dry run (``launch/dryrun.py::
 execute``) on reduced configs and small meshes of a fake process group in
@@ -45,15 +53,24 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
-JOIN_S = 120  # a world or a reference fails, instead of hanging, past this
-# a train reference compiles its step on each mesh (about 20 s each for the
-# reduced jamba alone), beside the other test workers' processes
+# A world or a reference fails, instead of hanging, once it has reported no
+# progress for this long: each child appends a line to its progress file
+# as it starts and as it ends each unit of its work (a mesh, a step), and
+# its deadline is that long after its start or its last line (``_left``),
+# so that a host loaded by the other test workers slows every unit without
+# failing it, while a child that hangs still fails within the limit
+JOIN_S = 120
+# a train reference's units are larger: the state's draw, and each mesh's
+# compilation of the step (80 s for the reduced jamba's first beside the
+# other test workers)
 REF_TRAIN_S = 300
 B, S = 2, 8  # batch and prompt; the cache holds S + DECODE_PAD = 24 rows
 N_DECODE = 2
@@ -63,7 +80,47 @@ N_DECODE = 2
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1",
               "OPENBLAS_NUM_THREADS": "1"}
 
-REF_SCRIPT = r"""
+# JAX references that run at once, over every test worker of a session:
+# each reference takes one of this many lock files before it starts
+# (``_PRELUDE``'s ``take_slot``), so that the test workers' references,
+# all of a file's started at once, do not oversubscribe the cores
+REF_SLOTS = max(2, (os.cpu_count() or 4) // 2)
+
+# the start of a child's script: its report of progress (``report``), and
+# its slot among the references (``take_slot``), waited for with a report
+# every 10 s, then held until the child ends
+_PRELUDE = r"""
+import os, time
+
+
+def report(what):
+    with open(os.environ["SHARDED_PROGRESS"], "a") as fh:
+        fh.write(f"{time.time():.3f} {what}\n")
+
+
+def take_slot():
+    import fcntl
+
+    slots, said = os.environ.get("SHARDED_SLOTS"), 0.0
+    while slots:
+        for i in range(int(os.environ["SHARDED_SLOT_COUNT"])):
+            fh = open(os.path.join(slots, f"reference_slot{i}"), "a")
+            try:
+                fcntl.flock(fh, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                return fh
+            except OSError:
+                fh.close()
+        if time.time() - said >= 10:
+            report("waiting for a slot")
+            said = time.time()
+        time.sleep(0.2)
+
+
+slot = take_slot()
+report("started")
+"""
+
+REF_SCRIPT = _PRELUDE + r"""
 import json, sys
 import numpy as np
 import jax, jax.numpy as jnp
@@ -77,6 +134,7 @@ from repro.models.params import spec_to_pspecs
 name, overrides, B, S, n_decode, meshes, noise, out = json.loads(sys.argv[1])
 cfg = reduced(get_config(name), **overrides)
 params = model.init_params(cfg, jax.random.PRNGKey(0))
+report("parameters")
 rng = np.random.default_rng(0)
 L = S + specs.DECODE_PAD
 
@@ -146,6 +204,7 @@ def run(params, mesh):
             logits, cache = prefill(params, jb)
     got["logits0"] = np.asarray(logits)
     got.update(flat(cache, "prefill/"))
+    report("prefill")
     if not steps:
         return got
     if mesh is None:
@@ -167,6 +226,7 @@ def run(params, mesh):
                                     st.items()}, sh_in[1])
                 logits, cache = decode(p_dec, b, cache, jnp.int32(S + i))
                 got[f"logits{i + 1}"] = np.asarray(logits)
+                report(f"decode step {i}")
     got.update(flat(cache, "decode/"))
     return got
 
@@ -177,11 +237,13 @@ for shape in meshes:
                 ("data", "model"))
     tag = f"{shape[0]}x{shape[1]}"
     res.update({f"{tag}/{k}": v for k, v in run(params, mesh).items()})
+    report("mesh " + tag)
 if noise:
     # the reference's own move, unsharded, when its embeddings move by
     # 1e-7 (relative): the most over ``noise`` draws, for each output
     clean = run(params, None)
     for seed in range(noise):
+        report(f"noise {seed}")
         noisy = dict(params)
         noisy["embed"] = params["embed"] * (1 + 1e-7 * jax.random.normal(
             jax.random.PRNGKey(seed), params["embed"].shape))
@@ -199,7 +261,7 @@ np.savez(out + "/ref.npz", **res)
 # constrain_like), handed out of the step in the parameters' layout by
 # wrapping its apply_updates; with ``noise``, its own move on the first mesh
 # under 1e-7 noise on the stack's inputs.
-REF_TRAIN_SCRIPT = r"""
+REF_TRAIN_SCRIPT = _PRELUDE + r"""
 import json, sys
 import numpy as np
 import jax, jax.numpy as jnp
@@ -212,6 +274,7 @@ from repro.train import optimizer, train_loop
 name, overrides, B, S, accum, meshes, noise, out = json.loads(sys.argv[1])
 cfg = reduced(get_config(name), **overrides)
 state = train_loop.init_state(cfg, jax.random.PRNGKey(0))
+report("state")
 tc = train_loop.TrainConfig(accum_steps=accum)
 rng = np.random.default_rng(0)
 
@@ -294,6 +357,7 @@ def run(state, mesh, batches=batches):
             got.update(flat(st.params, f"params{i}/"))
             got.update(flat(st.opt.mu, f"mu{i}/"))
             got.update(flat(st.opt.nu, f"nu{i}/"))
+            report(f"step {i}")
     return got
 
 
@@ -305,6 +369,7 @@ for shape in meshes:
     got = run(state, mesh)
     first = first or (mesh, got)
     res.update({f"{shape[0]}x{shape[1]}/{k}": v for k, v in got.items()})
+    report(f"mesh {shape[0]}x{shape[1]}")
 if noise:
     # the reference's own move on the first mesh (its step compiled once)
     # when the stack's inputs, its embeddings and the batch's frames or
@@ -317,6 +382,7 @@ if noise:
             key, a.shape)))).astype(a.dtype)
 
     for seed in range(noise):
+        report(f"noise {seed}")
         key = jax.random.PRNGKey(seed)
         p = dict(state.params, embed=moved(state.params["embed"], key))
         bs = [{k: moved(v, jax.random.fold_in(key, 2 * j + n))
@@ -340,7 +406,7 @@ def reference_train(tmp: Path, name: str, overrides: dict, meshes,
     tmp/params.npz, then tmp/ref.npz."""
     proc = _start(REF_TRAIN_SCRIPT, [name, overrides, TRAIN_B, seq, accum,
                                      [list(m) for m in meshes], noise,
-                                     str(tmp)])
+                                     str(tmp)], tmp)
     proc.limit = REF_TRAIN_S
     return proc
 
@@ -349,18 +415,84 @@ def tag(shape) -> str:
     return f"{shape[0]}x{shape[1]}"
 
 
-def _start(script: str, arg) -> subprocess.Popen:
+def _start(script: str, arg, tmp=None, slots=None) -> subprocess.Popen:
     """A JAX subprocess running ``script`` on ``arg`` (JSON), on four host
     devices, one thread: XLA's CPU client otherwise runs a pool of one
-    thread a core."""
+    thread a core.  A reference script (``_PRELUDE``) reports its progress
+    to tmp/progress and takes one of ``REF_SLOTS`` lock files in ``slots``
+    (default: the session's base temp dir, above the test worker's where
+    pytest-xdist runs the workers; ``tmp`` lies in the worker's).  Its
+    output goes to tmp/output, which no pipe can stop while it waits for
+    its turn, and it is watched until it is waited for (``_watch``)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4 "
                          "--xla_cpu_multi_thread_eigen=false", **ONE_THREAD)
-    proc = subprocess.Popen([sys.executable, "-c", script, json.dumps(arg)],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    proc.started = time.monotonic()
+    cmd = [sys.executable, "-c", script, json.dumps(arg)]
+    if tmp is None:
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        proc.started, proc.progress = time.monotonic(), None
+        return proc
+    if slots is None:
+        slots = Path(tmp).parent
+        if "PYTEST_XDIST_WORKER" in os.environ:
+            slots = slots.parent
+    env.update(SHARDED_PROGRESS=str(tmp / "progress"),
+               SHARDED_SLOTS=str(slots), SHARDED_SLOT_COUNT=str(REF_SLOTS))
+    with open(tmp / "output", "w") as out:
+        proc = subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+    proc.started, proc.progress = time.monotonic(), tmp / "progress"
+    proc.output = tmp / "output"
+    _LIVE.append(proc)
     return proc
+
+
+#: the references started and not yet waited for (``_watch``)
+_LIVE: list = []
+
+
+def _watch() -> None:
+    """Kill each reference of ``_LIVE`` that runs and has reported no
+    progress for its limit, marking it ``stalled`` for the wait that comes
+    to it: a reference holds its slot until it ends, and the test waits
+    for one reference at a time, while the others wait for slots."""
+    for p in _LIVE:
+        if p.poll() is None and _left(p, getattr(p, "limit", JOIN_S)) <= 0:
+            p.stalled = True
+            p.kill()
+
+
+def report(progress, what: str) -> None:
+    """Append "<time> <what>" to the progress file ``progress`` (a rank's
+    report; a child's script has its own, ``_PRELUDE``)."""
+    with open(progress, "a") as fh:
+        fh.write(f"{time.time():.3f} {what}\n")
+
+
+def _left(child, limit: float) -> float:
+    """The seconds left to ``child`` (a reference's ``Popen`` or a world's
+    spawn context, each with its ``started`` and ``progress``): ``limit``
+    after its start or after the last line of its progress file, whichever
+    is later."""
+    last = child.started
+    try:  # the file's time of change, on the monotonic clock
+        last = max(last, time.monotonic() - time.time()
+                   + os.path.getmtime(child.progress))
+    except (OSError, TypeError):
+        pass
+    return last + limit - time.monotonic()
+
+
+def _reports(child) -> str:
+    """The child's progress file, each line's time from its start."""
+    try:
+        lines = Path(child.progress).read_text().splitlines()
+    except (OSError, TypeError):
+        return "  none"
+    t0 = time.time() - (time.monotonic() - child.started)
+    return "\n".join(f"  {float(t) - t0:8.1f} s {what}" for t, what in
+                     (line.split(" ", 1) for line in lines)) or "  none"
 
 
 def reference(tmp: Path, name: str, overrides: dict, meshes,
@@ -370,23 +502,45 @@ def reference(tmp: Path, name: str, overrides: dict, meshes,
     noise on the embeddings, ``move/<key>``); it writes tmp/params.npz,
     then tmp/ref.npz."""
     return _start(REF_SCRIPT, [name, overrides, B, prompt, N_DECODE,
-                               [list(m) for m in meshes], noise, str(tmp)])
+                               [list(m) for m in meshes], noise, str(tmp)],
+                  tmp)
+
+
+def _wait(proc: subprocess.Popen, limit: float, what: str) -> tuple:
+    """Wait for the child ``proc`` to end and return its (stdout, stderr);
+    kill it and fail once it has reported no progress for ``limit`` while
+    it ran.  The other references are watched meanwhile (``_watch``)."""
+    try:
+        while True:
+            _watch()
+            if getattr(proc, "stalled", False) or (
+                    proc.poll() is None and _left(proc, limit) <= 0):
+                proc.kill()
+                proc.communicate()
+                raise AssertionError(f"{what} reported no progress in "
+                                     f"{limit} s; its reports:\n"
+                                     f"{_reports(proc)}")
+            try:
+                out, err = proc.communicate(timeout=min(max(
+                    _left(proc, limit), 0.1), 5.0))
+            except subprocess.TimeoutExpired:
+                continue
+            if not getattr(proc, "stalled", False):
+                break
+    finally:
+        if proc in _LIVE:
+            _LIVE.remove(proc)
+    if getattr(proc, "output", None) is not None:
+        out = Path(proc.output).read_text(errors="replace")
+    return out, err
 
 
 def wait_reference(proc: subprocess.Popen) -> None:
-    """Wait for a reference to end, at most ``JOIN_S`` from its start (a
-    train reference's ``REF_TRAIN_S``)."""
+    """Wait for a reference to end; fail once it has reported no progress
+    for ``JOIN_S`` (a train reference's ``REF_TRAIN_S``)."""
     if getattr(proc, "waited", False):
         return
-    limit = getattr(proc, "limit", JOIN_S)
-    left = limit - (time.monotonic() - getattr(proc, "started",
-                                               time.monotonic()))
-    try:
-        out, _ = proc.communicate(timeout=max(left, 0.1))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise AssertionError(f"the reference did not end in {limit} s")
+    out, _ = _wait(proc, getattr(proc, "limit", JOIN_S), "the reference")
     if proc.returncode != 0:
         raise AssertionError(f"the reference failed:\n{out[-3000:]}")
     proc.waited = True
@@ -487,14 +641,35 @@ def _batches(ref):
     return pick("batch/"), steps
 
 
-def _rank_main(rank, world, shape, store, name, overrides, tmp):
+@contextmanager
+def gloo_rank(rank: int, world: int, store: str, progress=None):
+    """A rank of a gloo world of ``world`` processes (a ``FileStore`` at
+    ``store``) as every rank here runs: on one thread (see ``ONE_THREAD``),
+    with DTensor's own collectives and plans refused
+    (``sharding.forbid_dtensor_collectives``, ``forbid_dtensor_plans``:
+    every move goes through ``sharding``), its start reported to the
+    progress file ``progress``; the group destroyed on leaving."""
     import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(1)  # see ONE_THREAD
+    from repro_torch.distributed import sharding as sh
+
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
+        sh.forbid_dtensor_collectives()
+        sh.forbid_dtensor_plans()
+        if progress is not None:
+            report(progress, f"rank {rank} started")
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank, world, shape, store, name, overrides, tmp):
+    progress = f"{tmp}/progress"
+    with gloo_rank(rank, world, store, progress):
         from repro_torch.configs.base import ShapeConfig, get_config, reduced
         from repro_torch.distributed import sharding as sh
         from repro_torch.launch import specs
@@ -509,7 +684,6 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         S = next(iter(batch.values())).shape[1]
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
-        sh.forbid_dtensor_collectives()
         out: dict = {}
         params = P.shard_params(cfg, full, mesh, sh.TRAIN_RULES)
         L = S + specs.DECODE_PAD
@@ -521,6 +695,7 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
             logits, cache = model.prefill(params, cfg, batch, max_len=L,
                                           device="cpu")
         out["collectives/prefill"] = coll
+        report(progress, f"rank {rank} prefill")
         out["bytes/params_train"] = [_local_bytes(params), _rule_bytes(
             P.param_specs(cfg), mesh, sh.TRAIN_RULES)]
         got = {"logits0": sh.full(logits)}
@@ -543,6 +718,7 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
                         sh.recording() as coll:
                     logits, cache = low.fn(params, step, cache, S + i)
                 out[f"collectives/decode{i}"] = coll
+                report(progress, f"rank {rank} decode step {i}")
                 got[f"logits{i + 1}"] = sh.full(logits)
             for i, layer in enumerate(cache):
                 for leaf, t in layer.items():
@@ -558,8 +734,6 @@ def _rank_main(rank, world, shape, store, name, overrides, tmp):
         if rank == 0:
             np.savez(f"{tmp}/port.npz",
                      **{k: v.numpy() for k, v in got.items()})
-    finally:
-        dist.destroy_process_group()
 
 
 def _state_bytes(cfg, mesh, rules) -> int:
@@ -591,12 +765,9 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
     import types
 
     import torch
-    import torch.distributed as dist
 
-    torch.set_num_threads(1)  # see ONE_THREAD
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
+    progress = f"{tmp}/progress"
+    with gloo_rank(rank, world, store, progress):
         from repro_torch.configs.base import ShapeConfig, get_config, reduced
         from repro_torch.distributed import sharding as sh
         from repro_torch.launch import specs
@@ -620,7 +791,6 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
         tc = train_loop.TrainConfig(accum_steps=accum)
         mesh = make_local_mesh(*shape, device="cpu")
         seen = _record_shapes()
-        sh.forbid_dtensor_collectives()
         low = specs.build_lowerable(cfg, ShapeConfig("train", seq, TRAIN_B,
                                                      "train"), mesh, tc)
         state = train_loop.state_from_jax(cfg, jstate, device="cpu",
@@ -649,6 +819,7 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
             for part, t in (("params", state.params), ("mu", state.opt.mu),
                             ("nu", state.opt.nu)):
                 record(f"{part}{i}/")(t)
+            report(progress, f"rank {rank} step {i}")
         out["bytes/state_after"] = _local_bytes(state)
         out["shapes"] = json.loads(json.dumps(seen))  # before the plain run
         if rank == 0:  # the port's own unsharded step on the same inputs
@@ -662,12 +833,19 @@ def _train_rank_main(rank, world, shape, store, name, overrides, accum,
                 for part, t in (("params", plain.params),
                                 ("mu", plain.opt.mu), ("nu", plain.opt.nu)):
                     record(f"plain/{part}{i}/")(t)
+                report(progress, f"rank {rank} unsharded step {i}")
             np.savez(f"{tmp}/port.npz", **{
                 k: v.detach().numpy() for k, v in got.items()})
         with open(f"{tmp}/rank{rank}.json", "w") as fh:
             json.dump(out, fh)
-    finally:
-        dist.destroy_process_group()
+
+
+# what the server process that forks the ranks imports, once a test worker
+# (``forkserver``): a rank that imported torch and the port itself would
+# spend about 4 s of CPU on it, and a run of the tests starts some 200
+_PRELOAD = ["torch", "torch.distributed.tensor", "repro_torch.launch.specs",
+            "repro_torch.models.model", "repro_torch.train.train_loop",
+            "torch_sharded_world"]
 
 
 def _spawn(tmp: Path, name: str, overrides: dict, shape, main=None,
@@ -675,44 +853,46 @@ def _spawn(tmp: Path, name: str, overrides: dict, shape, main=None,
     import torch.multiprocessing as mp
 
     n = shape[0] * shape[1]
-    # the ranks' own libraries read them too, as each rank starts; the
-    # caller's process keeps its own
+    mp.get_context("forkserver").set_forkserver_preload(_PRELOAD)
+    # the ranks' own libraries read them too, as the server starts (the
+    # first world's): the caller's process keeps its own
     saved = {k: os.environ.get(k) for k in ONE_THREAD}
     os.environ.update(ONE_THREAD)
     try:
-        return mp.spawn(main or _rank_main,
-                        args=(n, tuple(shape), str(tmp / "store"), name,
-                              overrides, *extra, str(tmp)),
-                        nprocs=n, join=False)
+        ctx = mp.start_processes(
+            main or _rank_main, args=(n, tuple(shape), str(tmp / "store"),
+                                      name, overrides, *extra, str(tmp)),
+            nprocs=n, join=False, start_method="forkserver")
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+    ctx.started, ctx.progress = time.monotonic(), tmp / "progress"
+    return ctx
 
 
 def _join(ctxs: dict) -> None:
     """Wait for every world ({shape: spawn context}) to end; kill them all
-    and fail past ``JOIN_S``."""
-    deadline = time.monotonic() + JOIN_S
+    and fail once one has reported no progress for ``JOIN_S``."""
+    left = dict(ctxs)
     try:
-        for shape, ctx in ctxs.items():
-            while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
+        while left:
+            _watch()
+            for shape, ctx in list(left.items()):
+                if ctx.join(timeout=0.5):
+                    del left[shape]
+                elif _left(ctx, JOIN_S) <= 0:
                     raise AssertionError(
-                        f"the {shape} world did not end in {JOIN_S} s")
+                        f"the {shape} world reported no progress in "
+                        f"{JOIN_S} s; its reports:\n{_reports(ctx)}")
     finally:
         for ctx in ctxs.values():
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
-
-
-def world(tmp: Path, name: str, overrides: dict, shape) -> None:
-    """Run the port's gloo world of shape[0] x shape[1] ranks to its end
-    (after the reference has written its files) in tmp."""
-    _join({tuple(shape): _spawn(tmp, name, overrides, shape)})
+                    p.join()
 
 
 def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None,
@@ -743,31 +923,27 @@ def run_all(tmp: Path, name: str, overrides: dict, meshes, proc=None,
 def run_cases(tmp_path_factory, cases: dict, start=None, main=None,
               extra_of=None) -> dict:
     """``run_all`` for each case of {case: (config name, overrides,
-    meshes, reference arguments)}, one case after the other, the next
-    case's reference started as this case's worlds start (``start(tmp,
-    name, overrides, meshes, *arguments)``, default ``reference``): at most
-    one reference and one case's worlds run at a time.  The ranks run
-    ``main`` with ``extra_of(case)``'s arguments.  Returns {case:
-    run_all's result}."""
+    meshes, reference arguments)}: every case's reference started at once
+    (``start(tmp, name, overrides, meshes, *arguments)``, default
+    ``reference``; each waits for its slot, ``REF_SLOTS``), then each
+    case's worlds in turn once its reference has ended, beside the later
+    cases' references.  The ranks run ``main`` with ``extra_of(case)``'s
+    arguments.  Returns {case: run_all's result}."""
     start = start or reference
     tmp = {c: tmp_path_factory.mktemp(f"sharded_{c}") for c in cases}
-    names = list(cases)
-    procs = {names[0]: start(tmp[names[0]], *cases[names[0]][:3],
-                             *cases[names[0]][3])}
+    procs = {c: start(tmp[c], *cases[c][:3], *cases[c][3]) for c in cases}
     out = {}
-    for i, c in enumerate(names):
-        name, overrides, meshes, _ = cases[c]
-        wait_reference(procs[c])
-        if i + 1 < len(names):
-            nxt = names[i + 1]
-            procs[nxt] = start(tmp[nxt], *cases[nxt][:3], *cases[nxt][3])
-        try:
+    try:
+        for c, (name, overrides, meshes, _) in cases.items():
             out[c] = run_all(tmp[c], name, overrides, meshes, procs[c],
                              main, extra_of(c) if extra_of else ())
-        except BaseException:
-            for p in procs.values():
-                p.kill()
-            raise
+    except BaseException:
+        for p in procs.values():
+            p.kill()
+            p.communicate()
+            if p in _LIVE:
+                _LIVE.remove(p)
+        raise
     return out
 
 
@@ -909,7 +1085,7 @@ def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1,
 
 # --- the dry run's cells on a fake group ---------------------------------
 
-FAKE_SCRIPT = r"""
+FAKE_SCRIPT = _PRELUDE + r"""
 import json, sys
 import torch
 torch.set_num_threads(1)
@@ -928,6 +1104,7 @@ for key, (name, overrides, step, S, B, mesh) in json.loads(sys.argv[1]).items():
                     shapes=shapes, kernels=sorted({c.kernel for c in
                                                    w["kernel_calls"]}),
                     redistributions=w["dtensor_redistributions"])
+    report("cell " + key)
 print(json.dumps(out))
 """
 
@@ -935,13 +1112,17 @@ print(json.dumps(out))
 def start_fake_cells(cases: dict) -> subprocess.Popen:
     """Start a child that executes the dry run's cells of {key: (config
     name, overrides of ``reduced``, step, S, global batch, mesh shape)};
-    ``fake_cells`` reads it."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **ONE_THREAD)
+    ``fake_cells`` reads it.  It reports its progress to a temporary
+    file, a line a cell."""
+    fd, progress = tempfile.mkstemp(prefix="fake_cells_")
+    os.close(fd)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               SHARDED_PROGRESS=progress, **ONE_THREAD)
     proc = subprocess.Popen([sys.executable, "-c", FAKE_SCRIPT,
                              json.dumps(cases)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
-    proc.started = time.monotonic()
+    proc.started, proc.progress = time.monotonic(), progress
     return proc
 
 
@@ -954,12 +1135,9 @@ def fake_cells(cases) -> dict:
     proc = cases if isinstance(cases, subprocess.Popen) else \
         start_fake_cells(cases)
     try:
-        out, err = proc.communicate(timeout=max(
-            0.1, JOIN_S - (time.monotonic() - proc.started)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise AssertionError(f"the dry run's cells did not end in {JOIN_S} s")
+        out, err = _wait(proc, JOIN_S, "the dry run's cells")
+    finally:
+        os.unlink(proc.progress)
     assert proc.returncode == 0, err[-3000:]
     return json.loads(out.strip().splitlines()[-1])
 
@@ -1072,6 +1250,36 @@ def assert_train_state_bytes(run, shape):
         assert rec["bytes/state_after"] == want, f"rank {r} after the steps"
 
 
+def _runs(calls: list) -> str:
+    """A list of calls as runs of equal entries: "N x entry, ..."."""
+    out = []
+    for c in calls:
+        if out and out[-1][1] == c:
+            out[-1][0] += 1
+        else:
+            out.append([1, c])
+    return ", ".join(f"{n} x {c}" for n, c in out) or "none"
+
+
+def assert_kernel_calls(ranks, want: dict) -> None:
+    """Each rank's record (``_record_shapes``'s lists) holds exactly the
+    calls of ``want`` ({kernel: [shapes, ...]}); a mismatch names the rank,
+    the kernel, the first index where the lists differ and both lists."""
+    for r, rec in enumerate(ranks):
+        for kernel, shapes in want.items():
+            got = rec["shapes"][kernel]
+            if got == shapes:
+                continue
+            i = next((i for i, (a, b) in enumerate(zip(got, shapes))
+                      if a != b), min(len(got), len(shapes)))
+            raise AssertionError(
+                f"rank {r} {kernel}: {len(got)} calls, {len(shapes)} "
+                f"expected; first difference at call {i}: "
+                f"{got[i] if i < len(got) else 'none'} against "
+                f"{shapes[i] if i < len(shapes) else 'none'}\n"
+                f"  got:      {_runs(got)}\n  expected: {_runs(shapes)}")
+
+
 def assert_train_kernel_shapes(run, cfg, shape, accum=1, seq=S):
     """Each microbatch of each step runs every layer's kernel twice (the
     forward and its recomputation under remat) on the rank's batch rows
@@ -1079,9 +1287,7 @@ def assert_train_kernel_shapes(run, cfg, shape, accum=1, seq=S):
     same local shape."""
     want = train_kernel_shapes(cfg, shape, 2 * STEPS * accum, accum, seq)
     assert sum(len(v) for v in want.values()) > 0
-    for rec in run[0][tag(shape)][1]:
-        for kernel, shapes in want.items():
-            assert rec["shapes"][kernel] == shapes, kernel
+    assert_kernel_calls(run[0][tag(shape)][1], want)
 
 
 # each case: the input's placements on the (1, 2) mesh's "model" axis, the
@@ -1105,18 +1311,13 @@ def grad_world(rank, store, out_dir):
     """A rank of the world of ``GRAD_CASES``: writes {case: [the largest
     |gradient - W| of its shard, the gradient's placements]}."""
     import torch
-    import torch.distributed as dist
 
-    torch.set_num_threads(1)  # see ONE_THREAD
-    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
-                            rank=rank, world_size=2)
-    try:
+    with gloo_rank(rank, 2, store):
         from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
         from repro_torch.distributed import sharding as sh
         from repro_torch.launch.mesh import make_local_mesh
 
-        sh.forbid_dtensor_collectives()
         mesh = make_local_mesh(1, 2, device="cpu")
         pl = {"shard": Shard(0), "replicate": Replicate(),
               "partial": Partial()}
@@ -1159,5 +1360,39 @@ def grad_world(rank, store, out_dir):
                 res[case] = [float((g - want).abs().max()), got_pl]
         with open(os.path.join(out_dir, f"grads{rank}.json"), "w") as fh:
             json.dump(res, fh)
-    finally:
-        dist.destroy_process_group()
+
+
+# --- the harness's own guards ---------------------------------------------
+
+def plan_rank(rank, world, shape, store, name, overrides, tmp):
+    """A rank of a (1, 2) world under ``gloo_rank`` that adds two DTensors
+    laid out alike, which needs no plan, then a ``Shard(0)`` and a
+    ``Partial()`` one, for which DTensor plans a redistribution of its
+    own: the rank must fail there."""
+    import torch
+    import torch.distributed
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    with gloo_rank(rank, world, store, f"{tmp}/progress"):
+        mesh = make_local_mesh(*shape, device="cpu")
+
+        def placed(p):  # a (4, 3) DTensor: each rank's half, or its term
+            return DTensor.from_local(torch.ones(2 if p.is_shard() else 4,
+                                                 3), mesh, [Replicate(), p],
+                                      run_check=False)
+
+        placed(Shard(0)) + placed(Shard(0))
+        report(f"{tmp}/progress", f"rank {rank} added alike")
+        torch.distributed.barrier()  # both reported before either fails
+        placed(Shard(0)) + placed(Partial())
+
+
+def stall_rank(rank, world, shape, store, name, overrides, tmp):
+    """A rank that reports its progress ``name`` times, ``overrides``
+    seconds apart, then ends."""
+    with gloo_rank(rank, world, store, f"{tmp}/progress"):
+        for i in range(name):
+            time.sleep(overrides)
+            report(f"{tmp}/progress", f"rank {rank} {i}")
