@@ -315,6 +315,7 @@ import gc
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -3656,6 +3657,25 @@ def check_dry_run(child):
         print(f"phase 29(a) {what} (torch {torch.__version__}): "
               f"{own or 'none'}")
         require(not own, f"{what} in {len(own)} cells: {own}")
+    # the embedding's lookup at the reference's width (ROADMAP Queue C item
+    # 23): qwen3-8b's prefill on 16x16 gathers the tokens over "data", sums
+    # the rows of the table's 256 of 4096 columns a rank over "model" and
+    # moves them to the batch split by one all-to-all over "data"
+    c = ok[("qwen3-8b", "prefill_32k", "16x16")]
+    want = ["all-gather s32[32,32768]", "all-reduce bf16[32,32768,256]",
+            "all-to-all (" + ", ".join(["bf16[2,32768,256]"] * 16) + ")"]
+    coll = c["collectives"]
+    # an all-to-all's pieces, one a rank, as "<n> x <piece>"
+    calls = [re.sub(r"\((bf16\[[0-9,]+\])(, \1)*\)",
+                    lambda m: f"{m[0].count('bf16')} x {m[1]}", x)
+             for x in c["lookup"]]
+    print("phase 29(a) qwen3-8b x prefill_32k x 16x16: the lookup's "
+          f"collectives {'; '.join(calls)} (the reference's: the width "
+          f"split over \"data\"); all collectives "
+          f"{coll['total_bytes'] / 1e9:.4f} GB a device, the all-reduces "
+          f"{coll['all-reduce']['bytes'] / 1e9:.4f} GB")
+    require(c["lookup"] == want, f"qwen3-8b x prefill_32k x 16x16: the "
+            f"lookup's collectives {c['lookup']}, want {want}")
     top = sorted(ok.values(), key=lambda c: -c["memory"]["temp_size_in_bytes"])
     for c in top[:5]:
         mem = c["memory"]
@@ -4343,12 +4363,13 @@ def sharded_on_card(torch, ops, card, phase=30):
 
 class TrainJob(NamedTuple):
     """One run of phase 32: ``config`` at full width with ``overrides``
-    (its cut depth, the dtypes), on a ("data", "model") mesh of ``mesh``
-    over the two ranks, ``TRAIN_STEPS`` steps of a B x S batch; with
-    ``fan_in``, each dense weight drawn by the reference's rule is scaled
-    to std 1/sqrt(its contraction width) (``fan_in_init``); ``held``:
-    whether its loss, grad norm and update are held to the world-1 run
-    (else printed only)."""
+    (its cut depth, the dtypes), or with ``reduced`` the reduced config
+    (with ``overrides``), on a ("data", "model") mesh of ``mesh`` over the
+    two ranks, ``TRAIN_STEPS`` steps of a B x S batch; with ``fan_in``,
+    each dense weight drawn by the reference's rule is scaled to std
+    1/sqrt(its contraction width) (``fan_in_init``); ``held``: whether its
+    loss, grad norm and update are held to the world-1 run (else printed
+    only)."""
     config: str
     overrides: dict
     mesh: tuple
@@ -4356,6 +4377,7 @@ class TrainJob(NamedTuple):
     S: int
     fan_in: bool
     held: bool
+    reduced: bool = False
 
 
 # stablelm-1.6b on (2, 1): FSDP, each weight gathered over "data" before
@@ -4395,7 +4417,17 @@ class TrainJob(NamedTuple):
 # (ROADMAP Queue C item 19).  No config pairs at tp 2 (every config's KV
 # heads split over two ranks), so the override is the only way to reach
 # that path with two ranks; its depth is chosen for the script's time, not
-# by the budget.
+# by the budget.  Last, the reduced jamba with one KV head: its attention
+# has neither rope nor qk-norm, so k's gradient meets the reshape of its
+# projection straight from ``_paired``, where a strided partial gradient
+# made DTensor plan a reduction on the CPU (ROADMAP Queue C item 22).  It
+# runs its first 5 layers (Mamba, MoE at 1 and 3, the attention layer at
+# 4), as phase 31 holds jamba: on an H100 80GB HBM3 at 700 W its 16 reduced
+# layers held step 1 but moved step 2's grad norm by 3.23e-3 against a
+# limit of 1.58e-3 (the witness's 3.71e-4), and with its own 4 KV heads
+# step 1's gradients by 1.88e-4 of a leaf (the witness's 2.35e-4): the
+# 16-layer stack amplifies the ranks' rounding beyond what the rule
+# holds, with one KV head or four.
 TRAIN_STEPS = 2
 TRAIN_JOBS = (
     TrainJob("stablelm-1.6b", {"n_layers": 4}, (2, 1), 2, 512, False, False),
@@ -4418,7 +4450,9 @@ TRAIN_JOBS = (
     TrainJob("jamba-v0.1-52b", {"n_layers": 2, **F32}, (1, 2), 2, 512, True,
              True),
     TrainJob("qwen3-8b", {"n_layers": 2, "n_kv_heads": 1, **F32}, (1, 2), 2,
-             512, True, True))
+             512, True, True),
+    TrainJob("jamba-v0.1-52b", {"n_kv_heads": 1, "n_layers": 5}, (1, 2), 4,
+             64, True, True, reduced=True))
 # the jobs whose depth is chosen for the script's time, not by STATE_BUDGET
 TIME_CUT = ("stablelm-1.6b", "falcon-mamba-7b", "qwen3-8b")
 # the state of a job's world-1 run (and of its two ranks together) that its
@@ -4483,17 +4517,28 @@ def state_bytes(cfg):
                for s in leaves(param_specs(cfg)))
 
 
+def train_cfg(job):
+    """The config of a phase 32 job."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config, reduced
+
+    if job.reduced:
+        return reduced(get_config(job.config), **job.overrides)
+    return dataclasses.replace(get_config(job.config), **job.overrides)
+
+
 def cut_depth(job):
     """(the full config's layers, the job's state bytes, the state of one
-    layer more or None at full depth); for the six configs' jobs (those
-    not in ``TIME_CUT``) the phase requires the state within
+    layer more or None at full depth); for the six configs' full-width
+    jobs (those not in ``TIME_CUT``) the phase requires the state within
     ``STATE_BUDGET`` and one layer more beyond it."""
     import dataclasses
 
     from repro_torch.configs.base import get_config
 
     full = get_config(job.config)
-    cfg = dataclasses.replace(full, **job.overrides)
+    cfg = train_cfg(job)
     more = (None if cfg.n_layers >= full.n_layers else state_bytes(
         dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)))
     return full.n_layers, state_bytes(cfg), more
@@ -4514,9 +4559,7 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
     ``job.mesh`` without ``mesh``) of the first step's gradients before
     clipping (``grad_hook``; f32, CPU, with the largest |entry| of the
     rank's shard or of the whole leaf) and of the update (bf16, CPU)."""
-    import dataclasses
-
-    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import specs
     from repro_torch.models.params import ParamSpec, param_specs
@@ -4524,7 +4567,7 @@ def train_job_steps(torch, ops, job, mesh=None, noise=0.0):
     from repro_torch.train.data import DataConfig, TokenStream
     from repro_torch.train.tree import flatten_with_path, map_tree
 
-    cfg = dataclasses.replace(get_config(job.config), **job.overrides)
+    cfg = train_cfg(job)
     B, S = job.B, job.S
     tc = train_loop.TrainConfig(opt=optimizer.OptConfig(
         lr=1e-3, warmup_steps=1, total_steps=TRAIN_STEPS))
@@ -4689,9 +4732,11 @@ def train_sharded_rank(rank, store, out_dir):
         sh.forbid_dtensor_plans()
         res = {}
         for k, job in enumerate(TRAIN_JOBS):
+            t0 = time.perf_counter()
             try:
                 res[k] = train_job_steps(torch, ops, job,
                                          make_local_mesh(*job.mesh))
+                res[k]["wall_s"] = time.perf_counter() - t0
             except Exception as e:  # name the job in the rank's error
                 raise RuntimeError(f"phase 32 job {k}: {job.config} "
                                    f"{job.overrides} on {job.mesh}") from e
@@ -4830,7 +4875,6 @@ def train_sharded_on_card(torch, ops, card):
     witness's move, and the update's cosine >= 0.99.  The ranks refuse
     DTensor's own collectives and plans.  Returns the launches of both ranks' steps,
     summed."""
-    import dataclasses
     import tempfile
 
     import torch.multiprocessing as mp
@@ -4841,26 +4885,29 @@ def train_sharded_on_card(torch, ops, card):
     world1, witness, fails = [], [], []
     for job in TRAIN_JOBS:
         n_full, state, more = cut_depth(job)
-        n = job.overrides.get("n_layers", n_full)
-        cut = (f"at full depth, {n_full} layers" if n == n_full else
-               f"cut to {n} of {n_full} layers")
-        print(f"phase 32 {job.config} {job.overrides.get('dtype', 'bf16')}: "
+        cfg = train_cfg(job)
+        n = cfg.n_layers
+        cut = ("reduced" if job.reduced else f"at full depth, {n_full} layers"
+               if n == n_full else f"cut to {n} of {n_full} layers")
+        print(f"phase 32 {cfg.name} {cfg.dtype}: "
               f"{cut}; its state (parameters, gradients, two f32 moments) "
               f"{state / 1e9:.1f} GB" + ("" if more is None else
               f", {more / 1e9:.1f} GB with one layer more")
               + f" (budget {STATE_BUDGET / 1e9:.0f} GB of the card for the "
               f"world-1 run, and for the two ranks' halves beside each "
               f"other)")
-        if job.config not in TIME_CUT:
+        if job.config not in TIME_CUT and not job.reduced:
             if state > STATE_BUDGET or (more is not None
                                         and more <= STATE_BUDGET):
                 fails.append(f"{job.config}: {n} layers is not the depth "
                              f"that {STATE_BUDGET / 1e9:.0f} GB allows")
+        t0 = time.perf_counter()
         world1.append(train_job_steps(torch, ops, job))
         # the witness only for a held job: the same run, every parameter
         # moved by TRAIN_NOISE
         witness.append(run_moves(world1[-1], train_job_steps(
             torch, ops, job, noise=TRAIN_NOISE)) if job.held else None)
+        world1[-1]["wall_s"] = time.perf_counter() - t0
         torch.cuda.empty_cache()
     t_world1 = time.perf_counter() - t_phase
     with tempfile.TemporaryDirectory() as d:
@@ -4885,7 +4932,7 @@ def train_sharded_on_card(torch, ops, card):
             fails.append(msg)
 
     for k, job in enumerate(TRAIN_JOBS):
-        cfg = dataclasses.replace(get_config(job.config), **job.overrides)
+        cfg = train_cfg(job)
         want, wit = world1[k], witness[k]
         label = (f"{cfg.name} ({cfg.n_layers} of "
                  f"{get_config(job.config).n_layers} layers, {cfg.dtype}, "
@@ -4962,9 +5009,11 @@ def train_sharded_on_card(torch, ops, card):
               + f"; step 1's gradients within {g[0]:.3g} of a leaf's "
               f"largest entry (worst {g[1]}), {g[2]} of {g[3]} sampled "
               f"entries of opposite sign; the update's cosine "
-              f"{min(res[k]['cos'] for res in ranks):.6f}; the two ranks "
-              f"share one card and move their collectives through gloo on "
-              f"the host: not a multi-card speed [{card}]")
+              f"{min(res[k]['cos'] for res in ranks):.6f}; the job's wall "
+              f"{want['wall_s']:.1f} s in world 1 (with its witness), "
+              f"{max(res[k]['wall_s'] for res in ranks):.1f} s in the ranks; "
+              f"the two ranks share one card and move their collectives "
+              f"through gloo on the host: not a multi-card speed [{card}]")
         if wit:
             wg = wit["grads"]
             print(f"phase 32 {label}: witness, world 1 against world 1 with "

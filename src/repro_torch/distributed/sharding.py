@@ -29,7 +29,9 @@ on, so a plain tensor there is a leak.
 Every redistribution (``redistribute``: ``constrain``'s, ``distribute``'s
 and ``full``'s) runs its collectives through ``torch.distributed``'s own
 calls on the rank's shard (``all_gather_into_tensor``, ``all_reduce``,
-``reduce_scatter_tensor``) and rewraps it, never through DTensor's: with
+``reduce_scatter_tensor``, and ``all_to_all_single`` where a mesh axis
+moves its split from one dimension to another, as XLA's partitioner
+does) and rewraps it, never through DTensor's: with
 torch 2.11.0 and gloo on an H100 host, DTensor's functional all-gather of
 a CUDA tensor ended the process (SIGSEGV), while the plain calls moved the
 same tensors.  The
@@ -75,6 +77,10 @@ kind's factor (``note``; the dry run's counter also notes any collective
 of DTensor's own redistribution, which the models avoid).  The reference's ``count`` is the number of HLO
 instructions (a loop body's once), with only the bytes multiplied by trip
 counts; here both count what ran.  Off, it costs one test a collective.
+Given a dict, it also lists each collective issued under ``labelled(name)``
+(and by that code's transposes under autograd) as "<kind> <result>" in
+``calls[name]``, in order: the reference's op names, which attribute an
+HLO collective to the operation whose partitioning placed it.
 """
 from __future__ import annotations
 
@@ -168,6 +174,7 @@ def axis_sizes(mesh) -> dict:
 class _Ctx(threading.local):
     mesh = None
     rules: dict = TRAIN_RULES
+    label = None  # ``labelled``'s name
 
 
 _CTX = _Ctx()
@@ -189,30 +196,65 @@ def active_mesh():
 
 
 _RECORD: dict | None = None
+_CALLS: dict | None = None
 
 
 @contextmanager
-def recording():
+def recording(calls: Optional[dict] = None):
     """Record the collectives issued inside: yields {kind: {"count",
     "bytes"}} over every kind of ``COLLECTIVE_FACTOR``, filled as they
-    run (see the module's docstring)."""
-    global _RECORD
-    prev = _RECORD
+    run, and lists those issued under a ``labelled`` name in ``calls``
+    (see the module's docstring)."""
+    global _RECORD, _CALLS
+    prev = _RECORD, _CALLS
     _RECORD = {k: {"count": 0, "bytes": 0.0} for k in COLLECTIVE_FACTOR}
+    _CALLS = calls
     try:
         yield _RECORD
     finally:
-        _RECORD = prev
+        _RECORD, _CALLS = prev
+
+
+@contextmanager
+def labelled(name):
+    """List the collectives issued inside, and those their transposes
+    issue under autograd, under ``name`` in ``recording``'s calls."""
+    prev = _CTX.label
+    _CTX.label = name
+    try:
+        yield
+    finally:
+        _CTX.label = prev
+
+
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16", torch.int32: "s32", torch.int64: "s64",
+                torch.int16: "s16", torch.int8: "s8", torch.bool: "pred"}
+
+
+def _hlo_type(dtype, shape) -> str:
+    """A result's type as XLA prints it: "f32[2,8,32]"."""
+    dims = ",".join(map(str, shape))
+    return f"{_DTYPE_NAMES.get(dtype, str(dtype))}[{dims}]"
 
 
 def note(kind: str, result) -> None:
     """Add one collective of ``kind`` whose result is ``result`` to the
-    active record (``recording``), if any."""
+    active record (``recording``), if any.  An all-to-all's ``result``
+    holds the pieces a rank receives along its first dimension, one a
+    rank, which its listed result names as XLA's tuple does."""
     if _RECORD is not None:
         entry = _RECORD[kind]
         entry["count"] += 1
         entry["bytes"] += (result.numel() * result.element_size()
                            * COLLECTIVE_FACTOR[kind])
+    if _CALLS is not None and _CTX.label is not None:
+        if kind == "all-to-all":
+            piece = _hlo_type(result.dtype, result.shape[1:])
+            what = f"({', '.join([piece] * result.shape[0])})"
+        else:
+            what = _hlo_type(result.dtype, result.shape)
+        _CALLS.setdefault(_CTX.label, []).append(f"{kind} {what}")
 
 
 def recompute_context():
@@ -448,21 +490,25 @@ class _Redistribute(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, target):
-        ctx.placements = tuple(x.placements)
+        ctx.placements, ctx.label = tuple(x.placements), _CTX.label
         return _move(x, target)
 
     @staticmethod
     def backward(ctx, g):
-        return redistribute(g, _grad_placements(ctx.placements)), None
+        with labelled(ctx.label):
+            return redistribute(g, _grad_placements(ctx.placements)), None
 
 
 def redistribute(x, target):
     """The DTensor ``x`` with placements ``target`` on its mesh: first each
     mesh dimension that changes is summed (Partial: ``all_reduce``, or
-    ``reduce_scatter_tensor`` straight onto a split the target asks for) or
-    gathered (Shard: ``all_gather_into_tensor``) over its group, the inner
-    dimensions first; then each that the target splits takes the rank's
-    chunk.  A mesh dimension of one rank moves nothing: its shard or its
+    ``reduce_scatter_tensor`` straight onto a split the target asks for),
+    moves its split to the dimension the target splits
+    (``all_to_all_single``, where no other mesh dimension's split stands
+    in the way: ``_swaps``) or is gathered (Shard:
+    ``all_gather_into_tensor``) over its group, the inner dimensions
+    first; then each that the target splits takes the rank's chunk.  A
+    mesh dimension of one rank moves nothing: its shard or its
     sum is the whole (with gloo, a collective of a CUDA tensor would cross
     the host even then).  Values as ``DTensor.redistribute``'s.  Under
     autograd its gradient is the incoming gradient redistributed to
@@ -483,6 +529,7 @@ def _move(x, target):
     mesh = x.device_mesh
     cur = list(x.placements)
     t = x.to_local()
+    coord = mesh.get_coordinate()
     for m in reversed(range(mesh.ndim)):
         p = cur[m]
         if mesh.size(m) == 1:  # one rank: its shard, or its sum, is whole
@@ -507,6 +554,17 @@ def _move(x, target):
             t = t.contiguous().clone()
             dist.all_reduce(t, group=mesh.get_group(m))
             note("all-reduce", t)
+        elif _swaps(cur, target, m, mesh, x.ndim):
+            # the outer mesh dimensions that split the new dimension take
+            # their chunk first, so that the all-to-all's split is inner
+            b = target[m].dim % x.ndim
+            for k in range(m):
+                if cur[k] != target[k] and _splits(target[k], b, x.ndim):
+                    t, cur[k] = t.chunk(mesh.size(k), dim=b)[coord[k]], \
+                        target[k]
+            t = _all_to_all(t, mesh, m, p.dim % x.ndim, b)
+            cur[m] = target[m]
+            continue
         else:  # Shard(d): gather along d
             d, n = p.dim % x.ndim, mesh.size(m)
             src = t.movedim(d, 0).contiguous()
@@ -516,7 +574,6 @@ def _move(x, target):
             note("all-gather", out)
             t = out.movedim(0, d)
         cur[m] = Replicate()
-    coord = mesh.get_coordinate()
     for m in range(mesh.ndim):
         if target[m] != cur[m]:
             if not target[m].is_shard():
@@ -526,6 +583,46 @@ def _move(x, target):
     return DTensor.from_local(t.contiguous(), mesh, target, run_check=False,
                               shape=x.shape,
                               stride=_contiguous_strides(x.shape))
+
+
+def _splits(p, d: int, ndim: int) -> bool:
+    """Whether the placement ``p`` splits tensor dimension ``d``."""
+    return p.is_shard() and p.dim % ndim == d
+
+
+def _swaps(cur, target, m: int, mesh, ndim: int) -> bool:
+    """Whether mesh dimension m, splitting tensor dimension a in ``cur``
+    and b in ``target``, can move its split by one all-to-all: it is the
+    innermost split of a and of b (the inner mesh dimensions, handled
+    already, split neither), no outer one splits b but as the target
+    does, and those that split b only in the target replicate it now (they
+    take their chunk first)."""
+    p, q = cur[m], target[m]
+    if not (p.is_shard() and q.is_shard()):
+        return False
+    a, b = p.dim % ndim, q.dim % ndim
+    for k in range(len(cur)):
+        if k == m or mesh.size(k) == 1:
+            continue
+        if k > m and (_splits(cur[k], a, ndim) or _splits(cur[k], b, ndim)):
+            return False
+        if k < m and cur[k] != target[k] and (
+                _splits(cur[k], b, ndim) or _splits(target[k], b, ndim)
+                and not cur[k].is_replicate()):
+            return False
+    return True
+
+
+def _all_to_all(t, mesh, m: int, a: int, b: int):
+    """The rank's shard ``t``, split over mesh dimension m along a, split
+    along b instead: piece j of its b goes to rank j, and the pieces it
+    receives, one a rank, are joined along a in rank order."""
+    n = mesh.size(m)
+    src = torch.stack(t.chunk(n, dim=b))
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=mesh.get_group(m))
+    note("all-to-all", out)
+    return torch.cat(out.unbind(0), dim=a)
 
 
 def full(x, partial=()):
@@ -638,13 +735,14 @@ class _ReduceGrad(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, axes, mesh):
-        ctx.axes, ctx.mesh = axes, mesh
+        ctx.axes, ctx.mesh, ctx.label = axes, mesh, _CTX.label
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g.clone(), ctx.axes, dist.ReduceOp.SUM,
-                           ctx.mesh), None, None
+        with labelled(ctx.label):
+            return _all_reduce(g.clone(), ctx.axes, dist.ReduceOp.SUM,
+                               ctx.mesh), None, None
 
 
 def psum(t, axes, mesh=None):
@@ -764,14 +862,15 @@ class _FromLocal(torch.autograd.Function):
     def forward(ctx, t, mesh, pl, shape, grad_pl):
         from torch.distributed.tensor import DTensor
 
-        ctx.grad_pl = grad_pl
+        ctx.grad_pl, ctx.label = grad_pl, _CTX.label
         return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
                                   stride=_contiguous_strides(shape))
 
     @staticmethod
     def backward(ctx, g):
-        return (redistribute(g, ctx.grad_pl).to_local(), None, None, None,
-                None)
+        with labelled(ctx.label):
+            return (redistribute(g, ctx.grad_pl).to_local(), None, None,
+                    None, None)
 
 
 def wrap_local(t, mesh, pl, shape=None, partial_grad=()):

@@ -41,7 +41,10 @@ partitioner would refuse it.  The report keeps the reference's layout:
   issued (in ``collectives`` too), by the op they served, and
   ``dtensor_redistributions``: every redistribution DTensor planned by
   itself, collective or local, by the op and placements; the models are
-  laid out to need none of either (``{}``).
+  laid out to need none of either (``{}``);
+* ``lookup``: the collectives of the embedding's lookup and of its
+  transpose, in order, as "<kind> <result>" (``models/model.py::_embed``,
+  ``sharding.labelled``), the reference's attributed to ``jnp.take``.
 
 ``execute(cfg, shape, mesh_shape)`` does one cell's work for any config,
 shape and mesh (the tests run reduced configs on small fake meshes).  The
@@ -242,6 +245,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         memory=mem,
         dtensor_collectives=w["dtensor_collectives"],
         dtensor_redistributions=w["dtensor_redistributions"],
+        lookup=w["labelled_collectives"].get("lookup", []),
         fits_card=(mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
                    <= CHIP.hbm_bytes),
         unavailable=UNAVAILABLE,
@@ -256,6 +260,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             f"{k}:{v['count']}({v['bytes'] / 1e6:.1f}MB)"
             for k, v in coll.items() if isinstance(v, dict) and v["count"])
             + f" | total {coll['total_bytes'] / 1e6:.1f} MB/device")
+        print("lookup: " + ", ".join(cell["lookup"]))
         print(f"placed {w['place_s']:.1f}s executed {w['exec_s']:.1f}s")
     return cell
 

@@ -262,13 +262,16 @@ def count_work(args=()):
     reference's ``{kind: {"count", "bytes"}, "total_bytes"}``),
     "kernel_calls" (``_meta.Call``s), "collective_ops" (the collective ops
     seen, by name), "dtensor_collectives" (DTensor's own, by the op they
-    served) and "dtensor_redistributions" (the redistributions DTensor
-    planned by itself, by the op and placements).  ``args``: the step's
-    arguments, whose storages are not temporaries."""
+    served), "dtensor_redistributions" (the redistributions DTensor
+    planned by itself, by the op and placements) and
+    "labelled_collectives" (``sharding.recording``'s calls: {label:
+    ["<kind> <result>", ...]}).  ``args``: the step's arguments, whose
+    storages are not temporaries."""
     res: dict = {}
     counter = WorkCounter()
     counter.keep(args)
-    with sh.recording() as coll, _meta.recording() as calls, \
+    by_label: dict = {}
+    with sh.recording(by_label) as coll, _meta.recording() as calls, \
             _planned_redistributions(counter), counter:
         yield res
     coll["total_bytes"] = sum(v["bytes"] for v in coll.values())
@@ -278,4 +281,5 @@ def count_work(args=()):
         temp_size_in_bytes=counter.peak, collectives=coll,
         kernel_calls=calls, collective_ops=counter.collective_ops,
         dtensor_collectives=dict(counter.dtensor_collectives),
-        dtensor_redistributions=dict(counter.dtensor_redistributions))
+        dtensor_redistributions=dict(counter.dtensor_redistributions),
+        labelled_collectives=by_label)

@@ -199,17 +199,34 @@ def _paired(q, k, v, cfg: ModelConfig):
     Each rank's gradient of k and v is then its term of a sum over "model"
     (``Partial()``), as the gradient of the layer's input through its query
     heads is, so that autograd sums terms of one placement.  The heads are
-    picked in the projections' (B, S, Hkv, D) layout, where their gradient
-    comes back contiguous: DTensor reduces a partial sum that it must copy
-    (the reshape of a strided gradient) instead of keeping it partial."""
+    picked in the projections' (B, S, Hkv, D) layout, and their gradient is
+    made contiguous there (``_ContiguousGrad``): DTensor reduces a partial
+    sum that it must copy (the reshape of a strided gradient) instead of
+    keeping it partial.  A slice of every KV head (one KV head, say) is an
+    alias, whose gradient is the attention's own: strided on the CPU, where
+    autograd runs through the plain attention (the kernels' and the meta
+    routes' come back contiguous)."""
     tp, r = _model_rank(q)
     if tp == 1 or sh.shard_axes(k, 1) or not sh.shard_axes(q, 1):
         return k, v
     hl = cfg.n_heads // tp
     heads = range(r * hl, (r + 1) * hl)
-    return tuple(_heads_dtensor(_kv_for(
+    return tuple(_heads_dtensor(_ContiguousGrad.apply(_kv_for(
         sh.local(t, partial=("model",)).transpose(1, 2), heads,
-        cfg.q_per_kv).transpose(1, 2), tp, q.shape[0]) for t in (k, v))
+        cfg.q_per_kv)).transpose(1, 2), tp, q.shape[0]) for t in (k, v))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity; its gradient made contiguous (a copy where it is
+    strided, the values unchanged)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def _padded(q, k, v, cfg: ModelConfig):

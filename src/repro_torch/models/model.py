@@ -35,8 +35,8 @@ updated in place (the reference returns a new one).
 * Under a mesh (``sharding_ctx(mesh, rules)``, parameters placed by
   ``distribute``: ``launch/specs.py::build_lowerable`` gives both) prefill
   and decode run sharded.  The batch is distributed by its spec, each rank
-  looks the tokens up in its rows of the vocab-split table and the ranks'
-  rows are summed (``_embed_split``), every activation is a DTensor from
+  looks the tokens up in its shard of the vocab-split table and the ranks'
+  rows are summed (``_embed``), every activation is a DTensor from
   there on, the cache holds only each rank's shards (``init_cache``), and
   the logits come back vocab-sharded as DTensors (``sharding.full``
   gathers them).  Every config runs so: the frames, the vision
@@ -160,19 +160,31 @@ def _start(params, cfg: ModelConfig, device):
 
 def _embed(params, cfg: ModelConfig, batch: dict, dev, sharded=False):
     """(B, S, M) in ``cfg.dtype``: the frames, or the token embeddings with
-    the vision embeddings over their first rows; sharded, the gather from
-    the vocab-sharded table is split over the ranks, and each rank writes
-    the vision embeddings of its batch rows."""
+    the vision embeddings over their first rows; sharded, each rank writes
+    the vision embeddings of its batch rows.
+
+    Sharded, the lookup runs on the rank's shard of the table as the
+    reference's compiled ``jnp.take`` does (``_embed_split``): under
+    ``TRAIN_RULES`` (prefill, training) the table's width is split over
+    "data" ("embed_p", FSDP), and the rows are summed over the "vocab"
+    axes at that width, then moved to the activation's batch split by one
+    all-to-all over "data" (``redistribute``); the table's gradient comes
+    back on the rank's own shard.  Under ``DECODE_RULES`` "embed_p" splits
+    nothing, so decode sums whole rows and each rank keeps its batch rows
+    (a local chunk).  These collectives are listed as "lookup" in
+    ``sharding.recording``'s calls."""
     dt = dtype_of(cfg)
     if cfg.frontend == "audio_frames":
         x = _batch_tensor(batch["frames"], dev, sharded, "batch", None, None)
         return constrain(x.to(dt), "batch", "seq", None)
     tokens = _batch_tensor(batch["tokens"], dev, sharded, "batch", None)
     if sharded:
-        x = _embed_split(tokens, sh.gathered(params["embed"])).to(dt)
+        with sh.labelled("lookup"):
+            x = constrain(_embed_split(tokens, params["embed"]).to(dt),
+                          "batch", "seq", None)
     else:
-        x = F.embedding(tokens, params["embed"]).to(dt)
-    x = constrain(x, "batch", "seq", None)
+        x = constrain(F.embedding(tokens, params["embed"]).to(dt), "batch",
+                      "seq", None)
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         v = _batch_tensor(batch["vision_embeds"], dev, sharded, "batch", None,
                           None)
@@ -189,17 +201,27 @@ def _embed(params, cfg: ModelConfig, batch: dict, dev, sharded=False):
 
 
 def _embed_split(tokens, table):
-    """The embedding from a table whose rows are split over the ranks:
-    every rank looks up every token in its rows (zero where another rank
-    holds the token's row), and the sum over the ranks keeps each token's
-    one row, exactly.  Returns a DTensor replicated over the mesh."""
+    """The embedding from the rank's shard of a table whose rows and
+    columns may be split over the ranks: every rank looks up every token of
+    the batch in its rows, at its columns (zero where another rank holds
+    the token's row), and the sum over the ranks that split the rows keeps
+    each token's one row, exactly.  Returns a (B, S, M) DTensor split by
+    columns as the table is (over its axes of more than one rank),
+    replicated over the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
     tokens = sh.local(constrain(tokens, None, None))
     rows, r0 = sh.local(table), sh.local_offset(table, 0)
     idx = tokens.long() - r0
     hit = (idx >= 0) & (idx < rows.shape[0])
     x = F.embedding(idx.clamp(0, rows.shape[0] - 1), rows) * hit[..., None]
     x = sh.psum(x, sh.shard_axes(table, 0))
-    return sh.from_local(x, x.shape, None, None, None)
+    mesh = table.device_mesh
+    cols = sh.shard_axes(table, 1)
+    return sh.wrap_local(x, mesh, [
+        Shard(2) if name in cols and mesh.size(m) > 1 else Replicate()
+        for m, name in enumerate(mesh.mesh_dim_names)],
+        shape=(*x.shape[:2], table.shape[1]))
 
 
 def _off_index(stream0, index, rows) -> bool:

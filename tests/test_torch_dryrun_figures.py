@@ -20,15 +20,23 @@ the child's default group, and this worker may hold another):
   cell's above 0;
 * the pointwise ops' fast path gives the meta kernels' shapes, dtypes and
   strides;
+* a microbatch whose rows do not split over every batch axis (jamba's
+  16 microbatches of 2 rows on (2, 2, 1)) splits over "pod" alone, one
+  row a device, in the port's executed step as in the reference's
+  compiled one;
 * each kernel's ``cost`` through ``chip_smoke.bound_ms`` gives the bounds
   PERF.md's kernel table records;
 * the reduced qwen3-8b prefill and train cells on (1, 2) and (2, 2)
   against the reference's compiled cells (a JAX child on four host
   devices doing ``repro.launch.dryrun.run_cell``'s compile): the wire
-  bytes by kind side by side, their totals within a factor of 4.
+  bytes by kind side by side, their totals within a factor of 4; and the
+  collectives of the embedding's lookup and of its transpose one by one,
+  kind and result, the port's (``sharding.labelled("lookup")``) against
+  those the reference's HLO attributes to ``jnp.take``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -79,6 +87,7 @@ def _cells() -> dict:
             key = f"qwen3-G2/{world.tag(mesh)}/{step}"
             cells.setdefault(key, (name, ov, step, world.S, _batch(step),
                                    list(mesh)))
+    cells["pod"] = POD_CELL
     return cells
 
 
@@ -94,9 +103,8 @@ from repro.launch.specs import build_lowerable
 out = {}
 for key, (name, ov, step, S, B, shape) in json.loads(sys.argv[1]).items():
     cfg = reduced(get_config(name), **ov)
-    n = shape[0] * shape[1]
-    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
-                ("data", "model"))
+    mesh = Mesh(np.asarray(jax.devices()[:int(np.prod(shape))]).reshape(
+        shape), ("pod", "data", "model")[-len(shape):])
     low = build_lowerable(cfg, ShapeConfig(step, S, B, step), mesh)
     to_ns = lambda tree: jax.tree_util.tree_map(
         lambda ps: NamedSharding(mesh, ps), tree,
@@ -107,21 +115,41 @@ for key, (name, ov, step, S, B, shape) in json.loads(sys.argv[1]).items():
                            donate_argnums=low.donate_argnums).lower(
             *low.args_sds).compile()
     text = compiled.as_text()
-    # the collectives of the embedding's lookup (jnp.take), kind and result
-    lookup = re.findall(r"= (\S+) (all-gather|all-reduce|reduce-scatter|"
-                        r"all-to-all|collective-permute)(?:-start)?\(.*"
-                        r"op_name=\"[^\"]*_take", text)
+    # the collectives of the embedding's lookup (jnp.take) and of its
+    # transpose, kind and result (an all-to-all's a tuple), without layouts
+    lookup = re.findall(r"= (\([^)]*\)|\S+) (all-gather|all-reduce|"
+                        r"reduce-scatter|all-to-all|collective-permute)"
+                        r"(?:-start)?\(.*op_name=\"[^\"]*_take", text)
+    # the rows a device of each layer's query projection (B, S, H, D)
+    rows = re.findall(r"= f32\[(\d+),\d+,\d+,\d+\][{][^}]*[}] [a-z-]+\(.*"
+                      r"op_name=\"[^\"]*bsm,mhd->bshd/dot_general", text)
+    cost = compiled.cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
     out[key] = dict(collective_stats_attributed(text),
-                    lookup=[f"{k} {t.split('{')[0]}" for t, k in lookup])
+                    lookup=[k + " " + re.sub(r"[{][^}]*[}]", "", t)
+                            for t, k in lookup],
+                    rows=sorted({int(r) for r in rows}),
+                    flops=float(cost.get("flops", 0.0)))
 print(json.dumps(out))
 """
 
 
+# jamba under its own name, so that its train step takes the reference's
+# 16 microbatches (``TRAIN_ACCUM``), of 2 rows a microbatch on a ("pod",
+# "data", "model") mesh of (2, 2, 1), whose batch axes have 4 ranks: the
+# rows split over "pod" alone, as train_4k's 16 rows a microbatch do over
+# 2x16x16's 32 ranks of "pod" and "data"; one period of 8 layers
+POD_CELL = ("jamba-v0.1-52b",
+            {"name": "jamba-v0.1-52b", "n_layers": 8}, "train", world.S, 32,
+            [2, 2, 1])
+
+
 def _ref_cases() -> dict:
     name, ov = KERNEL_CASES["qwen3-G2"]
-    return {f"qwen3-G2/{world.tag(m)}/{step}": (name, ov, step, world.S,
-                                                _batch(step), list(m))
-            for m in REF_MESHES for step in ("prefill", "train")}
+    cases = {f"qwen3-G2/{world.tag(m)}/{step}": (name, ov, step, world.S,
+                                                 _batch(step), list(m))
+             for m in REF_MESHES for step in ("prefill", "train")}
+    return dict(cases, pod=POD_CELL)
 
 
 @pytest.fixture(scope="module")
@@ -349,7 +377,7 @@ def test_collectives_against_the_reference(runs):
     counts), the totals within a factor of 4; printed too, the
     reference's collectives of the embedding's lookup."""
     port, ref = runs
-    for key in sorted(ref):
+    for key in sorted(k for k in ref if k.startswith("qwen3-G2/")):
         got, want = port[key]["collectives"], ref[key]
         print(f"{key}: port {got['total_bytes']:.0f} B, reference "
               f"{want['total_bytes']:.0f} B (ratio "
@@ -357,6 +385,58 @@ def test_collectives_against_the_reference(runs):
               + ", ".join(f"{k} {got[k]['count']}/{want[k]['count']} calls "
                           f"{got[k]['bytes']:.0f}/{want[k]['bytes']:.0f} B"
                           for k in ref_hlo.COLLECTIVE_FACTOR)
-              + f"; the reference's lookup: {want['lookup']}")
+              + f"; the lookup: port {port[key]['lookup']}, reference "
+              f"{want['lookup']}")
         assert want["total_bytes"] / 4 <= got["total_bytes"] <= \
             4 * want["total_bytes"], key
+
+
+def _unit_dims_dropped(call: str) -> str:
+    """A collective's result with its dimensions of size 1 left out: XLA
+    keeps the gather's index-vector dimension on the tokens and the split
+    dimension on each piece of an all-to-all, the port neither."""
+    return re.sub(r"\[([0-9,]*)\]", lambda m: "[" + ",".join(
+        d for d in m.group(1).split(",") if d != "1") + "]", call)
+
+
+@pytest.mark.parametrize("step", ("prefill", "train"))
+@pytest.mark.parametrize("mesh", REF_MESHES, ids=world.tag)
+def test_lookup_collectives_are_the_references(runs, mesh, step):
+    """The reduced qwen3-8b's embedding lookup issues the reference's
+    collectives, one by one, kind and result shape: the tokens gathered
+    over "data", the rows summed over "model" at the table's width split
+    over "data" (f32[2,8,32] on (2, 2), not the whole width), and one
+    all-to-all over "data" to the batch split; in training the transpose's
+    all-to-all back.  Before each gather of the tokens the reference's HLO
+    also swaps the token shards of devices 1 and 2 (a collective-permute
+    of the rank's own (B / data, S) tokens), so that it gathers them over
+    the groups {0, 1} and {2, 3}; the port gathers over "data" directly,
+    and that permute is left out of the comparison."""
+    key = f"qwen3-G2/{world.tag(mesh)}/{step}"
+    got = [_unit_dims_dropped(c) for c in runs[0][key]["lookup"]]
+    shard = _unit_dims_dropped(
+        f"collective-permute s32[{_batch(step) // mesh[0]},{world.S}]")
+    want = []
+    for c in map(_unit_dims_dropped, runs[1][key]["lookup"]):
+        if c.startswith("collective-permute"):
+            assert c == shard, c
+            continue
+        want.append(c)
+    assert want and got == want, (got, runs[1][key]["lookup"])
+
+
+def test_a_microbatch_splits_as_the_references(runs):
+    """jamba's train step in 16 microbatches of 2 rows on a (2, 2, 1)
+    mesh: the batch axes ("pod", "data") have 4 ranks, which 2 rows do
+    not divide, and the longest prefix that divides, "pod", splits them.
+    The reference's compiled step does the same: each layer's query
+    projection in its microbatch loop holds 1 row a device, as each of the
+    port's attention calls does.  Printed too, each side's FLOPs a device
+    (the reference's ``cost_analysis`` counts a loop body once, the port's
+    executed count every microbatch)."""
+    port, ref = runs[0]["pod"], runs[1]["pod"]
+    rows = sorted({q[0] for q, *_ in port["shapes"]["flash_attention"]})
+    print(f"a microbatch's rows a device: port {rows}, reference "
+          f"{ref['rows']}; FLOPs a device: port {port['flops']:.6g} "
+          f"(executed), reference {ref['flops']:.6g} (loop bodies once)")
+    assert rows == ref["rows"] == [1]

@@ -26,6 +26,18 @@ term to a partial one); where they are partial sums that come back
 strided, the reshape of the projections' gradient planned one (DTensor
 reduces a partial sum that it must copy).  Decode planned one a layer
 too, where a rank's heads of the merged output met ``wo``'s split.
+
+Whether a gradient comes back strided depends on the kernel's route: the
+card's kernels and their meta routes return dK and dV contiguous in the
+projections' layout, the plain attention that the CPU runs returns them
+strided.  So the meta-route cells cannot see a plan that only the CPU's
+layout makes: jamba's one-KV-head train step at tp 2, which has neither
+rope nor qk-norm to copy k's gradient before the reshape, planned one at
+each attention layer in the live gloo ranks and none in its meta-route
+cell (ROADMAP Queue C item 22).  The train cells of that regime run
+again with the kernels' plain versions on the meta tensors ("-plain",
+``world.start_fake_cells``), and there that cell planned the reshape's
+reduction before ``_paired`` made the gradient contiguous.
 """
 import pytest
 
@@ -59,6 +71,9 @@ def _cases() -> dict:
                         continue
                     out[f"{name}/{kv}/{world.tag(mesh)}/{step}"] = (
                         name, ov, step, S, B, list(mesh))
+                    if ov and step == "train":  # the CPU's layouts too
+                        out[f"{name}/{kv}/{world.tag(mesh)}/train-plain"] = (
+                            name, ov, step, S, B, list(mesh), "plain")
     return out
 
 
@@ -82,7 +97,7 @@ def cells():
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_no_redistribution_of_dtensors_own(cells, case):
-    name, ov, step, _, _, mesh = CASES[case]
+    name, ov, step, _, _, mesh, *_ = CASES[case]
     cfg = reduced(get_config(name), **ov)
     if ov:  # "model" splits the query heads but not the KV heads
         assert cfg.n_heads % mesh[1] == 0 and cfg.n_kv_heads % mesh[1]

@@ -1087,14 +1087,35 @@ def train_kernel_shapes(cfg, shape, calls: int, accum: int = 1,
 
 FAKE_SCRIPT = _PRELUDE + r"""
 import json, sys
+from contextlib import ExitStack
+from unittest import mock
 import torch
 torch.set_num_threads(1)
 from repro_torch.configs.base import ShapeConfig, get_config, reduced
+from repro_torch.kernels import flash_attention as fa, ssm_scan as ssm
 from repro_torch.launch import dryrun
+
+
+def plain_fa(q, k, v, causal, window, q_pos, k_pos, route=None, **_):
+    return fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_pos=q_pos, k_pos=k_pos)
+
+
+def plain_ssm(dA, dBx, C, h0, **_):
+    return ssm.ssm_scan_plain(dA, dBx, C, h0)
+
+
 out = {}
-for key, (name, overrides, step, S, B, mesh) in json.loads(sys.argv[1]).items():
+for key, (name, overrides, step, S, B, mesh, *routes) in json.loads(
+        sys.argv[1]).items():
     cfg = reduced(get_config(name), **overrides)
-    w = dryrun.execute(cfg, ShapeConfig(step, S, B, step), mesh)
+    with ExitStack() as stack:
+        if routes == ["plain"]:  # the CPU's route, on meta tensors
+            stack.enter_context(mock.patch.object(fa, "_meta_forward",
+                                                  plain_fa))
+            stack.enter_context(mock.patch.object(ssm, "_meta_forward",
+                                                  plain_ssm))
+        w = dryrun.execute(cfg, ShapeConfig(step, S, B, step), mesh)
     shapes = {}
     for c in w["kernel_calls"]:
         shapes.setdefault(c.wrapper, []).append(
@@ -1103,7 +1124,8 @@ for key, (name, overrides, step, S, B, mesh) in json.loads(sys.argv[1]).items():
                     temp=w["temp_size_in_bytes"], collectives=w["collectives"],
                     shapes=shapes, kernels=sorted({c.kernel for c in
                                                    w["kernel_calls"]}),
-                    redistributions=w["dtensor_redistributions"])
+                    redistributions=w["dtensor_redistributions"],
+                    lookup=w["labelled_collectives"].get("lookup", []))
     report("cell " + key)
 print(json.dumps(out))
 """
@@ -1111,9 +1133,13 @@ print(json.dumps(out))
 
 def start_fake_cells(cases: dict) -> subprocess.Popen:
     """Start a child that executes the dry run's cells of {key: (config
-    name, overrides of ``reduced``, step, S, global batch, mesh shape)};
-    ``fake_cells`` reads it.  It reports its progress to a temporary
-    file, a line a cell."""
+    name, overrides of ``reduced``, step, S, global batch, mesh shape[,
+    "plain"])}; ``fake_cells`` reads it.  A cell marked "plain" runs the
+    attention and scan kernels' plain versions on the meta tensors in
+    place of their shape-only routes: autograd through them gives the
+    gradients the layouts they have on the CPU, where the routes give the
+    card kernels' (the layout decides some of DTensor's plans).  It
+    reports its progress to a temporary file, a line a cell."""
     fd, progress = tempfile.mkstemp(prefix="fake_cells_")
     os.close(fd)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -1130,8 +1156,9 @@ def fake_cells(cases) -> dict:
     """{key: {"flops", "bytes", "temp", "collectives", "shapes" (the local
     shapes each kernel wrapper's meta route ran on, as ``_record_shapes``
     gives them), "kernels", "redistributions" (those DTensor planned by
-    itself)}} of the cells (a dict as ``start_fake_cells`` takes, or the
-    child it started)."""
+    itself), "lookup" (the collectives of the embedding's lookup,
+    ``sharding.labelled``)}} of the cells (a dict as ``start_fake_cells``
+    takes, or the child it started)."""
     proc = cases if isinstance(cases, subprocess.Popen) else \
         start_fake_cells(cases)
     try:
